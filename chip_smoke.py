@@ -9,13 +9,15 @@ Phases, each of which raises on failure (the script then exits non-zero):
              (one process per source, in parallel) and print the card;
 2. kernels — hold each kernel against its plain PyTorch version on the card
              at the main path's shapes and at ragged / masked cases, and time
-             kernel, plain version and a library yardstick;
-3. parity  — the n = 2000, d = 16 sift replay (B = 8, flat and IVF) on the
+             kernel, plain version and a library yardstick (`pq_adc` must be
+             bitwise equal to its plain version);
+3. parity  — the n = 2000, d = 16 sift replay (B = 8; flat, IVF, IVF-PQ,
+             LSH and NSW at benchmarks/backends_bench.py's settings) on the
              card and on the CPU through the port with the same injected
              uniforms: NAG must agree to 1e-3;
 4. slice   — the batched AÇAI serving step at 1M x 128 (SIFT1M's shape):
-             AcaiCache with a flat and an IVF index, B = 8 and 64, with the
-             launch counts of every kernel read around each run.
+             AcaiCache with a flat, an IVF and an IVF-PQ index, B = 8 and
+             64, with the launch counts of every kernel read around each run.
 
 The last lines are the kernels JSON, the card's name and power limit, and
 {"ok": true, "device": {...}}.  Without a CUDA card, or run from a directory
@@ -42,12 +44,24 @@ FP32_FLOPS = 67e12
 N_FULL, D_FULL, T_FULL = 1_000_000, 128, 2048
 H_FULL, K_FULL, C_REMOTE, C_LOCAL = 400, 10, 64, 16
 IVF_FULL = {"nlist": 256, "nprobe": 16, "train_iters": 4}
+# IVF-PQ: the same coarse layer; m and refine are backends_bench.py's
+IVFPQ_FULL = {"nlist": 256, "nprobe": 16, "m": 8, "refine": 4}
+# the parity replay's backends: benchmarks/backends_bench.py's SPECS
+PARITY_SPECS = {"ivf": {"nlist": 48, "nprobe": 10},
+                "ivfpq": {"nlist": 48, "nprobe": 10, "m": 8, "refine": 4},
+                "lsh": {"tables": 12, "bits": 8},
+                "nsw": {"degree": 16, "beam": 48, "steps": 16}}
+# the kernels each index's query must launch (pairwise_l2 runs on every
+# path: the cached-row scan)
+NEEDS = {"flat": ("l2_topk",), "ivf": ("ivf_scan",),
+         "ivfpq": ("pq_adc", "ivf_scan"), "lsh": ("ivf_scan",), "nsw": ()}
 
 # the PyTorch calls timed as each kernel's library yardstick (`library_ms`)
 LIBRARY = {
     "pairwise_l2": "torch.cdist (euclidean, one call)",
     "l2_topk": "torch.topk(torch.cdist(q, x), k, largest=False)",
     "ivf_scan": "gather x[cand], torch.cdist, masked torch.topk",
+    "pq_adc": "torch.gather on the flattened LUT at codes[cand], sum over m",
 }
 
 KERNEL_META = {
@@ -57,6 +71,8 @@ KERNEL_META = {
                 "src/repro/kernels/l2_topk.py:103"),
     "ivf_scan": ("src/repro_torch/kernels/csrc/ivf_scan.cu",
                  "src/repro/kernels/ivf_scan.py:84"),
+    "pq_adc": ("src/repro_torch/kernels/csrc/pq_adc.cu",
+               "src/repro/kernels/pq_adc.py:60"),
 }
 
 
@@ -121,7 +137,30 @@ def compare(torch, what, got, want, ids=None):
     return err
 
 
-def kernel_phase(torch, ops, ref, catalog, reqs, ivf_index, dev):
+def pq_adc_library(torch, lut, codes, cand=None):
+    """The ADC scan in PyTorch ops (LIBRARY["pq_adc"]): the (B, P, M) code
+    slab gathered, offset into the flattened LUT, one torch.gather and a
+    sum over m; cand None is the dense form."""
+    b, m, c = lut.shape
+    rows = codes if cand is None else codes[cand.clamp_min(0).long()]
+    idx = rows.long() + torch.arange(m, device=lut.device) * c
+    idx = idx.reshape(1 if cand is None else b, -1).expand(b, -1)
+    d = torch.gather(lut.reshape(b, m * c), 1, idx).reshape(b, -1, m).sum(-1)
+    return d if cand is None else d.masked_fill(cand < 0, float("inf"))
+
+
+def check_equal(torch, what, got, want) -> float:
+    """pq_adc's contract: bitwise the plain version (same LUT, same order
+    of adds).  Returns the max abs error over finite slots (0)."""
+    if not torch.equal(got, want):
+        fin = torch.isfinite(want)
+        raise AssertionError(f"{what}: differs from the plain version (+inf "
+                             f"pattern equal: {torch.equal(torch.isfinite(got), fin)})")
+    log(f"  {what}: bitwise equal to the plain version")
+    return 0.0
+
+
+def kernel_phase(torch, ops, ref, catalog, reqs, ivf_index, pq_index, dev):
     """Each kernel against its plain version; returns the JSON rows."""
     errs = {name: 0.0 for name in KERNEL_META}
     g = torch.Generator(device=dev).manual_seed(1)
@@ -170,6 +209,18 @@ def kernel_phase(torch, ops, ref, catalog, reqs, ivf_index, dev):
         if not (torch.equal(gd, wd) and torch.equal(gi, wi)):
             raise AssertionError(f"ivf_scan ties k={k}: differs from the plain version")
     log("  ivf_scan ties 3x9000 k=1,10,64,128: equal to the plain version")
+    # pq_adc at tests/test_kernels.py's four shapes, dense and gathered
+    for (q, n, m, c) in [(2, 64, 4, 16), (128, 300, 8, 256), (5, 1000, 16, 256),
+                         (1, 50, 2, 4)]:
+        lut = torch.rand(q, m, c, device=dev, generator=g)
+        codes = torch.randint(0, c, (n, m), device=dev, generator=g, dtype=torch.uint8)
+        check_equal(torch, f"pq_adc dense {q}x{n} M={m} C={c}",
+                    ops.pq_adc(lut, codes), ref.pq_adc_ref(lut, codes))
+        cand = torch.randint(-1, n, (q, 3 * n + 7), device=dev, generator=g,
+                             dtype=torch.int32)
+        check_equal(torch, f"pq_adc gathered {q}x{3 * n + 7} M={m} C={c}",
+                    ops.pq_adc_gather(lut, codes, cand),
+                    ref.pq_adc_gather_ref(lut, codes, cand))
 
     log("kernels: main-path shapes (1M x 128, k = c_remote = 64)")
     rows, extra = {}, []
@@ -219,6 +270,25 @@ def kernel_phase(torch, ops, ref, catalog, reqs, ivf_index, dev):
                       f"distinct={ndistinct} D={d} k={C_REMOTE}",
                       t_k, t_p, t_l, bnd))
 
+        # pq_adc: the IVF-PQ index's ADC scan over its probe table
+        cand = pq_index.probe_table(q)
+        lut = pq_index.codec.adc_lut(q)
+        codes = pq_index.codes
+        p, (m, c) = cand.shape[1], lut.shape[1:]
+        nvalid = int((cand >= 0).sum())
+        ndistinct = int(torch.unique(cand[cand >= 0]).numel())
+        errs["pq_adc"] = max(errs["pq_adc"], check_equal(
+            torch, f"pq_adc B={b} P={p}", ops.pq_adc_gather(lut, codes, cand),
+            ref.pq_adc_gather_ref(lut, codes, cand)))
+        t_k = time_ms(torch, lambda: ops.pq_adc_gather(lut, codes, cand), 20)
+        t_p = time_ms(torch, lambda: ref.pq_adc_gather_ref(lut, codes, cand), 3, 1)
+        t_l = time_ms(torch, lambda: pq_adc_library(torch, lut, codes, cand), 3, 1)
+        # bytes: the table and the output, each distinct named code row
+        # once, the LUTs; one add per valid slot and subspace
+        bnd = bound_ms(8.0 * b * p + ndistinct * m + 4.0 * b * m * c, float(nvalid * m))
+        extra.append(("pq_adc", b, f"B={b} P={p} valid={nvalid} "
+                      f"distinct={ndistinct} M={m} C={c}", t_k, t_p, t_l, bnd))
+
         # pairwise_l2: the cached-row scan (B x 2h+64 gathered rows)
         cap = 2 * H_FULL + 64
         rows_c = catalog[torch.randperm(n, device=dev, generator=g)[:cap]].contiguous()
@@ -244,6 +314,18 @@ def kernel_phase(torch, ops, ref, catalog, reqs, ivf_index, dev):
     bnd = bound_ms(4.0 * (n * d + nc * d + n * nc), 2.0 * n * nc * d)
     extra.append(("pairwise_l2", "kmeans", f"Q={n} N={nc} D={d}", t_k, t_p, t_l, bnd))
 
+    # pq_adc's dense form over the whole catalog's codes (a flat PQ scan)
+    q = reqs[:8].contiguous()
+    lut, codes = pq_index.codec.adc_lut(q), pq_index.codes
+    m, c = lut.shape[1:]
+    errs["pq_adc"] = max(errs["pq_adc"], check_equal(
+        torch, f"pq_adc dense 8x{n}", ops.pq_adc(lut, codes), ref.pq_adc_ref(lut, codes)))
+    t_k = time_ms(torch, lambda: ops.pq_adc(lut, codes), 20)
+    t_p = time_ms(torch, lambda: ref.pq_adc_ref(lut, codes), 3, 1)
+    t_l = time_ms(torch, lambda: pq_adc_library(torch, lut, codes), 3, 1)
+    bnd = bound_ms(1.0 * n * m + 4.0 * 8 * m * c + 4.0 * 8 * n, 8.0 * n * m)
+    extra.append(("pq_adc", "dense", f"Q=8 N={n} M={m} C={c}", t_k, t_p, t_l, bnd))
+
     for name, b, shape, t_k, t_p, t_l, (bms, by) in extra:
         log(f"  time {name} [{shape}]: kernel_ms={t_k} plain_ms={t_p} "
             f"library_ms={t_l} bound_ms={bms} ({by})")
@@ -263,27 +345,44 @@ def parity_phase(torch, ops, dev):
     from repro_torch import convert
     from repro_torch.core import oma, policy, trace
     from repro_torch.core.costs import calibrate_fetch_cost
+    from repro_torch.index.base import IndexSpec, build_index
     from repro_torch.index.candidates import index_candidate_fn_batched
     from repro_torch.index.exact import FlatIndex
-    from repro_torch.index.ivf import IVFFlatIndex
 
     n, t, b = 2000, 2048, 8
     cat, reqs, _ = trace.sift_like(n=n, d=16, t=t, seed=0)
     c_f = calibrate_fetch_cost(cat, kth=50, sample=256, device="cpu")
     cfg = policy.AcaiConfig(h=64, k=8, c_f=c_f, c_remote=32, c_local=16,
                             oma=oma.OMAConfig(eta=0.05 / c_f))
-    cpu_ivf = IVFFlatIndex(cat, nlist=48, nprobe=10, device="cpu")
+    built = {kind: build_index(IndexSpec(kind, kw), cat, device="cpu")
+             for kind, kw in PARITY_SPECS.items()}
+
+    def load(kind, where):
+        """The CPU-built index's structures, on `where`."""
+        src = built.get(kind)
+        if kind == "flat":
+            return FlatIndex(cat, device=where)
+        if kind == "ivf":
+            return convert.ivf_from_numpy(cat, src.centroids.numpy(),
+                                          src.invlists.numpy(), src.nprobe, device=where)
+        if kind == "ivfpq":
+            return convert.ivfpq_from_numpy(
+                cat, src.centroids.numpy(), src.invlists.numpy(),
+                src.codec.codebooks.numpy(), src.codes.numpy(), src.nprobe,
+                src.refine, device=where)
+        if kind == "lsh":
+            return convert.lsh_from_numpy(cat, src.planes.numpy(), src.buckets.numpy(),
+                                          device=where)
+        return convert.nsw_from_numpy(cat, src.graph.numpy(), src.entry_points.numpy(),
+                                      src.beam, src.steps, src.expand, device=where)
+
     uniforms = torch.rand(t // b, n, generator=torch.Generator().manual_seed(7))
     state0 = policy.init_state(n, cfg, seed=0, device="cpu")
-    for kind in ("flat", "ivf"):
+    for kind in ("flat",) + tuple(PARITY_SPECS):
         out = {}
         for where in ("cpu", dev):
             catalog = torch.from_numpy(cat).to(where)
-            if kind == "flat":
-                index = FlatIndex(cat, device=where)
-            else:
-                index = convert.ivf_from_numpy(cat, cpu_ivf.centroids.numpy(),
-                                               cpu_ivf.invlists.numpy(), 10, device=where)
+            index = load(kind, where)
             fn = index_candidate_fn_batched(index, catalog, 32, 16, h=64)
             step = policy.make_step_batched(cfg, fn, b)
             state = convert.cache_state_from_numpy(state0.y.numpy(), state0.x.numpy(),
@@ -298,8 +397,7 @@ def parity_phase(torch, ops, dev):
             if where != "cpu":
                 torch.cuda.synchronize()
                 counts = dict(ops.LAUNCHES)
-                need = ("l2_topk",) if kind == "flat" else ("ivf_scan",)
-                for name in need + ("pairwise_l2",):
+                for name in NEEDS[kind] + ("pairwise_l2",):
                     if counts[name] == 0:
                         raise AssertionError(f"parity {kind}: {name} never launched")
                 log(f"  parity {kind} launches on the card: {counts}")
@@ -331,7 +429,8 @@ def slice_phase(torch, ops, catalog_np, reqs_np, dev):
         f"occupancy {float(state0.x.sum())}")
     reqs = torch.from_numpy(reqs_np).to(dev)
     total = {name: 0 for name in ops.LAUNCHES}
-    for spec in (IndexSpec("flat"), IndexSpec("ivf", IVF_FULL)):
+    for spec in (IndexSpec("flat"), IndexSpec("ivf", IVF_FULL),
+                 IndexSpec("ivfpq", IVFPQ_FULL)):
         for b in (8, 64):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -357,8 +456,7 @@ def slice_phase(torch, ops, catalog_np, reqs_np, dev):
             nag = cache.normalized_gain(float(g.sum()), T_FULL)
             if not 0.0 <= nag <= 1.0:
                 raise AssertionError(f"slice: NAG {nag} outside [0, 1]")
-            need = ("l2_topk",) if spec.backend == "flat" else ("ivf_scan",)
-            for name in need + ("pairwise_l2",):
+            for name in NEEDS[spec.backend] + ("pairwise_l2",):
                 if counts[name] == 0:
                     raise AssertionError(f"slice {spec.backend} B={b}: {name} "
                                          f"never launched")
@@ -388,6 +486,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     from repro_torch.core import trace
     from repro_torch.index.ivf import IVFFlatIndex
+    from repro_torch.index.pq import IVFPQIndex
     from repro_torch.kernels import _build, ops, ref
 
     dev = "cuda"
@@ -417,8 +516,15 @@ def main() -> int:
     log(f"data: IVF index for the kernel phase, longest list "
         f"{ivf_index.invlists.shape[1]} ({time.perf_counter() - t0} s)")
 
-    rows = kernel_phase(torch, ops, ref, catalog, reqs, ivf_index, dev)
-    del ivf_index
+    t0 = time.perf_counter()
+    pq_index = IVFPQIndex(catalog, device=dev, **IVFPQ_FULL)
+    torch.cuda.synchronize()
+    log(f"data: IVF-PQ index for the kernel phase, longest list "
+        f"{pq_index.invlists.shape[1]}, {pq_index.compressed_bytes()} compressed "
+        f"bytes ({time.perf_counter() - t0} s)")
+
+    rows = kernel_phase(torch, ops, ref, catalog, reqs, ivf_index, pq_index, dev)
+    del ivf_index, pq_index
     parity_phase(torch, ops, dev)
     launches = slice_phase(torch, ops, cat_np, reqs_np, dev)
     for name, row in rows.items():

@@ -1,8 +1,8 @@
 """Carry state and index structures into the port as numpy arrays.
 
-A cache state or an IVF index built elsewhere (for instance by the JAX
-reference) is handed over as plain arrays, so the port never reads a
-framework-specific object such as a JAX key.
+A cache state or an index (IVF, IVF-PQ, LSH, NSW) built elsewhere, for
+instance by the JAX reference, is handed over as plain arrays, so the
+port never reads a framework-specific object such as a JAX key.
 """
 
 from __future__ import annotations
@@ -13,6 +13,9 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core.policy import CacheState
 from repro_torch.index.ivf import IVFFlatIndex
+from repro_torch.index.lsh import LSHIndex
+from repro_torch.index.nsw import NSWIndex
+from repro_torch.index.pq import IVFPQIndex
 
 
 def cache_state_from_numpy(y, x, t: int = 0, seed: int = 0, device=None) -> CacheState:
@@ -32,3 +35,30 @@ def ivf_from_numpy(catalog, centroids, invlists, nprobe: int,
     return IVFFlatIndex(np.array(catalog, np.float32), nprobe=nprobe,
                         centroids=np.array(centroids, np.float32),
                         invlists=np.array(invlists, np.int32), device=device)
+
+
+def ivfpq_from_numpy(catalog, centroids, invlists, codebooks, codes,
+                     nprobe: int, refine: int, device=None) -> IVFPQIndex:
+    """IVFPQIndex over `catalog` (N, d) with the prebuilt coarse layer,
+    `codebooks` (m, ksub, d // m) and `codes` (N, m) in [0, ksub)."""
+    return IVFPQIndex(np.array(catalog, np.float32), nprobe=nprobe, refine=refine,
+                      centroids=np.array(centroids, np.float32),
+                      invlists=np.array(invlists, np.int32),
+                      codebooks=np.array(codebooks, np.float32),
+                      codes=np.array(codes), device=device)
+
+
+def lsh_from_numpy(catalog, planes, buckets, device=None) -> LSHIndex:
+    """LSHIndex over `catalog` with hyperplanes `planes` (tables, bits, d)
+    and the bucket table `buckets` (tables, 2**bits, cap; -1 pads)."""
+    return LSHIndex(np.array(catalog, np.float32), planes=np.array(planes, np.float32),
+                    buckets=np.array(buckets, np.int32), device=device)
+
+
+def nsw_from_numpy(catalog, graph, entry_points, beam: int, steps: int,
+                   expand: int, device=None) -> NSWIndex:
+    """NSWIndex over `catalog` with the neighbour table `graph` (N, degree)
+    and the beam's `entry_points`, searched with (beam, steps, expand)."""
+    return NSWIndex(np.array(catalog, np.float32), beam=beam, steps=steps,
+                    expand=expand, graph=np.array(graph, np.int32),
+                    entry_points=np.array(entry_points, np.int32), device=device)

@@ -2,7 +2,7 @@
 
 The static subset: the batched `Index` protocol, the serializable
 `IndexSpec`, and the registry that builds a backend from a spec, with the
-`flat` and `ivf` backends registered.  The mutable-catalog slab machinery
+`flat`, `ivf`, `ivfpq`, `lsh` and `nsw` backends registered.  The mutable-catalog slab machinery
 of the reference (ROADMAP A8) is not ported yet.
 """
 
@@ -178,3 +178,24 @@ def _build_ivf(catalog, device=None, **kw):
     from repro_torch.index.ivf import IVFFlatIndex
 
     return IVFFlatIndex(catalog, device=device, **kw)
+
+
+@register_backend("ivfpq")
+def _build_ivfpq(catalog, device=None, **kw):
+    from repro_torch.index.pq import IVFPQIndex
+
+    return IVFPQIndex(catalog, device=device, **kw)
+
+
+@register_backend("lsh")
+def _build_lsh(catalog, device=None, **kw):
+    from repro_torch.index.lsh import LSHIndex
+
+    return LSHIndex(catalog, device=device, **kw)
+
+
+@register_backend("nsw")
+def _build_nsw(catalog, device=None, **kw):
+    from repro_torch.index.nsw import NSWIndex
+
+    return NSWIndex(catalog, device=device, **kw)

@@ -20,7 +20,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-KERNELS = ("pairwise_l2", "l2_topk", "ivf_scan")
+KERNELS = ("pairwise_l2", "l2_topk", "ivf_scan", "pq_adc")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry points per library: name -> (restype, argtypes)
@@ -37,6 +37,10 @@ _SIGNATURES = {
         "ivf_scan_partial": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                   _I, _I, _P]),
         "ivf_scan_smem_bytes": (ctypes.c_longlong, [_I, _I]),
+    },
+    "pq_adc": {
+        "pq_adc": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
+        "pq_adc_smem_bytes": (ctypes.c_longlong, [_I, _I]),
     },
 }
 

@@ -15,12 +15,14 @@ import torch
 from repro_torch.kernels import _build, ref
 
 # kernel launches since the last reset_launches(), by kernel
-LAUNCHES = {"pairwise_l2": 0, "l2_topk": 0, "ivf_scan": 0}
+LAUNCHES = {"pairwise_l2": 0, "l2_topk": 0, "ivf_scan": 0, "pq_adc": 0}
 
 MAX_K = 128          # the top-k kernels keep four list slots per lane
 SMEM_LIMIT = 232448  # dynamic shared memory a block may use on Hopper
 _TARGET_BLOCKS = 4 * 132  # a few waves over the H100's 132 SMs
 IVF_MIN_RUN = 32     # an ivf_scan block selects k of at least this many x k
+PQ_MAX_C = 256       # pq_adc codes are uint8
+_PQ_THREADS = 256    # threads of a pq_adc block, one slot each at a time
 
 
 def reset_launches() -> None:
@@ -220,6 +222,80 @@ def ivf_scan_topk(q: torch.Tensor, x: torch.Tensor, cand: torch.Tensor, k: int,
     ids = torch.gather(cand, 1, torch.clamp_min(ppos, 0).long())
     ids = torch.where(torch.isfinite(vals), ids, torch.full_like(ids, -1))
     return vals, ids
+
+
+def pq_adc_chunks(b: int, p: int) -> tuple[int, int]:
+    """(run of P per block, blocks per query) of a `pq_adc` launch: enough
+    blocks for a few waves over the SMs, each run a whole number of block
+    widths.  Every block loads its query's LUT once for its run."""
+    target = max(1, _TARGET_BLOCKS * 2 // max(b, 1))
+    chunk = max(_PQ_THREADS, -(-p // target))
+    chunk = -(-chunk // _PQ_THREADS) * _PQ_THREADS
+    return chunk, -(-p // chunk)
+
+
+def _pq_adc_launch(lut: torch.Tensor, codes: torch.Tensor, cand):
+    """Checks and one `pq_adc` launch; cand None is the dense form."""
+    _check("pq_adc lut", lut, torch.float32, 3)
+    _check("pq_adc codes", codes, torch.uint8, 2)
+    b, m, c = lut.shape
+    n = codes.shape[0]
+    if codes.shape[1] != m:
+        raise ValueError(f"pq_adc: lut {tuple(lut.shape)} and codes "
+                         f"{tuple(codes.shape)} differ in M")
+    p = n
+    if cand is not None:
+        _check("pq_adc cand", cand, torch.int32, 2)
+        p = cand.shape[1]
+        if cand.shape[0] != b:
+            raise ValueError(f"pq_adc: lut {tuple(lut.shape)} and cand "
+                             f"{tuple(cand.shape)} differ in B")
+    if c > PQ_MAX_C:
+        raise NotImplementedError(f"pq_adc: C = {c} > {PQ_MAX_C} does not fit "
+                                  f"the kernel's uint8 codes")
+    lib = _build.load("pq_adc")
+    if lib.pq_adc_smem_bytes(m, c) > SMEM_LIMIT:
+        raise NotImplementedError(
+            f"pq_adc: an M = {m} x C = {c} LUT needs more shared memory than "
+            f"a block has")
+    if b > 65535:
+        raise NotImplementedError(f"pq_adc: B = {b} exceeds the grid")
+    out = torch.empty((b, p), dtype=torch.float32, device=lut.device)
+    if b == 0 or p == 0:
+        return out
+    chunk, nchunks = pq_adc_chunks(b, p)
+    vec8 = int(m % 8 == 0 and codes.data_ptr() % 8 == 0)
+    rc = lib.pq_adc(lut.data_ptr(), codes.data_ptr(),
+                    None if cand is None else cand.data_ptr(), out.data_ptr(),
+                    b, n, m, c, p, chunk, nchunks, vec8, _stream())
+    _raise_on(rc, "pq_adc")
+    LAUNCHES["pq_adc"] += 1
+    return out
+
+
+def pq_adc(lut: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
+    """PQ asymmetric distances: lut (Q, M, C) float32, codes (N, M) ->
+    (Q, N) float32, dist[q, n] = Σ_m lut[q, m, codes[n, m]], summed in m
+    order (bitwise the plain version's for the same LUT).
+
+    CUDA: contiguous float32 LUT with C <= 256, uint8 codes, the `pq_adc`
+    kernel."""
+    if not _on_cuda(lut, codes):
+        return ref.pq_adc_ref(lut, codes)
+    return _pq_adc_launch(lut, codes, None)
+
+
+def pq_adc_gather(lut: torch.Tensor, codes: torch.Tensor,
+                  cand: torch.Tensor) -> torch.Tensor:
+    """The ADC scan of a batch at its candidate rows, in one launch: lut
+    (B, M, C) float32, codes (N, M), cand (B, P) int32 with -1 = invalid
+    slot -> (B, P) float32, +inf on -1 slots.  The kernel reads each
+    slot's code row from `codes` itself; no (B, P, M) copy is made.
+
+    CUDA: as `pq_adc`, with contiguous int32 cand."""
+    if not _on_cuda(lut, codes, cand):
+        return ref.pq_adc_gather_ref(lut, codes, cand)
+    return _pq_adc_launch(lut, codes, cand)
 
 
 # the index layer's names: the dispatch is by tensor device, so the

@@ -71,3 +71,43 @@ def ivf_scan_ref(q: torch.Tensor, x: torch.Tensor, cand: torch.Tensor, k: int,
         ids = torch.cat([ids, ids.new_full((b, k - kk), -1)], dim=1)
         vals = torch.cat([vals, vals.new_full((b, k - kk), float("inf"))], dim=1)
     return vals, ids.to(torch.int32)
+
+
+def _adc_sum(lut: torch.Tensor, code_at) -> torch.Tensor:
+    """Σ_m lut[b, m, code_at(m)] for a (B, ...) index of codes per subspace,
+    summed in m order with one float32 add at a time: the reference
+    kernel's order (its fori_loop over m adds one one-hot product, which
+    has exactly one non-zero term, to the running sum), so the result is
+    bitwise ((0 + l_0) + l_1) + ...  Codes >= C add 0, as the one-hot does."""
+    lut = lut.float()
+    c = lut.shape[2]
+    acc = None
+    for mi in range(lut.shape[1]):
+        code = code_at(mi)
+        term = torch.gather(lut[:, mi, :], 1, torch.clamp(code, 0, c - 1))
+        term = torch.where(code < c, term, torch.zeros_like(term))
+        acc = term if acc is None else acc + term
+    return acc
+
+
+def pq_adc_ref(lut: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
+    """PQ asymmetric distances: lut (Q, M, C) float32 per-query,
+    per-subspace tables, codes (N, M) integer in [0, C) ->
+    (Q, N) float32, dist[q, n] = Σ_m lut[q, m, codes[n, m]]."""
+    q = lut.shape[0]
+    codes = codes.long()
+    return _adc_sum(lut, lambda mi: codes[:, mi][None, :].expand(q, -1))
+
+
+def pq_adc_gather_ref(lut: torch.Tensor, codes: torch.Tensor,
+                      cand: torch.Tensor) -> torch.Tensor:
+    """The ADC scan at per-query candidate rows: lut (B, M, C), codes
+    (N, M), cand (B, P) int with -1 marking an invalid slot ->
+    (B, P) float32, out[b, p] = Σ_m lut[b, m, codes[cand[b, p], m]] and
+    +inf on -1 slots.  Equal, slot for slot, to `pq_adc_ref(lut, codes)`
+    read at the candidate rows."""
+    cand = cand.long()
+    safe = torch.clamp_min(cand, 0)
+    codes = codes.long()
+    d = _adc_sum(lut, lambda mi: codes[:, mi][safe])
+    return torch.where(cand >= 0, d, torch.full_like(d, float("inf")))

@@ -3,11 +3,11 @@
     PYTHONPATH=src python -m repro_torch.profile_step [--steps 8] [--n 1000000]
 
 Builds the slice's 1M x 128 configuration (the one chip_smoke.py serves),
-then for each of flat and IVF at B = 8 and 64 runs a few warm steps and
-profiles `--steps` more with torch.profiler.  Prints, per run, the wall
-time per step, the device busy time per step (the union of kernel
-intervals on the card's timeline), the idle share (1 - busy / wall) and
-the device time by kernel name.  Needs a CUDA card; it does not fall back.
+then for each of flat, IVF and IVF-PQ at B = 8 and 64 runs a few warm
+steps and profiles `--steps` more with torch.profiler.  Prints, per run,
+the wall time per step, the device busy time per step (the union of
+kernel intervals on the card's timeline), the idle share (1 - busy /
+wall) and the device time by kernel name.  Needs a CUDA card; it does not fall back.
 """
 
 from __future__ import annotations
@@ -57,7 +57,8 @@ def main() -> None:
     state0 = policy.init_state(args.n, cfg, seed=0, device=dev)
     rq = torch.from_numpy(reqs).to(dev)
     for spec in (IndexSpec("flat"),
-                 IndexSpec("ivf", {"nlist": 256, "nprobe": 16, "train_iters": 4})):
+                 IndexSpec("ivf", {"nlist": 256, "nprobe": 16, "train_iters": 4}),
+                 IndexSpec("ivfpq", {"nlist": 256, "nprobe": 16, "m": 8, "refine": 4})):
         for b in (8, 64):
             cache = policy.AcaiCache(cat, dataclasses.replace(cfg, index=spec),
                                      device=dev, state=policy.copy_state(state0))
@@ -77,7 +78,7 @@ def main() -> None:
                   f"idle_share={1 - busy / wall_us}", flush=True)
             rows = [(e.key, e.device_time_total / args.steps, e.count // args.steps)
                     for e in prof.key_averages() if e.device_time_total > 0]
-            for key, us, count in sorted(rows, key=lambda r: -r[1])[:14]:
+            for key, us, count in sorted(rows, key=lambda r: -r[1])[:20]:
                 print(f"   {us:10.1f} us/step  x{count:<3d} {key[:90]}")
     print(f"card: {torch.cuda.get_device_name(0)}")
 

@@ -121,9 +121,9 @@ def test_index_candidate_slabs_match_reference(clustered, backend, b):
 
 
 def test_registry_and_specs():
-    assert tbase.registered_backends() == ("flat", "ivf")
+    assert tbase.registered_backends() == ("flat", "ivf", "ivfpq", "lsh", "nsw")
     with pytest.raises(ValueError, match=r"unknown index backend 'nope'; "
-                                         r"registered: flat, ivf"):
+                                         r"registered: flat, ivf, ivfpq, lsh, nsw"):
         tbase.resolve_spec("nope")
     assert tbase.resolve_spec("exact") is None
     assert tbase.resolve_spec({"backend": "exact"}) is None

@@ -57,6 +57,9 @@ def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
     from repro_torch.core.costs import calibrate_fetch_cost
     from repro_torch.index.exact import FlatIndex
     from repro_torch.index.ivf import IVFFlatIndex
+    from repro_torch.index.lsh import LSHIndex
+    from repro_torch.index.nsw import NSWIndex
+    from repro_torch.index.pq import IVFPQIndex
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cat = np.random.default_rng(0).random((40, 4), np.float32)
@@ -64,6 +67,9 @@ def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
     for call in (lambda: resolve_device(None),
                  lambda: FlatIndex(cat),
                  lambda: IVFFlatIndex(cat, nlist=4),
+                 lambda: IVFPQIndex(cat, nlist=4, m=2),
+                 lambda: LSHIndex(cat, tables=2, bits=3),
+                 lambda: NSWIndex(cat, degree=4, beam=4),
                  lambda: calibrate_fetch_cost(cat, kth=3),
                  lambda: policy.init_state(40, cfg),
                  lambda: policy.AcaiCache(cat, cfg)):

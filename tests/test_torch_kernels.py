@@ -152,7 +152,10 @@ def test_cuda_wrappers_refuse_what_the_kernels_do_not_take():
     # the plain versions count no kernel launch
     tops.reset_launches()
     tops.pairwise_l2(torch.zeros(2, 4), torch.zeros(3, 4))
-    assert tops.LAUNCHES == {"pairwise_l2": 0, "l2_topk": 0, "ivf_scan": 0}
+    tops.pq_adc_gather(torch.zeros(2, 2, 4), torch.zeros(3, 2, dtype=torch.uint8),
+                       torch.zeros(2, 5, dtype=torch.int32))
+    assert tops.LAUNCHES == {"pairwise_l2": 0, "l2_topk": 0, "ivf_scan": 0,
+                             "pq_adc": 0}
 
 
 @pytest.mark.parametrize("k", [1, 10, 64, 128])
