@@ -17,7 +17,25 @@ Phases, each of which raises on failure (the script then exits non-zero):
              uniforms: NAG must agree to 1e-3;
 4. slice   — the batched AÇAI serving step at 1M x 128 (SIFT1M's shape):
              AcaiCache with a flat, an IVF and an IVF-PQ index, B = 8 and
-             64, with the launch counts of every kernel read around each run.
+             64, with the launch counts of every kernel read around each run;
+5. flash   — `flash_attention` against its plain version on the card: f32
+             at tests/test_kernels.py's five shapes (<= 1e-4) and bf16 at
+             three full-width shapes (within 2^-8 of the output), timed at
+             the qwen1.5-0.5b prefill with bound, plain version and
+             scaled_dot_product_attention as the library yardstick; and
+             `l2_topk` at 64 x 1M x 1024 (the semantic tier's width);
+6. lm parity — qwen1.5-0.5b SMOKE in float32 with the flash path forced
+             (flash_threshold 32, flash_chunk 16), card against the CPU
+             port on the same weights and uniforms: generate tokens and
+             ServeEngine outputs equal, SemanticCachedLM NAG to 1e-3;
+7. lm slice — qwen1.5-0.5b at full width through
+             `repro_torch.launch.serve.main`: continuous batching of 8
+             prompts of 2048-8000 tokens over an 8192-token cache, then the
+             semantic tier over a 1M x 1024 catalog of earlier prompts'
+             embeddings under the exact and the flat index (requests repeat
+             catalog prompts with the paper's Zipf(0.9) popularity); every
+             prefill, the engine's and each generation's on a miss, must
+             launch flash_attention once a layer.
 
 The last lines are the kernels JSON, the card's name and power limit, and
 {"ok": true, "device": {...}}.  Without a CUDA card, or run from a directory
@@ -26,6 +44,7 @@ without the repository, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import subprocess
@@ -39,6 +58,7 @@ SRC = ROOT / "src"
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 FMA-unit FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+BF16_FLOPS = 989e12  # dense bf16 tensor-core rate
 
 # the slice's configuration: benchmarks/churn_bench.py's 1M x 128 cell
 N_FULL, D_FULL, T_FULL = 1_000_000, 128, 2048
@@ -62,6 +82,8 @@ LIBRARY = {
     "l2_topk": "torch.topk(torch.cdist(q, x), k, largest=False)",
     "ivf_scan": "gather x[cand], torch.cdist, masked torch.topk",
     "pq_adc": "torch.gather on the flattened LUT at codes[cand], sum over m",
+    "flash_attention": "torch.nn.functional.scaled_dot_product_attention with "
+                       "the same boolean mask",
 }
 
 KERNEL_META = {
@@ -73,7 +95,49 @@ KERNEL_META = {
                  "src/repro/kernels/ivf_scan.py:84"),
     "pq_adc": ("src/repro_torch/kernels/csrc/pq_adc.cu",
                "src/repro/kernels/pq_adc.py:60"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:100"),
 }
+
+# the LM tier: qwen1.5-0.5b (src/repro/configs/qwen1_5_0_5b.py) at full
+# width, random weights from seed 0; an 8192-token cache takes the flash
+# path (T >= flash_threshold 8192, T % flash_chunk 2048 == 0)
+LM_ARCH, LM_S_MAX = "qwen1.5-0.5b", 8192
+LM_COMMON = ["--arch", LM_ARCH, "--s-max", str(LM_S_MAX)]
+LM_RUNS = {
+    "engine": LM_COMMON + ["--batch", "4", "--requests", "8",
+                           "--prompt-len", "2048:8000", "--max-tokens", "16",
+                           "--catalog", "0"],
+    "semantic exact": LM_COMMON + [
+        "--batch", "8", "--requests", "32", "--query-batches", "8",
+        "--prompt-len", "512", "--max-tokens", "4", "--catalog", "1000000",
+        "--cache-size", "400", "--remote-index", "exact"],
+    "semantic flat": LM_COMMON + [
+        "--batch", "8", "--requests", "32", "--query-batches", "8",
+        "--prompt-len", "512", "--max-tokens", "4", "--catalog", "1000000",
+        "--cache-size", "400", "--remote-index", "flat"],
+}
+# the kernels each semantic-tier index launches: l2_topk in c_f's
+# calibration (and the flat scan), pairwise_l2 in the exact candidate scan
+# (and the flat path's cached-row scan)
+LM_NEEDS = ("pairwise_l2", "l2_topk")
+
+# flash_attention checks: tests/test_kernels.py:101-106's five shapes in
+# float32 (b, s, t, h, kv, d, causal, window; q_offset t - s,
+# written_upto t), two ragged ones, then three full-width bf16 shapes
+# (name, b, s, t, h, kv, d, causal, window, q_offset, written_upto)
+FLASH_F32 = [(2, 64, 64, 4, 2, 32, True, 0), (1, 128, 128, 8, 8, 64, True, 0),
+             (2, 64, 64, 4, 4, 32, False, 0), (2, 64, 64, 4, 2, 32, True, 24),
+             (1, 32, 128, 4, 2, 32, True, 0), (1, 100, 300, 4, 1, 16, True, 0),
+             (2, 77, 200, 4, 2, 128, True, 50)]
+FLASH_BF16 = [("qwen1.5-0.5b prefill", 1, 4096, 8192, 16, 16, 64, True, 0, 0, 4096),
+              ("yi-6b GQA", 1, 4096, 4096, 32, 4, 128, True, 0, 0, None),
+              ("window 4096", 1, 8192, 8192, 16, 16, 64, True, 4096, 0, None)]
+# bf16 output against the float32 plain version: the kernel's float32
+# result rounded once to bf16 is within 2^-8 of it, relative; the floor
+# covers the float32 sums of kernel and plain version (the phase logs how
+# far the float32 kernel is from the plain version on the same inputs)
+BF16_REL, F32_FLOOR = 2.0 ** -8, 1e-6
 
 
 def log(*a):
@@ -101,8 +165,8 @@ def time_ms(torch, fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(nbytes: float, flops: float):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
+def bound_ms(nbytes: float, flops: float, peak: float = FP32_FLOPS):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -470,6 +534,258 @@ def slice_phase(torch, ops, catalog_np, reqs_np, dev):
     return total
 
 
+def kept_pairs(b, s, t, causal, window, q_offset, written_upto) -> int:
+    """(query, key) pairs the flash mask keeps, summed over the batch."""
+    import torch
+
+    qp = q_offset + torch.arange(s, dtype=torch.int64)
+    hi = torch.full_like(qp, t if written_upto is None else min(t, written_upto))
+    if causal:
+        hi = torch.minimum(hi, qp + 1)
+    lo = (qp - window + 1).clamp_min(0) if window else torch.zeros_like(qp)
+    return b * int((hi - lo).clamp_min(0).sum())
+
+
+def flash_phase(torch, ops, ref, dev):
+    """flash_attention against its plain version, f32 and bf16; the timed
+    qwen1.5-0.5b prefill shape gives the JSON row."""
+    g = torch.Generator(device=dev).manual_seed(2)
+    err = 0.0
+    log("flash: float32 (max abs diff <= 1e-4 against the plain version)")
+    for (b, s, t, h, kv, d, causal, window) in FLASH_F32:
+        q = torch.randn(b, s, h, d, device=dev, generator=g)
+        k = torch.randn(b, t, kv, d, device=dev, generator=g)
+        v = torch.randn(b, t, kv, d, device=dev, generator=g)
+        for wu in (t, t - 7):
+            kw = dict(causal=causal, window=window, q_offset=t - s, written_upto=wu)
+            e = float((ops.flash_attention(q, k, v, **kw)
+                       - ref.flash_attention_ref(q, k, v, **kw)).abs().max())
+            log(f"  flash f32 B={b} S={s} T={t} H={h} KV={kv} D={d} causal={causal} "
+                f"window={window} written_upto={wu}: max_abs_err={e}")
+            if not e <= 1e-4:
+                raise AssertionError(f"flash f32 {(b, s, t, h, kv, d)}: {e} > 1e-4")
+            err = max(err, e)
+
+    log(f"flash: bf16 at full width, against the plain version fed the same "
+        f"bf16 inputs in float32: |got - want| <= 2^-8 |want| + {F32_FLOOR} "
+        f"(one bf16 rounding of the output)")
+    row = None
+    for (name, b, s, t, h, kv, d, causal, window, q_off, wu) in FLASH_BF16:
+        q = torch.randn(b, s, h, d, device=dev, generator=g).bfloat16()
+        k = torch.randn(b, t, kv, d, device=dev, generator=g).bfloat16()
+        v = torch.randn(b, t, kv, d, device=dev, generator=g).bfloat16()
+        kw = dict(causal=causal, window=window, q_offset=q_off, written_upto=wu)
+        got = ops.flash_attention(q, k, v, **kw).float()
+        want = ref.flash_attention_ref(q.float(), k.float(), v.float(), **kw)
+        e32 = float((ops.flash_attention(q.float(), k.float(), v.float(), **kw)
+                     - want).abs().max())
+        diff = (got - want).abs()
+        ratio = float((diff / (BF16_REL * want.abs() + F32_FLOOR)).max())
+        e = float(diff.max())
+        log(f"  flash bf16 {name} B={b} S={s} T={t} H={h} KV={kv} D={d} "
+            f"window={window} written_upto={wu}: max_abs_err={e} "
+            f"max err/tolerance={ratio}; float32 kernel on the same inputs: "
+            f"max_abs_err={e32}")
+        if not (ratio <= 1.0 and e32 <= 1e-4):
+            raise AssertionError(f"flash bf16 {name}: error above one bf16 rounding")
+        err = max(err, e)
+        del got, want, diff
+
+        pairs = kept_pairs(b, s, t, causal, window, q_off, wu)
+        nbytes = 2.0 * (2 * b * s * h * d + 2 * b * t * kv * d)
+        bms, by = bound_ms(nbytes, 4.0 * h * d * pairs, BF16_FLOPS)
+        t_k = time_ms(torch, lambda: ops.flash_attention(q, k, v, **kw), 10)
+        t_p = time_ms(torch, lambda: ref.flash_attention_ref(q, k, v, **kw), 3, 1)
+        qp = q_off + torch.arange(s, device=dev)[:, None]
+        kp = torch.arange(t, device=dev)[None, :]
+        mask = (kp < (t if wu is None else wu)).expand(s, t).clone()
+        if causal:
+            mask &= kp <= qp
+        if window:
+            mask &= kp > qp - window
+        qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        t_l = time_ms(torch, lambda: sdpa(qt, kt, vt, attn_mask=mask,
+                                          enable_gqa=kv != h), 3, 1)
+        log(f"  time flash bf16 {name}: kernel_ms={t_k} plain_ms={t_p} "
+            f"library_ms={t_l} bound_ms={bms} ({by}; {pairs} kept pairs, "
+            f"{nbytes} bytes)")
+        if row is None:  # the qwen1.5-0.5b prefill shape
+            row = {"name": "flash_attention", "route": "cuda",
+                   "source": KERNEL_META["flash_attention"][0],
+                   "replaces": KERNEL_META["flash_attention"][1],
+                   "launches": 0, "max_abs_err": 0.0, "ms": t_k, "plain_ms": t_p,
+                   "bound_ms": bms, "bound_by": by, "library_ms": t_l,
+                   "library": LIBRARY["flash_attention"],
+                   "shape": f"B={b} S={s} T={t} H={h} KV={kv} D={d} causal "
+                            f"written_upto={wu} bf16"}
+        del q, k, v, mask, qt, kt, vt
+    row["max_abs_err"] = err
+    return row
+
+
+# the (d, k) of tests/test_torch_kernels.py's launch-plan cases, whose
+# smem arithmetic runs there on ops.l2_topk_smem_bytes_host
+TOPK_PLAN_DK = [(d, k) for d in (128, 1024, 2048, 4096) for k in (16, 51, 64)]
+
+
+def topk_wide_phase(torch, ops, ref, dev) -> None:
+    """l2_topk at the semantic tier's width: 64 queries x 1M x 1024, k 16
+    (a query tile of 64 rows does not fit a block at D = 1024; the wrapper
+    takes the widest that does).  First, the host copy of the kernel's
+    smem formula must equal the library's wherever the tests plan with it."""
+    from repro_torch.kernels import _build
+
+    lib = _build.load("l2_topk")
+    for d, k in TOPK_PLAN_DK:
+        for qt in (1, 2, 4):
+            host, card = ops.l2_topk_smem_bytes_host(qt, d, k), lib.l2_topk_smem_bytes(qt, d, k)
+            if host != card:
+                raise AssertionError(f"l2_topk smem bytes at qt={qt} d={d} k={k}: host "
+                                     f"copy {host}, l2_topk.cu {card}")
+    log(f"  l2_topk smem formula: host copy equals l2_topk.cu at "
+        f"{3 * len(TOPK_PLAN_DK)} (qt, d, k)")
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn(1_000_000, 1024, device=dev, generator=g)
+    q = torch.randn(64, 1024, device=dev, generator=g)
+    qt = ops.topk_l2_query_tile(64, 1024, 16, lib.l2_topk_smem_bytes)
+    gd, gi = ops.topk_l2(q, x, 16)
+    wd, wi = ref.l2_topk_ref(q, x, 16)
+    compare(torch, f"l2_topk 64 x 1M x 1024 k=16 (query tile {16 * qt})",
+            gd, wd, (gi, wi))
+    t_k = time_ms(torch, lambda: ops.topk_l2(q, x, 16), 5, 1)
+    t_l = time_ms(torch, lambda: torch.topk(torch.cdist(q, x), 16, largest=False), 3, 1)
+    bms, by = bound_ms(4.0 * (1_000_000 * 1024 + 64 * 1024) + 8.0 * 64 * 16,
+                       2.0 * 64 * 1_000_000 * 1024)
+    log(f"  time l2_topk [Q=64 N=1000000 D=1024 k=16]: kernel_ms={t_k} "
+        f"library_ms={t_l} bound_ms={bms} ({by})")
+
+
+def lm_parity_phase(torch, ops, dev):
+    """qwen1.5-0.5b SMOKE, float32, flash path forced: card against CPU."""
+    import numpy as np
+
+    from repro_torch import convert
+    from repro_torch.configs import get_config
+    from repro_torch.core.costs import calibrate_fetch_cost
+    from repro_torch.launch.serve import semantic_traffic
+    from repro_torch.models import init_params
+    from repro_torch.serve import SemanticCachedLM, ServeEngine, generate
+
+    cfg = dataclasses.replace(get_config(LM_ARCH, smoke=True), dtype="float32",
+                              flash_threshold=32, flash_chunk=16)
+    models = {"cpu": init_params(cfg, seed=0, device="cpu")}
+    models[dev] = copy.deepcopy(models["cpu"]).to(dev)
+    rng = np.random.default_rng(0)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 40)))
+    eng_prompts = [torch.from_numpy(rng.integers(0, cfg.vocab, n))
+                   for n in rng.integers(20, 41, 7)]
+    # the launcher's traffic: a catalog of 2000 earlier prompts'
+    # embeddings, 48 requests repeating them with Zipf(0.9) popularity
+    n = 2000
+    cat, reqs, _ = semantic_traffic(models["cpu"], cfg, n, 24, 48, rng, "cpu")
+    singles, batches = reqs[:24], [reqs[i:i + 8] for i in range(24, 48, 8)]
+    c_f = calibrate_fetch_cost(cat, kth=50, device="cpu")
+    uniforms = torch.rand(len(singles) + len(batches), n,
+                          generator=torch.Generator().manual_seed(7))
+    state0 = None
+    out = {}
+    for where in ("cpu", dev):
+        model = models[where]
+        ops.reset_launches()
+        toks = generate(model, cfg, prompt.to(where), steps=8, s_max=64).cpu()
+        engine = ServeEngine(model, cfg, batch=3, s_max=64)
+        for i, p in enumerate(eng_prompts):
+            engine.submit(i, p.to(where), max_tokens=6)
+        while engine.step():
+            pass
+        lm = SemanticCachedLM(
+            model, cfg, cat, list(range(n)),
+            lambda p, m=model: generate(m, cfg, p.to(where)[None], steps=4, s_max=64),
+            h=64, k=4, c_f=c_f)
+        if state0 is None:
+            state0 = lm.cache.state
+        lm.cache.state = convert.cache_state_from_numpy(
+            state0.y.cpu().numpy(), state0.x.cpu().numpy(), state0.t, device=where)
+        served = []
+        for i, p in enumerate(singles):
+            served.append(int(lm.query(p, uniforms[i].to(where)).served_local))
+        for j, ps in enumerate(batches):
+            m = lm.query_batch(ps, uniforms[len(singles) + j].to(where))
+            served.extend(m.served_local.tolist())
+        if where != "cpu":
+            torch.cuda.synchronize()
+        out[where] = (toks, dict(engine.done), lm.nag, served, lm.stats.generated,
+                      dict(ops.LAUNCHES))
+    (t0, d0, nag0, s0, g0, _), (t1, d1, nag1, s1, g1, counts) = out["cpu"], out[dev]
+    same_served = sum(a == b for a, b in zip(s0, s1)) / len(s0)
+    log(f"lm parity (qwen1.5-0.5b SMOKE, float32, flash_threshold 32): generate "
+        f"tokens equal={torch.equal(t0, t1)}; ServeEngine done equal={d0 == d1} "
+        f"({len(d0)} requests); SemanticCachedLM NAG cpu={nag0} cuda={nag1} "
+        f"|diff|={abs(nag0 - nag1)}, served_local equal for {same_served} of "
+        f"requests, generations {g0} / {g1}; launches on the card: {counts}")
+    if not torch.equal(t0, t1):
+        raise AssertionError("lm parity: generate tokens differ between card and CPU")
+    if d0 != d1:
+        raise AssertionError("lm parity: ServeEngine outputs differ")
+    if not abs(nag0 - nag1) < 1e-3:
+        raise AssertionError("lm parity: SemanticCachedLM NAG differs by 1e-3 or more")
+    if g0 != g1 or g0 == 0:
+        raise AssertionError(f"lm parity: generations {g0} on the CPU, {g1} on the card")
+    if counts["flash_attention"] == 0:
+        raise AssertionError("lm parity: flash_attention never launched on the card")
+
+
+def lm_slice_phase(torch, ops, card: str):
+    """qwen1.5-0.5b at full width through the launcher; returns the summed
+    launch counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as lm_serve
+
+    n_layers = get_config(LM_ARCH).n_layers
+    total = {name: 0 for name in ops.LAUNCHES}
+    for name, argv in LM_RUNS.items():
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fig = lm_serve.main(argv)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = dict(ops.LAUNCHES)
+        eng, sem = fig["engine"], fig.get("semantic")
+        prefills = eng["prefills"] + (sem["generations"] if sem else 0)
+        log(f"lm slice {name} [{card}]: {dt} s; launches={counts}; prefills={prefills}")
+        log(f"  engine: prefill_ms_per_request={eng['prefill_ms_per_request']} "
+            f"decode_tokens_per_s={eng['decode_tokens_per_s']} "
+            f"requests={eng['requests']} tokens={eng['tokens']} "
+            f"prompt_tokens={eng['prompt_tokens']} decode_steps={eng['decode_steps']} "
+            f"s_max={eng['s_max']} logits_finite={eng['logits_finite']}")
+        if sem:
+            log(f"  semantic: index={sem['index']} "
+                f"us_per_request={sem['us_per_request']} "
+                f"us_per_request_without_generation="
+                f"{sem['us_per_request_without_generation']} NAG={sem['nag']} "
+                f"generations={sem['generations']} generate_share="
+                f"{sem['generate_share']} served_local={sem['served_local']}"
+                f"/{sem['objects']} requests={sem['requests']} distinct_objects="
+                f"{sem['distinct_objects']} c_f={sem['c_f']} "
+                f"traffic_s={sem['traffic_s']} build_s={sem['build_s']}")
+            if not 0.0 <= sem["nag"] <= 1.0:
+                raise AssertionError(f"lm slice {name}: NAG {sem['nag']} outside [0, 1]")
+            for k in LM_NEEDS:
+                if counts[k] == 0:
+                    raise AssertionError(f"lm slice {name}: {k} never launched")
+        if not eng["logits_finite"]:
+            raise AssertionError(f"lm slice {name}: non-finite prefill logits")
+        if counts["flash_attention"] != n_layers * prefills:
+            raise AssertionError(
+                f"lm slice {name}: flash_attention launched {counts['flash_attention']} "
+                f"times for {prefills} prefills of {n_layers} layers")
+        for k in total:
+            total[k] += counts[k]
+    return total
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print(f"chip_smoke: {SRC / 'repro_torch'} not found — run from the "
@@ -527,8 +843,16 @@ def main() -> int:
     del ivf_index, pq_index
     parity_phase(torch, ops, dev)
     launches = slice_phase(torch, ops, cat_np, reqs_np, dev)
+    del catalog, reqs, cat_np, reqs_np
+    torch.cuda.empty_cache()
+
+    rows["flash_attention"] = flash_phase(torch, ops, ref, dev)
+    topk_wide_phase(torch, ops, ref, dev)
+    torch.cuda.empty_cache()
+    lm_parity_phase(torch, ops, dev)
+    lm_launches = lm_slice_phase(torch, ops, card)
     for name, row in rows.items():
-        row["launches"] = launches[name]
+        row["launches"] = launches[name] + lm_launches[name]
         if row["launches"] == 0:
             raise AssertionError(f"{name} was never launched on the main path")
     log(f"total: {time.perf_counter() - t_start} s")

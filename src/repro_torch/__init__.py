@@ -2,10 +2,12 @@
 is the reference it is held against).
 
 The layout follows `repro`: `core/` (cost model, OMA, projection,
-rounding, gain, traces, the batched policy step), `index/` (flat and IVF
-indexes, candidate generation) and `kernels/` (hand-written Hopper
-kernels with their plain PyTorch versions).  Entry points run on the
-CUDA card unless the caller passes `device="cpu"`.
+rounding, gain, traces, the batched policy step), `index/` (the index
+backends, candidate generation), `kernels/` (hand-written Hopper kernels
+with their plain PyTorch versions), `models/` and `configs/` (the dense
+GQA LMs), `serve/` (prefill / decode engine, semantic cache) and
+`launch/` (the serving driver).  Entry points run on the CUDA card unless
+the caller passes `device="cpu"`.
 """
 
 from __future__ import annotations

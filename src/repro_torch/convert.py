@@ -1,8 +1,10 @@
-"""Carry state and index structures into the port as numpy arrays.
+"""Carry state, index structures and LM weights into the port as numpy
+arrays.
 
-A cache state or an index (IVF, IVF-PQ, LSH, NSW) built elsewhere, for
-instance by the JAX reference, is handed over as plain arrays, so the
-port never reads a framework-specific object such as a JAX key.
+A cache state, an index (IVF, IVF-PQ, LSH, NSW) or an LM's parameters
+built elsewhere, for instance by the JAX reference, are handed over as
+plain arrays, so the port never reads a framework-specific object such as
+a JAX key.
 """
 
 from __future__ import annotations
@@ -16,6 +18,8 @@ from repro_torch.index.ivf import IVFFlatIndex
 from repro_torch.index.lsh import LSHIndex
 from repro_torch.index.nsw import NSWIndex
 from repro_torch.index.pq import IVFPQIndex
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.model import LM, init_params
 
 
 def cache_state_from_numpy(y, x, t: int = 0, seed: int = 0, device=None) -> CacheState:
@@ -62,3 +66,37 @@ def nsw_from_numpy(catalog, graph, entry_points, beam: int, steps: int,
     return NSWIndex(np.array(catalog, np.float32), beam=beam, steps=steps,
                     expand=expand, graph=np.array(graph, np.int32),
                     entry_points=np.array(entry_points, np.int32), device=device)
+
+
+def lm_params_from_numpy(params, cfg: ModelConfig, device=None) -> LM:
+    """The port's model holding the reference's LM parameters.
+
+    `params` is the reference's nested tree as numpy arrays: `embed`
+    (vocab, d), `final_norm` (d,), `lm_head` (d, vocab) unless tied, and
+    `body` stacked over the layers, `slot0.{norm1, norm2}`,
+    `slot0.mixer.{wq, wk, wv, wo[, bq, bk, bv]}` and
+    `slot0.ffn.{wi[, wg], wo}`.  Weights keep their (in, out) layout and
+    are cast to cfg.dtype, so both compute the same function."""
+    model = init_params(cfg, seed=0, device=device)
+
+    def put(dst: torch.Tensor, src) -> None:
+        src = torch.from_numpy(np.array(src, dtype=np.float32))
+        if tuple(src.shape) != tuple(dst.shape):
+            raise ValueError(f"lm_params_from_numpy: shape {tuple(src.shape)} "
+                             f"for a {tuple(dst.shape)} parameter")
+        dst.copy_(src.to(dst.dtype))
+
+    with torch.no_grad():
+        put(model.embed, params["embed"])
+        put(model.final_norm, params["final_norm"])
+        if not cfg.tie_embeddings:
+            put(model.lm_head, params["lm_head"])
+        body = params["body"]["slot0"]
+        for i, layer in enumerate(model.layers):
+            put(layer.norm1, body["norm1"][i])
+            put(layer.norm2, body["norm2"][i])
+            for name, t in layer.mixer.named_parameters():
+                put(t, body["mixer"][name][i])
+            for name, t in layer.ffn.named_parameters():
+                put(t, body["ffn"][name][i])
+    return model

@@ -112,6 +112,25 @@ def registered_backends() -> Tuple[str, ...]:
     return tuple(sorted(_REGISTRY))
 
 
+def parse_index_opts(opts) -> Dict[str, Any]:
+    """Parse CLI `--index-opt key=value` pairs into builder kwargs; values
+    are coerced int -> float -> str in that order."""
+    out: Dict[str, Any] = {}
+    for opt in opts or ():
+        key, sep, val = opt.partition("=")
+        if not sep or not key:
+            raise ValueError(f"--index-opt expects key=value, got {opt!r}")
+        for cast in (int, float):
+            try:
+                out[key] = cast(val)
+                break
+            except ValueError:
+                continue
+        else:
+            out[key] = val
+    return out
+
+
 def _unknown_backend_msg(name: str) -> str:
     return (f"unknown index backend {name!r}; registered: "
             f"{', '.join(registered_backends())}")

@@ -20,7 +20,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-KERNELS = ("pairwise_l2", "l2_topk", "ivf_scan", "pq_adc")
+KERNELS = ("pairwise_l2", "l2_topk", "ivf_scan", "pq_adc", "flash_attention")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry points per library: name -> (restype, argtypes)
@@ -41,6 +41,10 @@ _SIGNATURES = {
     "pq_adc": {
         "pq_adc": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
         "pq_adc_smem_bytes": (ctypes.c_longlong, [_I, _I]),
+    },
+    "flash_attention": {
+        "flash_attention": (_I, [_P, _P, _P, _P] + [_I] * 10
+                            + [ctypes.c_float, _I, _P]),
     },
 }
 

@@ -15,13 +15,15 @@ import torch
 from repro_torch.kernels import _build, ref
 
 # kernel launches since the last reset_launches(), by kernel
-LAUNCHES = {"pairwise_l2": 0, "l2_topk": 0, "ivf_scan": 0, "pq_adc": 0}
+LAUNCHES = {"pairwise_l2": 0, "l2_topk": 0, "ivf_scan": 0, "pq_adc": 0,
+            "flash_attention": 0}
 
 MAX_K = 128          # the top-k kernels keep four list slots per lane
 SMEM_LIMIT = 232448  # dynamic shared memory a block may use on Hopper
 _TARGET_BLOCKS = 4 * 132  # a few waves over the H100's 132 SMs
 IVF_MIN_RUN = 32     # an ivf_scan block selects k of at least this many x k
 PQ_MAX_C = 256       # pq_adc codes are uint8
+FLASH_HEAD_DIMS = (16, 32, 64, 128)  # head widths flash_attention is built for
 _PQ_THREADS = 256    # threads of a pq_adc block, one slot each at a time
 
 
@@ -110,6 +112,30 @@ def pairwise_l2(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def l2_topk_smem_bytes_host(qt: int, d: int, k: int) -> int:
+    """A host copy of l2_topk.cu's `smem_bytes` (BN = 64, DK = 32), so that
+    the launch plan can be checked without a card; chip_smoke.py holds it
+    equal to the library's `l2_topk_smem_bytes`.  The wrapper itself asks
+    the library."""
+    bq = 16 * qt
+    return 4 * (bq * (d + 1) + 64 * 33 + bq * 65 + bq + 64 + 2 * bq * k)
+
+
+def topk_l2_query_tile(nq: int, d: int, k: int, smem_bytes) -> int:
+    """qt of an `l2_topk` launch (a block holds 16 * qt queries): the
+    widest of 1, 2, 4 that the batch fills and whose shared memory,
+    `smem_bytes(qt, d, k)`, fits a block.  Raises NotImplementedError when
+    even qt = 1 does not fit (D = 4096 at any k)."""
+    qt = 1 if nq <= 16 else 2 if nq <= 32 else 4
+    while qt > 1 and smem_bytes(qt, d, k) > SMEM_LIMIT:
+        qt //= 2
+    if smem_bytes(qt, d, k) > SMEM_LIMIT:
+        raise NotImplementedError(
+            f"topk_l2: D = {d}, k = {k} need more shared memory than a block "
+            f"has, even at 16 queries a block")
+    return qt
+
+
 def topk_l2(q: torch.Tensor, x: torch.Tensor, k: int, *, valid=None):
     """Fused distance + top-k: (dists (Q, k) ascending, ids (Q, k) int32).
 
@@ -134,10 +160,7 @@ def topk_l2(q: torch.Tensor, x: torch.Tensor, k: int, *, valid=None):
     if nq == 0 or n == 0:
         raise ValueError(f"topk_l2: empty input, Q = {nq}, N = {n}")
     lib = _build.load("l2_topk")
-    qt = 1 if nq <= 16 else 2 if nq <= 32 else 4
-    if lib.l2_topk_smem_bytes(qt, d, k) > SMEM_LIMIT:
-        raise NotImplementedError(
-            f"topk_l2: D = {d}, k = {k} need more shared memory than a block has")
+    qt = topk_l2_query_tile(nq, d, k, lib.l2_topk_smem_bytes)
     qtiles = -(-nq // (16 * qt))
     target = max(1, _TARGET_BLOCKS // max(qtiles, 1))
     chunk = max(64, -(-n // target))
@@ -296,6 +319,58 @@ def pq_adc_gather(lut: torch.Tensor, codes: torch.Tensor,
     if not _on_cuda(lut, codes, cand):
         return ref.pq_adc_gather_ref(lut, codes, cand)
     return _pq_adc_launch(lut, codes, cand)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0, q_offset: int = 0,
+                    written_upto: int | None = None) -> torch.Tensor:
+    """FlashAttention forward: q (B, S, H, D), k / v (B, T, KV, D) ->
+    (B, S, H, D) in q's dtype, with the reference's contract
+    (`ref.flash_attention_ref`): causal, sliding `window` (0 = full),
+    absolute `q_offset` of q's first row, keys at or past `written_upto`
+    (None = T) masked, GQA head h on kv head h // (H // KV), f32
+    accumulation, 0 for a row with no kept key.
+
+    CUDA: contiguous float32 or bf16 tensors of one dtype, D in
+    FLASH_HEAD_DIMS and Dv = D, the `flash_attention` kernel; anything
+    else raises."""
+    if not _on_cuda(q, k, v):
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                       q_offset=q_offset, written_upto=written_upto)
+    dtype = q.dtype
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"flash_attention: float32 or bf16 inputs, got {dtype}")
+    _check("flash_attention q", q, dtype, 4)
+    _check("flash_attention k", k, dtype, 4)
+    _check("flash_attention v", v, dtype, 4)
+    b, s, h, d = q.shape
+    t, kvh = k.shape[1], k.shape[2]
+    if k.shape[0] != b or k.shape[3] != d or v.shape[:3] != k.shape[:3]:
+        raise ValueError(f"flash_attention: shapes q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)}")
+    if v.shape[3] != d:
+        raise NotImplementedError("flash_attention: the kernel takes Dv = D only")
+    if d not in FLASH_HEAD_DIMS:
+        raise NotImplementedError(f"flash_attention: D = {d} is not one of "
+                                  f"{FLASH_HEAD_DIMS}")
+    if kvh == 0 or h % kvh:
+        raise ValueError(f"flash_attention: H = {h} is not a multiple of KV = {kvh}")
+    if window < 0 or q_offset < 0:
+        raise ValueError(f"flash_attention: window {window} and q_offset "
+                         f"{q_offset} must be >= 0")
+    if b > 65535 or h > 65535 or q_offset + s + t >= 2 ** 31:
+        raise NotImplementedError(f"flash_attention: B = {b}, H = {h}, S = {s}, "
+                                  f"T = {t} exceed the kernel's grid or positions")
+    wu = t if written_upto is None else max(0, min(int(written_upto), t))
+    out = torch.empty((b, s, h, d), dtype=dtype, device=q.device)
+    if b and s and h:
+        rc = _build.load("flash_attention").flash_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, t, h,
+            kvh, d, int(bool(causal)), int(window), int(q_offset), wu,
+            1.0 / d ** 0.5, int(dtype == torch.bfloat16), _stream())
+        _raise_on(rc, "flash_attention")
+        LAUNCHES["flash_attention"] += 1
+    return out
 
 
 # the index layer's names: the dispatch is by tensor device, so the

@@ -1,4 +1,5 @@
-"""Plain PyTorch versions of the port's kernels (port of `repro.kernels.ref`).
+"""Plain PyTorch versions of the port's kernels (port of `repro.kernels.ref`,
+and of `_sdpa_flash` in `repro.models.layers` for `flash_attention`).
 
 They keep every convention of the reference oracles: distances clamped at
 0, masked rows at +inf, id -1 on underflow, -1 candidate slots reading as
@@ -111,3 +112,53 @@ def pq_adc_gather_ref(lut: torch.Tensor, codes: torch.Tensor,
     codes = codes.long()
     d = _adc_sum(lut, lambda mi: codes[:, mi][safe])
     return torch.where(cand >= 0, d, torch.full_like(d, float("inf")))
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, window: int = 0, q_offset: int = 0,
+                        written_upto: int | None = None,
+                        chunk: int = 2048) -> torch.Tensor:
+    """Chunked online-softmax attention (port of the reference's
+    `_sdpa_flash`, f32 throughout): q (B, S, H, D), k / v (B, T, KV, D) ->
+    (B, S, H, Dv) in q's dtype.
+
+    Query row i sits at absolute position q_offset + i and keeps key j when
+    j <= it (causal), j > it - window (window > 0) and j < written_upto
+    (None = T).  GQA maps q head h onto kv head h // (H // KV).  Masked
+    logits are -inf and add p = 0; the running max is guarded by isfinite,
+    so a row with no kept key returns 0 (acc / max(l, 1e-30)).  T need not
+    be a multiple of `chunk`: the last chunk is short."""
+    b, s, h, dd = q.shape
+    t, kvh, dv = k.shape[1], k.shape[2], v.shape[3]
+    g = h // kvh
+    qg = q.reshape(b, s, kvh, g, dd).float()
+    q_pos = q_offset + torch.arange(s, device=q.device)
+    scale = 1.0 / (dd ** 0.5)
+    m = torch.full((b, kvh, g, s), float("-inf"), device=q.device)
+    l = torch.zeros((b, kvh, g, s), device=q.device)
+    acc = torch.zeros((b, kvh, g, s, dv), device=q.device)
+    for j in range(0, t, chunk):
+        k_blk = k[:, j:j + chunk].float()
+        v_blk = v[:, j:j + chunk].float()
+        logits = torch.einsum("bskgd,btkd->bkgst", qg, k_blk) * scale
+        k_pos = j + torch.arange(k_blk.shape[1], device=q.device)
+        ok = torch.ones((s, k_blk.shape[1]), dtype=torch.bool, device=q.device)
+        if causal:
+            ok &= k_pos[None, :] <= q_pos[:, None]
+        if window:
+            ok &= k_pos[None, :] > q_pos[:, None] - window
+        if written_upto is not None:
+            ok &= k_pos[None, :] < written_upto
+        logits = logits.masked_fill(~ok, float("-inf"))
+        m_new = torch.maximum(m, logits.amax(dim=-1))
+        # rows with no kept key yet keep m = -inf; guard the exp shift
+        shift = torch.where(torch.isfinite(m_new), m_new, torch.zeros_like(m_new))
+        p = torch.exp(logits - shift[..., None]).masked_fill(~ok, 0.0)
+        rescale = torch.where(torch.isfinite(m), torch.exp(m - shift),
+                              torch.zeros_like(m))
+        l = l * rescale + p.sum(dim=-1)
+        acc = acc * rescale[..., None] + torch.einsum("bkgst,btkd->bkgsd", p, v_blk)
+        m = m_new
+    out = acc / torch.clamp_min(l, 1e-30)[..., None]
+    out = out.permute(0, 3, 1, 2, 4)  # (b, kvh, g, s, d) -> (b, s, kvh, g, d)
+    return out.reshape(b, s, h, dv).to(q.dtype)

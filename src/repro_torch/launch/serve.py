@@ -1,0 +1,275 @@
+"""Serving driver of the port (port of the LM path of `repro.launch.serve`):
+continuous-batching prefill and decode, then the AÇAI semantic cache in
+front of generation (the paper's edge-inference deployment).
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \\
+      --smoke --device cpu
+
+Weights come from a seed at the architecture's published widths (the
+reference serves from `init_params(PRNGKey(0))` too).  Flags beyond the
+reference's LM path:
+
+  --s-max N           KV cache length of the engine and of each semantic-
+                      tier generation (default: the reference's,
+                      prompt-len + max-tokens + 8 for the engine and
+                      prompt-len + 4 for a generation)
+  --prompt-len LO:HI  engine prompt lengths drawn from [LO, HI] (the
+                      semantic tier's prompts take LO)
+  --query-batches N   after the --requests single queries, serve N
+                      batches of --batch prompts by `query_batch`
+  --catalog 0         skips the semantic tier
+  --device cpu        run on the CPU (the card is the default)
+
+The semantic tier's traffic is the paper's (Sec. V-A, `core/trace.py`):
+the catalog holds the results of --catalog earlier prompts (row i is
+`embed_prompt` of prompt i), and each request repeats the prompt of a
+catalog object drawn with Zipf(0.9) popularity, objects nearer the
+catalog barycenter more popular (`semantic_traffic`).  The reference
+draws a random catalog and fresh random prompts instead: no prompt lies
+near any object there, so every request is served from the store and
+nothing generates.
+
+The reference's other flags (policy registry, churn, answer cache,
+resilient remote tier, online arrivals, mesh) are ROADMAP A6, A8, A9 and
+A11.  `main(argv)` prints one line a tier and returns the figures as a
+dict.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs import ARCHS, NOT_PORTED, get_config
+from repro_torch.index.base import IndexSpec, parse_index_opts, registered_backends
+from repro_torch.models import init_params
+from repro_torch.serve import SemanticCachedLM, ServeEngine, embed_prompt, generate
+
+SEED = 0  # weights, prompts and catalog
+ZIPF_A = 0.9  # the paper's popularity exponent (core/trace.py)
+_EMBED_ROWS = 512  # catalog prompts embedded a chunk
+
+
+def _prompt_lens(spec: str) -> tuple[int, int]:
+    lo, sep, hi = spec.partition(":")
+    lo, hi = int(lo), int(hi) if sep else int(lo)
+    if not 0 < lo <= hi:
+        raise argparse.ArgumentTypeError(f"--prompt-len {spec!r}: want N or LO:HI")
+    return lo, hi
+
+
+class _Timer:
+    """Wraps a function; sums its wall seconds, synchronising the card
+    around each call so that the time is the work's, not the enqueue's."""
+
+    def __init__(self, fn, device: torch.device):
+        self.fn, self.device = fn, device
+        self.seconds, self.calls = 0.0, 0
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def __call__(self, *a, **kw):
+        self._sync()
+        t0 = time.perf_counter()
+        out = self.fn(*a, **kw)
+        self._sync()
+        self.seconds += time.perf_counter() - t0
+        self.calls += 1
+        return out
+
+
+def run_engine(params, cfg, args, rng, device) -> dict:
+    """Continuous batching of --requests prompts; prefill and decode timed
+    apart, through the engine's `wrap` hook.  Every prefill's logits are
+    checked finite after its timer stops."""
+    lo, hi = args.prompt_len
+    s_max = args.s_max or (hi + args.max_tokens + 8)
+    timers, finite = {}, []
+
+    def wrap(name, fn):
+        timed = timers[name] = _Timer(fn, device)
+        if name != "prefill":
+            return timed
+
+        def prefill(*a):
+            logits, cache = timed(*a)
+            finite.append(bool(torch.isfinite(logits).all()))
+            return logits, cache
+
+        return prefill
+
+    engine = ServeEngine(params, cfg, batch=args.batch, s_max=s_max, wrap=wrap)
+    pre, dec = timers["prefill"], timers["decode"]
+    lens = rng.integers(lo, hi + 1, args.requests)
+    prompts = [torch.from_numpy(rng.integers(0, cfg.vocab, n)).to(device) for n in lens]
+    t0 = time.perf_counter()
+    for i, p in enumerate(prompts):
+        engine.submit(i, p, args.max_tokens)
+    steps = 0
+    while engine.step():
+        steps += 1
+    dt = time.perf_counter() - t0
+    tokens = sum(len(t) for t in engine.done.values())
+    decoded = tokens - len(engine.done)  # each request's first token is the prefill's
+    out = {"requests": len(engine.done), "tokens": tokens, "engine_steps": steps,
+           "seconds": dt, "s_max": s_max, "prompt_tokens": int(lens.sum()),
+           "prefills": pre.calls,
+           "prefill_ms_per_request": pre.seconds / max(pre.calls, 1) * 1e3,
+           "decode_steps": dec.calls, "decode_tokens": decoded,
+           "decode_tokens_per_s": decoded / dec.seconds if dec.seconds else 0.0,
+           "logits_finite": all(finite)}
+    print(f"continuous batching: {out['requests']} requests, {tokens} tokens in "
+          f"{dt:.1f}s, {steps} engine steps; prefill "
+          f"{out['prefill_ms_per_request']:.1f} ms/request over "
+          f"{out['prompt_tokens']} prompt tokens (s_max {s_max}), decode "
+          f"{out['decode_tokens_per_s']:.1f} tok/s", flush=True)
+    return out
+
+
+def semantic_traffic(params, cfg, n: int, prompt_len: int, n_req: int, rng,
+                     device) -> tuple[torch.Tensor, list, np.ndarray]:
+    """The semantic tier's catalog and requests, after the paper's
+    Independent Reference Model (Sec. V-A; `core/trace.py`'s `sift_like`).
+
+    The catalog holds the results of n earlier prompts of prompt_len
+    tokens, drawn on the device from SEED: row i is `embed_prompt` of
+    prompt i.  A request is for a catalog object, as `sift_like`'s are
+    (no jitter): it repeats that object's prompt.  Objects nearer the
+    catalog barycenter are more popular, with a Zipf(ZIPF_A) ranked tail.
+    The ranks are imposed directly: the barycentric distances of
+    mean-pooled prompt embeddings differ only by parts in 1e4 to 1e5, and
+    there `_barycentric_popularity`'s power-law fit clamps (beta = 900) to
+    a near-uniform law.
+
+    Returns the catalog (n, d_model) float32, the requests' prompts (int64)
+    and the requested object ids, drawn with `rng`."""
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    tokens = torch.empty((n, prompt_len), dtype=torch.int32, device=device)
+    catalog = torch.empty((n, cfg.d_model), dtype=torch.float32, device=device)
+    for i in range(0, n, _EMBED_ROWS):
+        j = min(n, i + _EMBED_ROWS)
+        t = torch.randint(0, cfg.vocab, (j - i, prompt_len), generator=gen,
+                          device=device)
+        tokens[i:j] = t
+        catalog[i:j] = embed_prompt(params, t)
+    dist = torch.linalg.vector_norm(catalog - catalog.mean(dim=0), dim=1)
+    rank = torch.empty(n, dtype=torch.float64, device=device)
+    rank[torch.argsort(dist)] = torch.arange(1, n + 1, dtype=torch.float64,
+                                             device=device)
+    lam = rank ** -ZIPF_A
+    ids = rng.choice(n, size=n_req, p=(lam / lam.sum()).cpu().numpy())
+    return catalog, [tokens[i].long() for i in ids], ids
+
+
+def run_semantic(params, cfg, args, rng, device, index_spec) -> dict:
+    """The semantic tier over a --catalog x d_model catalog of earlier
+    prompts' embeddings (`semantic_traffic`): --requests single queries,
+    then --query-batches batches of --batch."""
+    prompt_len = args.prompt_len[0]
+    n_req = args.requests + args.query_batches * args.batch
+    t0 = time.perf_counter()
+    catalog, prompts, ids = semantic_traffic(params, cfg, args.catalog, prompt_len,
+                                             n_req, rng, device)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    traffic_s = time.perf_counter() - t0
+    payloads = [f"cached-result-{i}" for i in range(args.catalog)]
+    s_max = args.s_max or (prompt_len + 4)
+
+    def gen_fn(prompt_tokens):
+        return generate(params, cfg, prompt_tokens.to(device)[None], steps=4,
+                        s_max=s_max)
+
+    gen_timer = _Timer(gen_fn, device)
+    t0 = time.perf_counter()
+    lm = SemanticCachedLM(params, cfg, catalog, payloads, gen_timer,
+                          h=args.cache_size, k=4, index_spec=index_spec)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    build_s = time.perf_counter() - t0
+    del catalog
+    t0 = time.perf_counter()
+    for p in prompts[:args.requests]:
+        lm.query(p)
+    for j in range(args.query_batches):
+        i0 = args.requests + j * args.batch
+        lm.query_batch(prompts[i0:i0 + args.batch])
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    dt = time.perf_counter() - t0
+    s = lm.stats
+    out = {"index": index_spec.to_dict() if index_spec else "exact",
+           "requests": s.requests, "distinct_objects": len(set(ids.tolist())),
+           "served_local": s.served_local, "objects": s.requests * lm.k,
+           "generations": s.generated, "generate_share": s.generated / s.requests,
+           "nag": lm.nag, "c_f": lm.cache.cfg.c_f, "traffic_s": traffic_s,
+           "build_s": build_s, "seconds": dt, "generate_seconds": gen_timer.seconds,
+           "us_per_request": dt / s.requests * 1e6,
+           "us_per_request_without_generation":
+               (dt - gen_timer.seconds) / s.requests * 1e6}
+    print(f"semantic cache (index={out['index']}, h={args.cache_size}, "
+          f"catalog {args.catalog} x {cfg.d_model}): {s.requests} requests for "
+          f"{out['distinct_objects']} objects, {s.served_local}/{out['objects']} "
+          f"objects local, {s.generated} generations "
+          f"({out['generate_share']:.2f} of requests), NAG={lm.nag:.4f}, "
+          f"{out['us_per_request']:.0f} us/request "
+          f"({out['us_per_request_without_generation']:.0f} without generation)",
+          flush=True)
+    return out
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", default="qwen1.5-0.5b",
+                    choices=sorted(ARCHS) + sorted(NOT_PORTED))
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--requests", type=int, default=32)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=_prompt_lens, default=(16, 16))
+    ap.add_argument("--max-tokens", type=int, default=8)
+    ap.add_argument("--catalog", type=int, default=512)
+    ap.add_argument("--cache-size", type=int, default=64)
+    ap.add_argument("--remote-index", default="exact",
+                    choices=("exact",) + registered_backends(),
+                    help="remote-catalog index backend for the semantic "
+                         "cache ('exact' = perfect-recall candidates)")
+    ap.add_argument("--index-opt", action="append", default=[], metavar="KEY=VALUE",
+                    help="index builder kwarg (repeatable), e.g. nlist=256")
+    ap.add_argument("--query-batches", type=int, default=0)
+    ap.add_argument("--s-max", type=int, default=0)
+    ap.add_argument("--device", default=None)
+    args = ap.parse_args(argv)
+
+    index_spec = None
+    if args.remote_index != "exact":
+        try:
+            index_spec = IndexSpec(args.remote_index, parse_index_opts(args.index_opt))
+        except ValueError as e:
+            raise SystemExit(str(e))
+    elif args.index_opt:
+        raise SystemExit("--index-opt needs --remote-index")
+    try:
+        cfg = get_config(args.arch, smoke=args.smoke)
+    except NotImplementedError as e:
+        raise SystemExit(str(e))
+    if not cfg.has_decode:
+        raise SystemExit(f"{cfg.name} is encoder-only: no decode serving")
+    device = resolve_device(args.device)
+    params = init_params(cfg, seed=SEED, device=device)
+    rng = np.random.default_rng(SEED)
+    figures = {"arch": cfg.name, "device": str(device),
+               "engine": run_engine(params, cfg, args, rng, device)}
+    if args.catalog > 0:
+        figures["semantic"] = run_semantic(params, cfg, args, rng, device, index_spec)
+    return figures
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

@@ -1,13 +1,18 @@
 """Where the time of the batched serving step goes, on the CUDA card.
 
     PYTHONPATH=src python -m repro_torch.profile_step [--steps 8] [--n 1000000]
+    PYTHONPATH=src python -m repro_torch.profile_step --lm [--steps 8]
 
 Builds the slice's 1M x 128 configuration (the one chip_smoke.py serves),
 then for each of flat, IVF and IVF-PQ at B = 8 and 64 runs a few warm
-steps and profiles `--steps` more with torch.profiler.  Prints, per run,
-the wall time per step, the device busy time per step (the union of
+steps and profiles `--steps` more with torch.profiler.  With `--lm` it
+profiles the LM tier instead, qwen1.5-0.5b at full width as chip_smoke.py
+serves it: a 4096-token prefill into an 8192-token cache (the flash
+path), and decode steps of a batch of 4 over that cache.  Prints, per
+run, the wall time per step, the device busy time per step (the union of
 kernel intervals on the card's timeline), the idle share (1 - busy /
-wall) and the device time by kernel name.  Needs a CUDA card; it does not fall back.
+wall) and the device time by kernel name.  Needs a CUDA card; it does not
+fall back.
 """
 
 from __future__ import annotations
@@ -36,20 +41,72 @@ def _busy_us(events) -> float:
     return busy
 
 
+def _profile(label: str, fn, steps: int) -> None:
+    """Profile `steps` calls of fn() and print the step's breakdown."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(steps):
+            fn(i)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    busy = _busy_us(prof.events())
+    print(f"== {label}: wall_us/step={wall_us / steps} "
+          f"device_busy_us/step={busy / steps} "
+          f"idle_share={1 - busy / wall_us}", flush=True)
+    rows = [(e.key, e.device_time_total / steps, e.count // steps)
+            for e in prof.key_averages() if e.device_time_total > 0]
+    for key, us, count in sorted(rows, key=lambda r: -r[1])[:20]:
+        print(f"   {us:10.1f} us/step  x{count:<3d} {key[:90]}")
+
+
+def profile_lm(steps: int, dev: torch.device) -> None:
+    """qwen1.5-0.5b, random weights: prefill and decode breakdowns."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import forward, init_cache, init_params
+
+    cfg = get_config("qwen1.5-0.5b")
+    params = init_params(cfg, seed=0, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    prompt = torch.randint(0, cfg.vocab, (1, 4096), generator=gen, device=dev)
+    cache = init_cache(cfg, 1, 8192, device=dev)
+
+    def prefill(_i):
+        forward(params, cfg, tokens=prompt, cache=cache, cache_len=0)
+
+    prefill(0)
+    _profile("lm prefill S=4096 T=8192", prefill, 2)
+    cache = init_cache(cfg, 4, 8192, device=dev)
+    last = torch.randint(0, cfg.vocab, (4, 1), generator=gen, device=dev)
+
+    def decode(i):
+        forward(params, cfg, tokens=last, cache=cache, cache_len=4096 + i)
+
+    for i in range(2):
+        decode(i)
+    _profile("lm decode B=4 T=8192", lambda i: decode(2 + i), steps)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=8)
     ap.add_argument("--n", type=int, default=1_000_000)
+    ap.add_argument("--lm", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_step: needs a CUDA card")
-    from torch.profiler import ProfilerActivity, profile
+    dev = torch.device("cuda", torch.cuda.current_device())
+    if args.lm:
+        profile_lm(args.steps, dev)
+        print(f"card: {torch.cuda.get_device_name(0)}")
+        return
 
     from repro_torch.core import oma, policy, trace
     from repro_torch.core.costs import calibrate_fetch_cost
     from repro_torch.index.base import IndexSpec
 
-    dev = torch.device("cuda", torch.cuda.current_device())
     cat, reqs, _ = trace.sift_like(n=args.n, d=128, t=2048, seed=0)
     c_f = calibrate_fetch_cost(cat, kth=50, device=dev)
     cfg = policy.AcaiConfig(h=400, k=10, c_f=c_f, c_remote=64, c_local=16,
@@ -65,21 +122,9 @@ def main() -> None:
             warm = 4
             for i in range(warm):
                 cache.serve_update_batch(rq[i * b:(i + 1) * b])
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                for i in range(warm, warm + args.steps):
-                    cache.serve_update_batch(rq[i * b:(i + 1) * b])
-                torch.cuda.synchronize()
-                wall_us = (time.perf_counter() - t0) * 1e6
-            busy = _busy_us(prof.events())
-            print(f"== {spec.backend} B={b}: wall_us/step={wall_us / args.steps} "
-                  f"device_busy_us/step={busy / args.steps} "
-                  f"idle_share={1 - busy / wall_us}", flush=True)
-            rows = [(e.key, e.device_time_total / args.steps, e.count // args.steps)
-                    for e in prof.key_averages() if e.device_time_total > 0]
-            for key, us, count in sorted(rows, key=lambda r: -r[1])[:20]:
-                print(f"   {us:10.1f} us/step  x{count:<3d} {key[:90]}")
+            _profile(f"{spec.backend} B={b}",
+                     lambda i: cache.serve_update_batch(rq[(warm + i) * b:(warm + i + 1) * b]),
+                     args.steps)
     print(f"card: {torch.cuda.get_device_name(0)}")
 
 

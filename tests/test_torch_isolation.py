@@ -76,3 +76,24 @@ def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_lm_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
+    from repro_torch import convert
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import init_cache, init_params
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_config("qwen1.5-0.5b", smoke=True)
+    for call in (lambda: init_params(cfg),
+                 lambda: init_cache(cfg, 1, 8),
+                 lambda: convert.lm_params_from_numpy({}, cfg),
+                 lambda: serve.main(["--smoke", "--requests", "1", "--catalog", "0"])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    # the serving tier follows the device of the model it is given
+    model = init_params(cfg, device="cpu")
+    assert serve.main(["--smoke", "--requests", "1", "--catalog", "0",
+                       "--device", "cpu"])["device"] == "cpu"
+    assert model.embed.device.type == "cpu"

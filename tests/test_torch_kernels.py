@@ -154,8 +154,29 @@ def test_cuda_wrappers_refuse_what_the_kernels_do_not_take():
     tops.pairwise_l2(torch.zeros(2, 4), torch.zeros(3, 4))
     tops.pq_adc_gather(torch.zeros(2, 2, 4), torch.zeros(3, 2, dtype=torch.uint8),
                        torch.zeros(2, 5, dtype=torch.int32))
+    tops.flash_attention(torch.zeros(1, 3, 2, 16), torch.zeros(1, 5, 1, 16),
+                         torch.zeros(1, 5, 1, 16))
     assert tops.LAUNCHES == {"pairwise_l2": 0, "l2_topk": 0, "ivf_scan": 0,
-                             "pq_adc": 0}
+                             "pq_adc": 0, "flash_attention": 0}
+
+
+@pytest.mark.parametrize("nq,d,k,want", [
+    (8, 128, 64, 1), (32, 128, 64, 2), (64, 128, 64, 4),
+    (64, 1024, 16, 2),   # the semantic tier's B = 64 at qwen1.5-0.5b's width
+    (512, 1024, 51, 2),  # calibrate_fetch_cost's 512-row sample
+    (8, 1024, 16, 1), (64, 2048, 16, 1), (64, 4096, 16, None)])
+def test_l2_topk_takes_the_widest_query_tile_that_fits(nq, d, k, want):
+    """qt follows the batch (1, 2, 4) down to what a block's shared memory
+    holds; D = 4096 fits no tile and raises (checked without a card: the
+    launch plan is host arithmetic over `l2_topk_smem_bytes_host`, the
+    host copy of the kernel's smem formula that chip_smoke.py holds equal
+    to the library's for every (qt, d, k) these cases reach)."""
+    smem = tops.l2_topk_smem_bytes_host
+    if want is None:
+        with pytest.raises(NotImplementedError):
+            tops.topk_l2_query_tile(nq, d, k, smem)
+    else:
+        assert tops.topk_l2_query_tile(nq, d, k, smem) == want
 
 
 @pytest.mark.parametrize("k", [1, 10, 64, 128])

@@ -1,0 +1,226 @@
+"""Port parity of the LM serving tier: `repro_torch.serve` against
+`repro.serve` at SMOKE size in float32, on the reference's parameters
+(carried in by `convert.lm_params_from_numpy`).
+
+Discrete outputs must be equal: greedy tokens of `generate`, the
+`ServeEngine`'s finished sequences, and the semantic tier's served-local
+count per request.  `embed_prompt` agrees to 1e-6; the semantic tier's
+NAG to 1e-3, with the reference's initial cache state and its rounding
+uniforms carried in (drawn as tests/test_torch_policy.py draws them).
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import SMOKE_ARCHS as J_SMOKE
+from repro.core.costs import calibrate_fetch_cost as j_calibrate
+from repro.models import init_params as j_init_params
+from repro.serve import SemanticCachedLM as JSemantic
+from repro.serve import ServeEngine as JEngine
+from repro.serve import embed_prompt as j_embed_prompt
+from repro.serve import generate as j_generate
+from repro_torch import convert
+from repro_torch.models.config import ModelConfig
+from repro_torch.serve import SemanticCachedLM as TSemantic
+from repro_torch.serve import ServeEngine as TEngine
+from repro_torch.serve import embed_prompt as t_embed_prompt
+from repro_torch.serve import generate as t_generate
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+@pytest.fixture(scope="module")
+def lm():
+    """float32 qwen1.5-0.5b SMOKE: (reference cfg, reference params, port
+    cfg, port model)."""
+    jcfg = dataclasses.replace(J_SMOKE["qwen1.5-0.5b"], dtype="float32")
+    jparams = j_init_params(jax.random.PRNGKey(0), jcfg)
+    np_params = jax.tree.map(np.asarray, jparams)
+    tcfg = ModelConfig(**dataclasses.asdict(jcfg))
+    return jcfg, jparams, tcfg, convert.lm_params_from_numpy(np_params, tcfg, device="cpu")
+
+
+def reference_uniforms(key, n: int, steps: int) -> np.ndarray:
+    """(steps, n) coupled-rounding uniforms, as the reference draws them:
+    key, k_round = split(key) per step, uniform(k_round, (n,))."""
+    out = np.empty((steps, n), np.float32)
+    for i in range(steps):
+        key, k_round = jax.random.split(key)
+        out[i] = np.asarray(jax.random.uniform(k_round, (n,), dtype=jnp.float32))
+    return out
+
+
+@pytest.mark.parametrize("b,s,steps,s_max", [(2, 8, 6, None), (1, 8, 5, None),
+                                             (3, 5, 4, 24)])
+def test_generate_greedy_tokens_match_reference(lm, b, s, steps, s_max):
+    jcfg, jparams, tcfg, port = lm
+    prompt = np.random.default_rng(s + b).integers(0, jcfg.vocab, (b, s)).astype(np.int32)
+    want = j_generate(jparams, jcfg, jnp.array(prompt), steps=steps, s_max=s_max)
+    got = t_generate(port, tcfg, _t(prompt), steps=steps, s_max=s_max)
+    assert got.shape == (b, steps) and got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_temperature_sampling_is_seeded_and_greedy_at_zero(lm):
+    _, _, tcfg, port = lm
+    prompt = torch.randint(0, tcfg.vocab, (2, 6), generator=torch.Generator().manual_seed(0))
+    a = t_generate(port, tcfg, prompt, steps=5, temperature=1.0, seed=3)
+    b = t_generate(port, tcfg, prompt, steps=5, temperature=1.0, seed=3)
+    assert torch.equal(a, b)
+    greedy = t_generate(port, tcfg, prompt, steps=5)
+    # uniforms of exactly 1 - 2^-24 give almost no noise: the greedy tokens
+    u = torch.full((4, 2, tcfg.vocab), 1.0 - 2.0 ** -24)
+    assert torch.equal(t_generate(port, tcfg, prompt, steps=5, temperature=1e-3,
+                                  uniforms=u), greedy)
+
+
+@pytest.mark.parametrize("batch,n_req,prompt_len,max_tokens,seed", [
+    (3, 7, 8, 4, 0),   # tests/test_serve.py: continuous batching completes all
+    (2, 5, 6, 2, 1),   # tests/test_serve.py: FIFO admission with slot reuse
+])
+def test_serve_engine_matches_reference(lm, batch, n_req, prompt_len, max_tokens, seed):
+    jcfg, jparams, tcfg, port = lm
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, jcfg.vocab, prompt_len).astype(np.int32)
+               for _ in range(n_req)]
+    jeng = JEngine(jparams, jcfg, batch=batch, s_max=32)
+    teng = TEngine(port, tcfg, batch=batch, s_max=32)
+    for i, p in enumerate(prompts):
+        jeng.submit(i, jnp.asarray(p), max_tokens=max_tokens)
+        teng.submit(i, _t(p), max_tokens=max_tokens)
+    # first admission wave: FIFO into every free slot, none while all are busy
+    assert teng._admit() == jeng._admit() == batch
+    assert [s.request_id for s in teng.slots] == list(range(batch))
+    assert teng._admit() == 0
+    steps = 0
+    while teng.step():
+        steps += 1
+        assert jeng.step()
+    assert not jeng.step()
+    assert sorted(teng.done) == list(range(n_req))
+    assert not any(s.active for s in teng.slots)
+    assert teng._admit() == 0
+    assert {k: list(map(int, v)) for k, v in teng.done.items()} == \
+        {k: list(map(int, v)) for k, v in jeng.done.items()}
+
+
+def test_embed_prompt_matches_reference(lm):
+    jcfg, jparams, _, port = lm
+    rng = np.random.default_rng(3)
+    toks = rng.integers(0, jcfg.vocab, 11).astype(np.int32)
+    np.testing.assert_allclose(t_embed_prompt(port, _t(toks)).numpy(),
+                               np.asarray(j_embed_prompt(jparams, jnp.array(toks))),
+                               rtol=1e-6, atol=1e-6)
+    batch = rng.integers(0, jcfg.vocab, (4, 9)).astype(np.int32)
+    want = np.stack([np.asarray(j_embed_prompt(jparams, jnp.array(r))) for r in batch])
+    np.testing.assert_allclose(t_embed_prompt(port, _t(batch)).numpy(), want,
+                               rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("index", [None, "flat"])
+def test_semantic_cached_lm_matches_reference(lm, index):
+    """12 single queries, then batches of 4 (equal and unequal prompt
+    lengths), generation counted on both sides."""
+    jcfg, jparams, tcfg, port = lm
+    rng = np.random.default_rng(7)
+    n, h, k = 300, 16, 4
+    cat = rng.normal(size=(n, jcfg.d_model)).astype(np.float32)
+    cat /= np.linalg.norm(cat, axis=1, keepdims=True)
+    # prompts over a small vocabulary slice, so that requests repeat and
+    # the cache has something to learn
+    singles = [rng.integers(0, 24, 10).astype(np.int32) for _ in range(12)]
+    batches = [[rng.integers(0, 24, 10).astype(np.int32) for _ in range(4)]
+               for _ in range(2)]
+    batches.append([rng.integers(0, 24, n_).astype(np.int32) for n_ in (6, 9, 10, 12)])
+    c_f = float(j_calibrate(jnp.array(cat), kth=50))
+    gens = {"ref": 0, "port": 0}
+
+    def counter(side):
+        def fn(_prompt):
+            gens[side] += 1
+        return fn
+
+    jlm = JSemantic(jparams, jcfg, jnp.array(cat), list(range(n)), counter("ref"),
+                    h=h, k=k, c_f=c_f, index_spec=index)
+    tlm = TSemantic(port, tcfg, cat, list(range(n)), counter("port"), h=h, k=k,
+                    c_f=c_f, index_spec=index)
+    jstate = jlm.cache.state
+    tlm.cache.state = convert.cache_state_from_numpy(jstate.y, jstate.x, int(jstate.t),
+                                                     device="cpu")
+    us = reference_uniforms(jstate.key, n, len(singles) + len(batches))
+    for i, p in enumerate(singles):
+        jm = jlm.query(jnp.array(p))
+        tm = tlm.query(_t(p), _t(us[i]))
+        assert int(tm.served_local) == int(jm.served_local)
+    for i, ps in enumerate(batches):
+        jm = jlm.query_batch([jnp.array(p) for p in ps])
+        tm = tlm.query_batch([_t(p) for p in ps], _t(us[len(singles) + i]))
+        np.testing.assert_array_equal(tm.served_local.numpy(), np.asarray(jm.served_local))
+    assert tlm.stats.requests == jlm.stats.requests == 24
+    assert tlm.stats.served_local == jlm.stats.served_local
+    assert gens["port"] == gens["ref"] == tlm.stats.generated == jlm.stats.generated
+    assert abs(tlm.nag - jlm.nag) < 1e-3
+    assert tlm.stats.served_local > 0
+
+
+def test_semantic_cached_lm_refuses_what_is_not_ported(lm):
+    _, _, tcfg, port = lm
+    cat = np.eye(8, tcfg.d_model, dtype=np.float32)
+    kw = dict(h=2, k=1, c_f=1.0)
+    for extra, item in (({"policy_spec": "sim_lru"}, "A6"), ({"mesh": object()}, "A11"),
+                        ({"remote": object()}, "A9"), ({"answer_cache": 8}, "A9")):
+        with pytest.raises(NotImplementedError, match=item):
+            TSemantic(port, tcfg, cat, list(range(8)), lambda p: None, **kw, **extra)
+    tlm = TSemantic(port, tcfg, cat, list(range(8)), lambda p: None, **kw)
+    for call in (lambda: tlm.add_documents(cat[:1], ["x"]),
+                 lambda: tlm.remove_documents([0]), tlm.compact):
+        with pytest.raises(NotImplementedError, match="A8"):
+            call()
+
+
+def test_semantic_traffic_repeats_catalog_prompts_with_zipf_popularity(lm):
+    """The launcher's semantic traffic (the paper's IRM): every request
+    repeats a catalog object's prompt, so its embedding is that row, and
+    the object of barycentric rank r is requested with Zipf(0.9)
+    probability r^-0.9 / H (checked on the top ten ranks to 5 sigma)."""
+    from repro_torch.launch.serve import ZIPF_A, semantic_traffic
+
+    _, _, tcfg, port = lm
+    n, t = 200, 20000
+    cat, prompts, ids = semantic_traffic(port, tcfg, n, 8, t, np.random.default_rng(0), "cpu")
+    assert cat.shape == (n, tcfg.d_model) and len(prompts) == t
+    for j in range(0, t, 997):
+        np.testing.assert_allclose(t_embed_prompt(port, prompts[j]).numpy(),
+                                   cat[ids[j]].numpy(), rtol=1e-6, atol=1e-6)
+    c = cat.numpy().astype(np.float64)
+    order = np.argsort(np.linalg.norm(c - c.mean(axis=0), axis=1))
+    p = np.arange(1, n + 1) ** -ZIPF_A
+    p /= p.sum()
+    freq = np.bincount(ids, minlength=n)[order] / t
+    assert np.all(np.abs(freq[:10] - p[:10]) < 5 * np.sqrt(p[:10] / t))
+
+
+@pytest.mark.parametrize("index", ["exact", "flat"])
+def test_launcher_serves_both_tiers_on_the_cpu(index):
+    """`main` at SMOKE size: every engine request prefills once with finite
+    logits, and the semantic tier's figures add up."""
+    from repro_torch.launch import serve
+
+    fig = serve.main(["--smoke", "--device", "cpu", "--requests", "8", "--batch", "4",
+                      "--query-batches", "2", "--catalog", "256",
+                      "--remote-index", index])
+    eng, sem = fig["engine"], fig["semantic"]
+    assert eng["requests"] == eng["prefills"] == 8 and eng["logits_finite"]
+    assert eng["decode_tokens"] == eng["tokens"] - 8
+    assert sem["requests"] == 16 and 0 < sem["distinct_objects"] <= 16
+    assert sem["generate_share"] == sem["generations"] / 16
+    assert 0 <= sem["served_local"] <= sem["objects"] == 64
+    assert sem["us_per_request"] >= sem["us_per_request_without_generation"] > 0
+    assert 0.0 <= sem["nag"] <= 1.0
