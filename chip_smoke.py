@@ -8,7 +8,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
 1. build   — compile every kernel from src/repro_torch/kernels/csrc with nvcc
              (one process per source, in parallel) and print the card;
 2. kernels — hold each kernel against its plain PyTorch version on the card
-             at the main path's shapes and at ragged / masked cases, and time
+             at the main path's shapes and at ragged / masked cases (and
+             `l2_topk` where its k-th slot ties the (k+1)-th row), and time
              kernel, plain version and a library yardstick (`pq_adc` must be
              bitwise equal to its plain version);
 3. parity  — the n = 2000, d = 16 sift replay (B = 8; flat, IVF, IVF-PQ,
@@ -19,11 +20,15 @@ Phases, each of which raises on failure (the script then exits non-zero):
              AcaiCache with a flat, an IVF and an IVF-PQ index, B = 8 and
              64, with the launch counts of every kernel read around each run;
 5. flash   — `flash_attention` against its plain version on the card: f32
-             at tests/test_kernels.py's five shapes (<= 1e-4) and bf16 at
-             three full-width shapes (within 2^-8 of the output), timed at
-             the qwen1.5-0.5b prefill with bound, plain version and
-             scaled_dot_product_attention as the library yardstick; and
-             `l2_topk` at 64 x 1M x 1024 (the semantic tier's width);
+             at tests/test_kernels.py's five shapes (<= 1e-4, the float32
+             FMA kernel) and bf16 (within 2^-8 of the output, the wgmma
+             kernel) at the LM path's prefill shapes, ragged edge cases and
+             three full-width shapes, the last timed with bound, plain
+             version, the FMA kernel it replaced there, and
+             scaled_dot_product_attention as the library yardstick (with
+             the same boolean mask, and with is_causal where the mask is
+             plain causal); and `l2_topk` at 64 x 1M x 1024 (the semantic
+             tier's width) and 64 x 1M x 4096 (yi-6b's);
 6. lm parity — qwen1.5-0.5b SMOKE in float32 with the flash path forced
              (flash_threshold 32, flash_chunk 16), card against the CPU
              port on the same weights and uniforms: generate tokens and
@@ -35,7 +40,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
              embeddings under the exact and the flat index (requests repeat
              catalog prompts with the paper's Zipf(0.9) popularity); every
              prefill, the engine's and each generation's on a miss, must
-             launch flash_attention once a layer.
+             launch the wgmma flash kernel once a layer, and the FMA one
+             never.
 
 The last lines are the kernels JSON, the card's name and power limit, and
 {"ok": true, "device": {...}}.  Without a CUDA card, or run from a directory
@@ -58,6 +64,7 @@ SRC = ROOT / "src"
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 FMA-unit FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+TF32_FLOPS = 495e12  # dense TF32 tensor-core rate (l2_topk's products)
 BF16_FLOPS = 989e12  # dense bf16 tensor-core rate
 
 # the slice's configuration: benchmarks/churn_bench.py's 1M x 128 cell
@@ -71,6 +78,9 @@ PARITY_SPECS = {"ivf": {"nlist": 48, "nprobe": 10},
                 "ivfpq": {"nlist": 48, "nprobe": 10, "m": 8, "refine": 4},
                 "lsh": {"tables": 12, "bits": 8},
                 "nsw": {"degree": 16, "beam": 48, "steps": 16}}
+# l2_topk's k-th slot ties: generator seeds of 64 uniform queries against
+# the slice's catalog (found by a search of 200 seeds from 100)
+TOPK_TIE_SEEDS = (173, 228)
 # the kernels each index's query must launch (pairwise_l2 runs on every
 # path: the cached-row scan)
 NEEDS = {"flat": ("l2_topk",), "ivf": ("ivf_scan",),
@@ -85,6 +95,13 @@ LIBRARY = {
     "flash_attention": "torch.nn.functional.scaled_dot_product_attention with "
                        "the same boolean mask",
 }
+# what a row's `launches` counts beside its own calls
+LAUNCH_NOTE = {"pairwise_l2": "includes topk_l2's sample bound: one launch in each "
+                              "topk_l2 call on a catalog of 131072 rows or more"}
+# logged beside flash_attention's library_ms where the mask is plain causal
+# (q_offset 0, no window, keys up to S): PyTorch's flash backend
+LIBRARY_CAUSAL = ("scaled_dot_product_attention(is_causal=True) on "
+                  "k[:, :written_upto]")
 
 KERNEL_META = {
     "pairwise_l2": ("src/repro_torch/kernels/csrc/pairwise_l2.cu",
@@ -95,9 +112,14 @@ KERNEL_META = {
                  "src/repro/kernels/ivf_scan.py:84"),
     "pq_adc": ("src/repro_torch/kernels/csrc/pq_adc.cu",
                "src/repro/kernels/pq_adc.py:60"),
-    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",
                         "src/repro/kernels/flash_attention.py:100"),
 }
+# the launch counter of each row, where it is not the row's name: the LM
+# path's flash_attention is the bf16 wgmma kernel; its float32 FMA sibling
+# (csrc/flash_attention.cu) takes float32 and D 16 / 32
+COUNTER = {"flash_attention": "flash_attention_wgmma"}
+FLASH_FMA_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 
 # the LM tier: qwen1.5-0.5b (src/repro/configs/qwen1_5_0_5b.py) at full
 # width, random weights from seed 0; an 8192-token cache takes the flash
@@ -133,6 +155,19 @@ FLASH_F32 = [(2, 64, 64, 4, 2, 32, True, 0), (1, 128, 128, 8, 8, 64, True, 0),
 FLASH_BF16 = [("qwen1.5-0.5b prefill", 1, 4096, 8192, 16, 16, 64, True, 0, 0, 4096),
               ("yi-6b GQA", 1, 4096, 4096, 32, 4, 128, True, 0, 0, None),
               ("window 4096", 1, 8192, 8192, 16, 16, 64, True, 4096, 0, None)]
+# checked, not timed: the LM path's own prefill shapes (S prompt tokens into
+# an 8192-token cache, written_upto S: the engine's 2048-8000, a semantic
+# generation's 512), and ragged S, offsets and written_upto at D 128 and
+# with a window, which reach the kernel's edge tiles, TMA's zero fill past
+# S and written_upto, and its store guard
+FLASH_BF16_EDGE = [("engine prefill S 2049", 1, 2049, 8192, 16, 16, 64, True, 0, 0, 2049),
+                   ("engine prefill S 8000", 1, 8000, 8192, 16, 16, 64, True, 0, 0, 8000),
+                   ("generation prefill S 512", 1, 512, 8192, 16, 16, 64, True, 0, 0, 512),
+                   ("GQA q_offset 1000", 1, 999, 4096, 32, 4, 128, True, 0, 1000, 1999),
+                   ("window 1000 q_offset 1500", 2, 777, 3000, 8, 2, 64, True, 1000,
+                    1500, 2277),
+                   ("not causal, written_upto 700", 1, 300, 1024, 8, 8, 128, False, 0,
+                    0, 700)]
 # bf16 output against the float32 plain version: the kernel's float32
 # result rounded once to bf16 is within 2^-8 of it, relative; the floor
 # covers the float32 sums of kernel and plain version (the phase logs how
@@ -173,7 +208,13 @@ def bound_ms(nbytes: float, flops: float, peak: float = FP32_FLOPS):
 def compare(torch, what, got, want, ids=None):
     """max |got - want| over finite distances; the -1 / +inf pattern and,
     when ids are given, every id whose reference margin to both neighbours
-    exceeds the tolerance must be equal.  Returns the max abs error."""
+    exceeds the tolerance must be equal.  A top-k's plain version is asked
+    for k + 1: its (k+1)-th distance is the k-th slot's right neighbour (a
+    row within the tolerance of the k-th may rightly take its place).
+    Returns the max abs error."""
+    nxt = None
+    if ids is not None and want.shape[1] == got.shape[1] + 1:
+        want, nxt, ids = want[:, :-1], want[:, -1:], (ids[0], ids[1][:, :-1])
     fin = torch.isfinite(want)
     if not torch.equal(torch.isfinite(got), fin):
         raise AssertionError(f"{what}: +inf pattern differs")
@@ -189,7 +230,8 @@ def compare(torch, what, got, want, ids=None):
         w = torch.where(fin, want, torch.full_like(want, 1e30))
         gap = w[:, 1:] - w[:, :-1]
         inf = torch.full_like(w[:, :1], float("inf"))
-        margin = torch.minimum(torch.cat([inf, gap], 1), torch.cat([gap, inf], 1))
+        last = inf if nxt is None else torch.nan_to_num(nxt, posinf=1e30) - w[:, -1:]
+        margin = torch.minimum(torch.cat([inf, gap], 1), torch.cat([gap, last], 1))
         decided = margin > tol + 1e-5 * w.abs()
         bad = int((decided & (gi != wi)).sum())
         if bad:
@@ -240,12 +282,12 @@ def kernel_phase(torch, ops, ref, catalog, reqs, ivf_index, pq_index, dev):
             if k > n:
                 continue
             gd, gi = ops.topk_l2(qa, xa, k)
-            wd, wi = ref.l2_topk_ref(qa, xa, k)
+            wd, wi = ref.l2_topk_ref(qa, xa, k + 1)
             errs["l2_topk"] = max(errs["l2_topk"], compare(
                 torch, f"l2_topk {q}x{n}x{d} k={k}", gd, wd, (gi, wi)))
         valid = torch.rand(n, device=dev, generator=g) < 0.05  # underflows at k=64
         gd, gi = ops.topk_l2(qa, xa, 64, valid=valid)
-        wd, wi = ref.l2_topk_ref(qa, xa, 64, valid)
+        wd, wi = ref.l2_topk_ref(qa, xa, 65, valid)
         errs["l2_topk"] = max(errs["l2_topk"], compare(
             torch, f"l2_topk tombstones {q}x{n}", gd, wd, (gi, wi)))
     for (b, n, p, d) in [(4, 200, 64, 16), (5, 300, 37, 16), (12, 500, 130, 32),
@@ -257,7 +299,7 @@ def kernel_phase(torch, ops, ref, catalog, reqs, ivf_index, pq_index, dev):
         valid = torch.rand(n, device=dev, generator=g) < 0.8
         for k in (1, 10, 64, 128):  # k > P pads with +inf / -1
             gd, gi = ops.ivf_scan_topk(qa, xa, cand, k, valid=valid)
-            wd, wi = ref.ivf_scan_ref(qa, xa, cand, k, valid)
+            wd, wi = ref.ivf_scan_ref(qa, xa, cand, k + 1, valid)
             errs["ivf_scan"] = max(errs["ivf_scan"], compare(
                 torch, f"ivf_scan {b}x{p} k={k}", gd, wd, (gi, wi)))
     # ties across warps and blocks: small-integer data makes every distance
@@ -293,14 +335,19 @@ def kernel_phase(torch, ops, ref, catalog, reqs, ivf_index, pq_index, dev):
         q = reqs[:b].contiguous()
         # l2_topk: FlatIndex.query
         gd, gi = ops.topk_l2(q, catalog, C_REMOTE)
-        wd, wi = ref.l2_topk_ref(q, catalog, C_REMOTE)
+        wd, wi = ref.l2_topk_ref(q, catalog, C_REMOTE + 1)
         errs["l2_topk"] = max(errs["l2_topk"], compare(
             torch, f"l2_topk B={b}", gd, wd, (gi, wi)))
         t_k = time_ms(torch, lambda: ops.topk_l2(q, catalog, C_REMOTE), 20)
         t_p = time_ms(torch, lambda: ref.l2_topk_ref(q, catalog, C_REMOTE), 3, 1)
         t_l = time_ms(torch, lambda: torch.topk(torch.cdist(q, catalog), C_REMOTE,
                                                 largest=False), 5, 1)
-        bnd = bound_ms(4.0 * (n * d + b * d) + 8.0 * b * C_REMOTE, 2.0 * b * n * d)
+        # operations at the TF32 tensor-core rate the kernel runs them on
+        # (the float32 FMA rate of the kernel before it is logged beside)
+        nbytes, flops = 4.0 * (n * d + b * d) + 8.0 * b * C_REMOTE, 2.0 * b * n * d
+        bnd = bound_ms(nbytes, flops, TF32_FLOPS)
+        log(f"  l2_topk B={b}: bound at the float32 FMA rate "
+            f"{bound_ms(nbytes, flops)}")
         extra.append(("l2_topk", b, f"Q={b} N={n} D={d} k={C_REMOTE}", t_k, t_p, t_l, bnd))
 
         # ivf_scan: the IVF probe's table from the real index
@@ -314,7 +361,7 @@ def kernel_phase(torch, ops, ref, catalog, reqs, ivf_index, pq_index, dev):
         if nchunks * C_REMOTE >= p:
             raise AssertionError(f"ivf_scan B={b}: the kernel selects nothing")
         gd, gi = ops.ivf_scan_topk(q, catalog, cand, C_REMOTE)
-        wd, wi = ref.ivf_scan_ref(q, catalog, cand, C_REMOTE)
+        wd, wi = ref.ivf_scan_ref(q, catalog, cand, C_REMOTE + 1)
         errs["ivf_scan"] = max(errs["ivf_scan"], compare(
             torch, f"ivf_scan B={b} P={p}", gd, wd, (gi, wi)))
         t_k = time_ms(torch, lambda: ops.ivf_scan_topk(q, catalog, cand, C_REMOTE), 20)
@@ -365,6 +412,24 @@ def kernel_phase(torch, ops, ref, catalog, reqs, ivf_index, pq_index, dev):
         bnd = bound_ms(4.0 * (b * d + cap * d + b * cap), 2.0 * b * cap * d)
         extra.append(("pairwise_l2", b, f"Q={b} N={cap} D={d}", t_k, t_p, t_l, bnd))
 
+    # the k-th slot where it ties the (k+1)-th within float32's reach: uniform
+    # queries against the catalog (each of these seeds holds queries whose
+    # k-th slot the kernel and the plain version fill with different rows,
+    # 1e-5 or less apart); float64 distances show which row is nearer
+    for seed in TOPK_TIE_SEEDS:
+        q = torch.rand(64, d, device=dev, generator=torch.Generator(device=dev).manual_seed(seed))
+        gd, gi = ops.topk_l2(q, catalog, C_REMOTE)
+        wd, wi = ref.l2_topk_ref(q, catalog, C_REMOTE + 1)
+        errs["l2_topk"] = max(errs["l2_topk"], compare(
+            torch, f"l2_topk k-th slot ties, uniform queries seed {seed}", gd, wd, (gi, wi)))
+        for qi in (gi[:, -1] != wi[:, -2]).nonzero()[:, 0].tolist():
+            pick = [int(gi[qi, -1]), int(wi[qi, -2]), int(wi[qi, -1])]
+            f64 = [float(((catalog[r].double() - q[qi].double()) ** 2).sum()) for r in pick]
+            log(f"    query {qi}, k-th slot: kernel row {pick[0]} ({float(gd[qi, -1])}; "
+                f"float64 {f64[0]}), plain row {pick[1]} ({float(wd[qi, -2])}; float64 "
+                f"{f64[1]}), plain (k+1)-th row {pick[2]} ({float(wd[qi, -1])}; float64 "
+                f"{f64[2]})")
+
     # pairwise_l2 at its largest main-path call: the k-means assignment step
     cents = ivf_index.centroids
     sub = catalog[:65536].contiguous()
@@ -401,6 +466,8 @@ def kernel_phase(torch, ops, ref, catalog, reqs, ivf_index, pq_index, dev):
                           "ms": t_k, "plain_ms": t_p, "bound_ms": bms,
                           "bound_by": by, "library_ms": t_l,
                           "library": LIBRARY[name], "shape": shape}
+            if name in LAUNCH_NOTE:
+                rows[name]["launches_note"] = LAUNCH_NOTE[name]
     return rows
 
 
@@ -547,11 +614,15 @@ def kept_pairs(b, s, t, causal, window, q_offset, written_upto) -> int:
 
 
 def flash_phase(torch, ops, ref, dev):
-    """flash_attention against its plain version, f32 and bf16; the timed
-    qwen1.5-0.5b prefill shape gives the JSON row."""
+    """flash_attention against its plain version, f32 (the FMA kernel) and
+    bf16 (the wgmma kernel); the timed qwen1.5-0.5b prefill shape gives the
+    JSON row."""
+    from repro_torch.kernels import _build
+
     g = torch.Generator(device=dev).manual_seed(2)
     err = 0.0
     log("flash: float32 (max abs diff <= 1e-4 against the plain version)")
+    ops.reset_launches()
     for (b, s, t, h, kv, d, causal, window) in FLASH_F32:
         q = torch.randn(b, s, h, d, device=dev, generator=g)
         k = torch.randn(b, t, kv, d, device=dev, generator=g)
@@ -565,17 +636,25 @@ def flash_phase(torch, ops, ref, dev):
             if not e <= 1e-4:
                 raise AssertionError(f"flash f32 {(b, s, t, h, kv, d)}: {e} > 1e-4")
             err = max(err, e)
+    if ops.LAUNCHES["flash_attention"] != 2 * len(FLASH_F32) or ops.LAUNCHES[
+            "flash_attention_wgmma"]:
+        raise AssertionError(f"flash f32: launches {ops.LAUNCHES}, expected the FMA "
+                             f"kernel only")
 
-    log(f"flash: bf16 at full width, against the plain version fed the same "
-        f"bf16 inputs in float32: |got - want| <= 2^-8 |want| + {F32_FLOOR} "
-        f"(one bf16 rounding of the output)")
-    row = None
-    for (name, b, s, t, h, kv, d, causal, window, q_off, wu) in FLASH_BF16:
+    log(f"flash: bf16, against the plain version fed the same bf16 inputs in "
+        f"float32: |got - want| <= 2^-8 |want| + {F32_FLOOR} (one bf16 rounding "
+        f"of the output)")
+
+    def check_bf16(name, b, s, t, h, kv, d, causal, window, q_off, wu):
         q = torch.randn(b, s, h, d, device=dev, generator=g).bfloat16()
         k = torch.randn(b, t, kv, d, device=dev, generator=g).bfloat16()
         v = torch.randn(b, t, kv, d, device=dev, generator=g).bfloat16()
         kw = dict(causal=causal, window=window, q_offset=q_off, written_upto=wu)
+        ops.reset_launches()
         got = ops.flash_attention(q, k, v, **kw).float()
+        if ops.LAUNCHES["flash_attention_wgmma"] != 1:
+            raise AssertionError(f"flash bf16 {name}: launches {ops.LAUNCHES}, expected "
+                                 f"the wgmma kernel")
         want = ref.flash_attention_ref(q.float(), k.float(), v.float(), **kw)
         e32 = float((ops.flash_attention(q.float(), k.float(), v.float(), **kw)
                      - want).abs().max())
@@ -583,22 +662,40 @@ def flash_phase(torch, ops, ref, dev):
         ratio = float((diff / (BF16_REL * want.abs() + F32_FLOOR)).max())
         e = float(diff.max())
         log(f"  flash bf16 {name} B={b} S={s} T={t} H={h} KV={kv} D={d} "
-            f"window={window} written_upto={wu}: max_abs_err={e} "
+            f"window={window} q_offset={q_off} written_upto={wu}: max_abs_err={e} "
             f"max err/tolerance={ratio}; float32 kernel on the same inputs: "
             f"max_abs_err={e32}")
         if not (ratio <= 1.0 and e32 <= 1e-4):
             raise AssertionError(f"flash bf16 {name}: error above one bf16 rounding")
+        return q, k, v, kw, e
+
+    for case in FLASH_BF16_EDGE:
+        err = max(err, check_bf16(*case)[-1])
+    row = None
+    fma = _build.load("flash_attention").flash_attention
+    for (name, b, s, t, h, kv, d, causal, window, q_off, wu) in FLASH_BF16:
+        q, k, v, kw, e = check_bf16(name, b, s, t, h, kv, d, causal, window, q_off, wu)
         err = max(err, e)
-        del got, want, diff
 
         pairs = kept_pairs(b, s, t, causal, window, q_off, wu)
         nbytes = 2.0 * (2 * b * s * h * d + 2 * b * t * kv * d)
         bms, by = bound_ms(nbytes, 4.0 * h * d * pairs, BF16_FLOPS)
-        t_k = time_ms(torch, lambda: ops.flash_attention(q, k, v, **kw), 10)
+        t_k = time_ms(torch, lambda: ops.flash_attention(q, k, v, **kw), 20)
         t_p = time_ms(torch, lambda: ref.flash_attention_ref(q, k, v, **kw), 3, 1)
+        wuu = t if wu is None else wu
+        out = torch.empty_like(q)
+        stream = torch.cuda.current_stream().cuda_stream
+
+        def run_fma():  # the float32 FMA kernel this shape ran on before
+            rc = fma(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, t,
+                     h, kv, d, int(causal), window, q_off, wuu, 1.0 / d ** 0.5, 1, stream)
+            if rc:
+                raise RuntimeError(f"flash_attention (FMA) failed with CUDA error {rc}")
+
+        t_fma = time_ms(torch, run_fma, 5)
         qp = q_off + torch.arange(s, device=dev)[:, None]
         kp = torch.arange(t, device=dev)[None, :]
-        mask = (kp < (t if wu is None else wu)).expand(s, t).clone()
+        mask = (kp < wuu).expand(s, t).clone()
         if causal:
             mask &= kp <= qp
         if window:
@@ -606,10 +703,15 @@ def flash_phase(torch, ops, ref, dev):
         qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
         sdpa = torch.nn.functional.scaled_dot_product_attention
         t_l = time_ms(torch, lambda: sdpa(qt, kt, vt, attn_mask=mask,
-                                          enable_gqa=kv != h), 3, 1)
+                                          enable_gqa=kv != h), 5, 1)
+        t_c = None
+        if causal and not window and q_off == 0 and wuu == s:
+            kc, vc = kt[:, :, :wuu], vt[:, :, :wuu]
+            t_c = time_ms(torch, lambda: sdpa(qt, kc, vc, is_causal=True,
+                                              enable_gqa=kv != h), 20, 2)
         log(f"  time flash bf16 {name}: kernel_ms={t_k} plain_ms={t_p} "
-            f"library_ms={t_l} bound_ms={bms} ({by}; {pairs} kept pairs, "
-            f"{nbytes} bytes)")
+            f"fma_kernel_ms={t_fma} library_ms={t_l} library_causal_ms={t_c} "
+            f"bound_ms={bms} ({by}; {pairs} kept pairs, {nbytes} bytes)")
         if row is None:  # the qwen1.5-0.5b prefill shape
             row = {"name": "flash_attention", "route": "cuda",
                    "source": KERNEL_META["flash_attention"][0],
@@ -617,23 +719,28 @@ def flash_phase(torch, ops, ref, dev):
                    "launches": 0, "max_abs_err": 0.0, "ms": t_k, "plain_ms": t_p,
                    "bound_ms": bms, "bound_by": by, "library_ms": t_l,
                    "library": LIBRARY["flash_attention"],
+                   "library_causal_ms": t_c, "library_causal": LIBRARY_CAUSAL,
+                   "fma_kernel_ms": t_fma, "fma_kernel": FLASH_FMA_SOURCE,
                    "shape": f"B={b} S={s} T={t} H={h} KV={kv} D={d} causal "
                             f"written_upto={wu} bf16"}
-        del q, k, v, mask, qt, kt, vt
+        del q, k, v, mask, qt, kt, vt, out
     row["max_abs_err"] = err
     return row
 
 
 # the (d, k) of tests/test_torch_kernels.py's launch-plan cases, whose
 # smem arithmetic runs there on ops.l2_topk_smem_bytes_host
-TOPK_PLAN_DK = [(d, k) for d in (128, 1024, 2048, 4096) for k in (16, 51, 64)]
+TOPK_PLAN_DK = [(d, k) for d in (128, 1024, 2048, 4096, 8192) for k in (16, 51, 64)]
+# l2_topk beyond the retrieval slice's width: the semantic tier's catalog at
+# qwen1.5-0.5b's d_model, and yi-6b's (16 GB of float32 catalog)
+TOPK_WIDE = [(64, 1_000_000, 1024, 16), (64, 1_000_000, 4096, 16)]
 
 
 def topk_wide_phase(torch, ops, ref, dev) -> None:
-    """l2_topk at the semantic tier's width: 64 queries x 1M x 1024, k 16
-    (a query tile of 64 rows does not fit a block at D = 1024; the wrapper
-    takes the widest that does).  First, the host copy of the kernel's
-    smem formula must equal the library's wherever the tests plan with it."""
+    """l2_topk at the LM tier's widths (TOPK_WIDE): the depth is streamed,
+    so a 64-query tile fits at every width.  First, the host copy of the
+    kernel's smem formula must equal the library's wherever the tests plan
+    with it."""
     from repro_torch.kernels import _build
 
     lib = _build.load("l2_topk")
@@ -646,19 +753,24 @@ def topk_wide_phase(torch, ops, ref, dev) -> None:
     log(f"  l2_topk smem formula: host copy equals l2_topk.cu at "
         f"{3 * len(TOPK_PLAN_DK)} (qt, d, k)")
     g = torch.Generator(device=dev).manual_seed(3)
-    x = torch.randn(1_000_000, 1024, device=dev, generator=g)
-    q = torch.randn(64, 1024, device=dev, generator=g)
-    qt = ops.topk_l2_query_tile(64, 1024, 16, lib.l2_topk_smem_bytes)
-    gd, gi = ops.topk_l2(q, x, 16)
-    wd, wi = ref.l2_topk_ref(q, x, 16)
-    compare(torch, f"l2_topk 64 x 1M x 1024 k=16 (query tile {16 * qt})",
-            gd, wd, (gi, wi))
-    t_k = time_ms(torch, lambda: ops.topk_l2(q, x, 16), 5, 1)
-    t_l = time_ms(torch, lambda: torch.topk(torch.cdist(q, x), 16, largest=False), 3, 1)
-    bms, by = bound_ms(4.0 * (1_000_000 * 1024 + 64 * 1024) + 8.0 * 64 * 16,
-                       2.0 * 64 * 1_000_000 * 1024)
-    log(f"  time l2_topk [Q=64 N=1000000 D=1024 k=16]: kernel_ms={t_k} "
-        f"library_ms={t_l} bound_ms={bms} ({by})")
+    for (nq, n, d, k) in TOPK_WIDE:
+        x = torch.randn(n, d, device=dev, generator=g)
+        q = torch.randn(nq, d, device=dev, generator=g)
+        qt = ops.topk_l2_query_tile(nq, d, k, lib.l2_topk_smem_bytes)
+        gd, gi = ops.topk_l2(q, x, k)
+        wd, wi = ref.l2_topk_ref(q, x, k + 1)
+        compare(torch, f"l2_topk {nq} x {n} x {d} k={k} (query tile {16 * qt})",
+                gd, wd, (gi, wi))
+        del gd, gi, wd, wi
+        t_k = time_ms(torch, lambda: ops.topk_l2(q, x, k), 5, 1)
+        t_l = time_ms(torch, lambda: torch.topk(torch.cdist(q, x), k, largest=False), 3, 1)
+        nbytes, flops = 4.0 * (n * d + nq * d) + 8.0 * nq * k, 2.0 * nq * n * d
+        bms, by = bound_ms(nbytes, flops, TF32_FLOPS)
+        log(f"  time l2_topk [Q={nq} N={n} D={d} k={k}]: kernel_ms={t_k} "
+            f"library_ms={t_l} bound_ms={bms} ({by}; at the float32 FMA rate "
+            f"{bound_ms(nbytes, flops)[0]})")
+        del x, q
+        torch.cuda.empty_cache()
 
 
 def lm_parity_phase(torch, ops, dev):
@@ -777,10 +889,11 @@ def lm_slice_phase(torch, ops, card: str):
                     raise AssertionError(f"lm slice {name}: {k} never launched")
         if not eng["logits_finite"]:
             raise AssertionError(f"lm slice {name}: non-finite prefill logits")
-        if counts["flash_attention"] != n_layers * prefills:
+        if counts["flash_attention_wgmma"] != n_layers * prefills or counts["flash_attention"]:
             raise AssertionError(
-                f"lm slice {name}: flash_attention launched {counts['flash_attention']} "
-                f"times for {prefills} prefills of {n_layers} layers")
+                f"lm slice {name}: flash_attention_wgmma launched "
+                f"{counts['flash_attention_wgmma']} times and the FMA flash kernel "
+                f"{counts['flash_attention']} for {prefills} prefills of {n_layers} layers")
         for k in total:
             total[k] += counts[k]
     return total
@@ -818,7 +931,8 @@ def main() -> int:
     for name, r in report.items():
         log(f"  {name}: {r['seconds']} s: {r['cmd']}")
         log("    " + "\n    ".join(line for line in r["log"].splitlines()
-                                   if "registers" in line or "spill" in line))
+                                   if any(w in line for w in ("registers", "spill",
+                                                              "arning"))))
 
     t0 = time.perf_counter()
     cat_np, reqs_np, _ = trace.sift_like(n=N_FULL, d=D_FULL, t=T_FULL, seed=0)
@@ -852,7 +966,8 @@ def main() -> int:
     lm_parity_phase(torch, ops, dev)
     lm_launches = lm_slice_phase(torch, ops, card)
     for name, row in rows.items():
-        row["launches"] = launches[name] + lm_launches[name]
+        counter = COUNTER.get(name, name)
+        row["launches"] = launches[counter] + lm_launches[counter]
         if row["launches"] == 0:
             raise AssertionError(f"{name} was never launched on the main path")
     log(f"total: {time.perf_counter() - t_start} s")

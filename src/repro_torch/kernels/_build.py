@@ -20,7 +20,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-KERNELS = ("pairwise_l2", "l2_topk", "ivf_scan", "pq_adc", "flash_attention")
+KERNELS = ("pairwise_l2", "l2_topk", "ivf_scan", "pq_adc", "flash_attention",
+           "flash_attention_wgmma")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry points per library: name -> (restype, argtypes)
@@ -29,8 +30,7 @@ _SIGNATURES = {
         "pairwise_l2": (_I, [_P, _P, _P, _I, _I, _I, _P]),
     },
     "l2_topk": {
-        "l2_topk_partial": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                 _I, _I, _P]),
+        "l2_topk_partial": (_I, [_P] * 8 + [_I] * 7 + [_P]),
         "l2_topk_smem_bytes": (ctypes.c_longlong, [_I, _I, _I]),
     },
     "ivf_scan": {
@@ -45,6 +45,10 @@ _SIGNATURES = {
     "flash_attention": {
         "flash_attention": (_I, [_P, _P, _P, _P] + [_I] * 10
                             + [ctypes.c_float, _I, _P]),
+    },
+    "flash_attention_wgmma": {
+        "flash_attention_wgmma": (_I, [_P, _P, _P, _P] + [_I] * 10
+                                  + [ctypes.c_float, _P]),
     },
 }
 

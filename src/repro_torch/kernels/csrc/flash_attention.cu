@@ -22,8 +22,11 @@
 // causal, H 16, D 64) that is 34 GFLOP against 50 MB: bound by the
 // operations on the bf16 tensor cores (0.035 ms at 989 TFLOP/s).  This
 // kernel keeps p in float32 and multiplies on the 67 TFLOP/s FMA units,
-// so it cannot come within 15x of that bound; moving p to bf16 on wgmma
-// is later work.
+// so it cannot come within 15x of that bound.  The wrapper sends bf16 at
+// D 64 and 128, the main path's types and widths, to
+// flash_attention_wgmma.cu (wgmma products, TMA-fed K / V, p split into
+// three bf16 parts); this kernel keeps float32 inputs, held to 1e-4, which
+// tensor cores cannot promise, and D 16 and 32.
 //
 // Why not the TPU design: the Pallas kernel keeps a whole (T, D) KV
 // stream of one (b, kv head) resident in VMEM per grid cell (8 MiB at

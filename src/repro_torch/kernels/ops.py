@@ -15,15 +15,30 @@ import torch
 from repro_torch.kernels import _build, ref
 
 # kernel launches since the last reset_launches(), by kernel
+# by kernel; flash_attention has two: "flash_attention" (float32 FMA
+# products: float32 inputs, D 16 and 32) and "flash_attention_wgmma" (bf16
+# on the tensor cores at D 64 and 128)
 LAUNCHES = {"pairwise_l2": 0, "l2_topk": 0, "ivf_scan": 0, "pq_adc": 0,
-            "flash_attention": 0}
+            "flash_attention": 0, "flash_attention_wgmma": 0}
 
 MAX_K = 128          # the top-k kernels keep four list slots per lane
 SMEM_LIMIT = 232448  # dynamic shared memory a block may use on Hopper
 _TARGET_BLOCKS = 4 * 132  # a few waves over the H100's 132 SMs
+# l2_topk: one wave of blocks (a 64-query block fills an SM's shared
+# memory; two 16-query blocks fit one), so each block's run is as long as
+# it can be: a block builds its k-lists anew, about k (1 + ln(run / k))
+# inserts a query
+_TOPK_TARGET_BLOCKS = 132
+# catalog rows whose k-th distance bounds each query's k-th from above
+# (`topk_l2_bound`), from catalogs of TOPK_SAMPLE_MIN_N rows on: on
+# smaller ones the sample is too large a share of the catalog to pay
+TOPK_SAMPLE, TOPK_SAMPLE_MIN_N = 16384, 131072
 IVF_MIN_RUN = 32     # an ivf_scan block selects k of at least this many x k
 PQ_MAX_C = 256       # pq_adc codes are uint8
 FLASH_HEAD_DIMS = (16, 32, 64, 128)  # head widths flash_attention is built for
+FLASH_WGMMA_HEAD_DIMS = (64, 128)    # of which bf16 takes flash_attention_wgmma
+TOPK_BN = 128        # catalog rows of an l2_topk tile
+_TOPK_DK, _TOPK_STAGES = 64, 2  # l2_topk's chunk depth and ring (l2_topk.cu)
 _PQ_THREADS = 256    # threads of a pq_adc block, one slot each at a time
 
 
@@ -113,19 +128,23 @@ def pairwise_l2(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 
 def l2_topk_smem_bytes_host(qt: int, d: int, k: int) -> int:
-    """A host copy of l2_topk.cu's `smem_bytes` (BN = 64, DK = 32), so that
-    the launch plan can be checked without a card; chip_smoke.py holds it
-    equal to the library's `l2_topk_smem_bytes`.  The wrapper itself asks
-    the library."""
+    """A host copy of l2_topk.cu's `smem_bytes`: 1 KB of alignment, a ring
+    of _TOPK_STAGES 64-deep chunks (TOPK_BN catalog rows, and the TF32 hi
+    and lo halves of 16 qt queries) with two mbarriers a stage, the norms
+    and the lists; D does not enter, the depth is streamed.  It lets the launch plan be checked without a card;
+    chip_smoke.py holds it equal to the library's `l2_topk_smem_bytes`.
+    The wrapper itself asks the library."""
     bq = 16 * qt
-    return 4 * (bq * (d + 1) + 64 * 33 + bq * 65 + bq + 64 + 2 * bq * k)
+    return (1024 + _TOPK_STAGES * (TOPK_BN + 2 * bq) * _TOPK_DK * 4 + 16 * _TOPK_STAGES
+            + 4 * (bq + TOPK_BN + 2 * bq * k))
 
 
 def topk_l2_query_tile(nq: int, d: int, k: int, smem_bytes) -> int:
     """qt of an `l2_topk` launch (a block holds 16 * qt queries): the
     widest of 1, 2, 4 that the batch fills and whose shared memory,
     `smem_bytes(qt, d, k)`, fits a block.  Raises NotImplementedError when
-    even qt = 1 does not fit (D = 4096 at any k)."""
+    even qt = 1 does not fit (no (d, k <= 128) does: the kernel streams the
+    depth)."""
     qt = 1 if nq <= 16 else 2 if nq <= 32 else 4
     while qt > 1 and smem_bytes(qt, d, k) > SMEM_LIMIT:
         qt //= 2
@@ -136,13 +155,75 @@ def topk_l2_query_tile(nq: int, d: int, k: int, smem_bytes) -> int:
     return qt
 
 
+def topk_l2_plan(nq: int, n: int, d: int, k: int, smem_bytes) -> tuple[int, int, int]:
+    """(qt, chunk, nchunks) of an `l2_topk` launch: the query tile
+    (`topk_l2_query_tile`), and runs of whole 128-row tiles for about one
+    wave of blocks, two an SM at a 16-query tile."""
+    qt = topk_l2_query_tile(nq, d, k, smem_bytes)
+    qtiles = -(-nq // (16 * qt))
+    target = max(1, _TOPK_TARGET_BLOCKS * (2 if qt == 1 else 1) // qtiles)
+    chunk = max(TOPK_BN, -(-n // target))
+    chunk = -(-chunk // TOPK_BN) * TOPK_BN
+    return qt, chunk, -(-n // chunk)
+
+
+def topk_l2_bound(q: torch.Tensor, qn: torch.Tensor, x: torch.Tensor, k: int,
+                  valid=None):
+    """(Q,) float32: per query, a distance that no row `l2_topk` returns
+    exceeds, or None below TOPK_SAMPLE_MIN_N rows (there the sample would
+    be a large share of the catalog).  qn (Q,) are the queries' squared
+    norms.
+
+    tau, the k-th smallest distance of the first TOPK_SAMPLE (live) rows by
+    `pairwise_l2`, is widened by what both kernels' float32 sums may err on
+    those k rows: the k-th distance l2_topk computes over the whole catalog
+    is at most the largest it computes over them.  Each sum errs by at most
+    about (3 D + 8) 2^-24 (|q|^2 + |x|^2) (l2_topk's truncating tensor-core
+    sums; pairwise_l2's float32 FMAs err less), and such a row has
+    |x|^2 <= 2 |q|^2 + 2 (tau + its error), so (8 D + 128) 2^-24
+    (3 |q|^2 + 2 tau) covers both sums without any row's norm.  Rows beyond
+    the bound never enter a list, so the kernel inserts about
+    k N / TOPK_SAMPLE rows a query, not k (1 + ln(run / k)) in every block.
+    +inf where the sample holds fewer than k live rows (no bound)."""
+    n, d = x.shape
+    if n < TOPK_SAMPLE_MIN_N:
+        return None
+    dist = pairwise_l2(q, x[:TOPK_SAMPLE])
+    if valid is not None:
+        dist = dist.masked_fill(~valid[None, :TOPK_SAMPLE], float("inf"))
+    tau = torch.topk(dist, k, dim=1, largest=False, sorted=True).values[:, -1]
+    return (tau + (8 * d + 128) * 2.0 ** -24 * (3 * qn + 2 * tau)).contiguous()
+
+
+def tf32_split(a: torch.Tensor):
+    """(hi, lo), float32, with a = hi + lo up to the dropped low bits of lo:
+    each rounded to TF32 (a 10-bit mantissa, to nearest with ties away from
+    zero, as cvt.rna.tf32.f32).  l2_topk's queries go to the kernel split."""
+    def rna(v):
+        return ((v.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+    hi = rna(a)
+    return hi, rna(a - hi)
+
+
+def _tma_ready(a: torch.Tensor) -> torch.Tensor:
+    """a, or a copy zero-padded to a width divisible by 4 and starting on
+    16 bytes: TMA's rows must be 16-byte multiples (zero columns add
+    nothing to a distance)."""
+    if a.shape[1] % 4 == 0 and a.data_ptr() % 16 == 0:
+        return a
+    return torch.nn.functional.pad(a, (0, -a.shape[1] % 4)).contiguous()
+
+
 def topk_l2(q: torch.Tensor, x: torch.Tensor, k: int, *, valid=None):
     """Fused distance + top-k: (dists (Q, k) ascending, ids (Q, k) int32).
 
     `valid` (N,) bool is the tombstone mask: masked rows never surface,
     and queries with fewer than k live rows underflow as +inf / -1.  On
     CUDA the (Q, N) distance matrix never reaches device memory; k <= 128
-    (larger k raises NotImplementedError)."""
+    (larger k raises NotImplementedError).  A catalog whose width is not a
+    multiple of 4, or that does not start on 16 bytes, is copied padded
+    first (TMA's rows are 16-byte multiples)."""
     if not _on_cuda(q, x, *([] if valid is None else [valid])):
         return ref.l2_topk_ref(q, x, k, valid)
     _ieee_fp32()
@@ -160,19 +241,20 @@ def topk_l2(q: torch.Tensor, x: torch.Tensor, k: int, *, valid=None):
     if nq == 0 or n == 0:
         raise ValueError(f"topk_l2: empty input, Q = {nq}, N = {n}")
     lib = _build.load("l2_topk")
-    qt = topk_l2_query_tile(nq, d, k, lib.l2_topk_smem_bytes)
-    qtiles = -(-nq // (16 * qt))
-    target = max(1, _TARGET_BLOCKS // max(qtiles, 1))
-    chunk = max(64, -(-n // target))
-    chunk = -(-chunk // 64) * 64
-    nchunks = -(-n // chunk)
+    qt, chunk, nchunks = topk_l2_plan(nq, n, d, k, lib.l2_topk_smem_bytes)
     if nchunks > 65535:
         raise NotImplementedError(f"topk_l2: N = {n} exceeds the grid")
+    qn = torch.sum(q * q, dim=1)  # as the plain version sums them
+    bound = topk_l2_bound(q, qn, x, k, valid)
+    xk, qk = _tma_ready(x), _tma_ready(q)
+    q_hi, q_lo = tf32_split(qk)
     pd = torch.empty((nq, nchunks * k), dtype=torch.float32, device=q.device)
     pi = torch.empty(pd.shape, dtype=torch.int32, device=q.device)
     rc = lib.l2_topk_partial(
-        q.data_ptr(), x.data_ptr(), None if valid is None else valid.data_ptr(),
-        pd.data_ptr(), pi.data_ptr(), nq, n, d, k, chunk, nchunks, qt, _stream())
+        q_hi.data_ptr(), q_lo.data_ptr(), qn.data_ptr(), xk.data_ptr(),
+        None if valid is None else valid.data_ptr(),
+        None if bound is None else bound.data_ptr(), pd.data_ptr(), pi.data_ptr(),
+        nq, n, xk.shape[1], k, chunk, nchunks, qt, _stream())
     _raise_on(rc, "l2_topk")
     LAUNCHES["l2_topk"] += 1
     vals, ids = _merge_partials(pd, pi, k)
@@ -321,6 +403,15 @@ def pq_adc_gather(lut: torch.Tensor, codes: torch.Tensor,
     return _pq_adc_launch(lut, codes, cand)
 
 
+def flash_kernel_for(dtype: torch.dtype, d: int) -> str:
+    """The flash kernel a CUDA call takes, by (dtype, D): bf16 at D 64 or
+    128 (the LM path's types and widths) -> "flash_attention_wgmma"; float32,
+    and bf16 at D 16 or 32 -> "flash_attention" (float32 FMA products)."""
+    if dtype == torch.bfloat16 and d in FLASH_WGMMA_HEAD_DIMS:
+        return "flash_attention_wgmma"
+    return "flash_attention"
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0, q_offset: int = 0,
                     written_upto: int | None = None) -> torch.Tensor:
@@ -332,8 +423,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     accumulation, 0 for a row with no kept key.
 
     CUDA: contiguous float32 or bf16 tensors of one dtype, D in
-    FLASH_HEAD_DIMS and Dv = D, the `flash_attention` kernel; anything
-    else raises."""
+    FLASH_HEAD_DIMS and Dv = D; anything else raises.  The kernel is
+    chosen by (dtype, D), explicitly (`flash_kernel_for`):
+      - bf16 at D in FLASH_WGMMA_HEAD_DIMS (64, 128: the LM path's types
+        and widths): `flash_attention_wgmma`, wgmma on the tensor cores
+        with TMA-fed K / V and p split into three bf16 parts; the tensors
+        must start on 16 bytes (TMA);
+      - float32 at any D of FLASH_HEAD_DIMS, and bf16 at D 16 or 32:
+        `flash_attention`, float32 FMA products (float32 is held to 1e-4,
+        which tensor cores cannot promise).
+    Either kernel raises when its build or launch fails; neither falls
+    back to the other."""
     if not _on_cuda(q, k, v):
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                        q_offset=q_offset, written_upto=written_upto)
@@ -363,11 +463,22 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                   f"T = {t} exceed the kernel's grid or positions")
     wu = t if written_upto is None else max(0, min(int(written_upto), t))
     out = torch.empty((b, s, h, d), dtype=dtype, device=q.device)
-    if b and s and h:
-        rc = _build.load("flash_attention").flash_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, t, h,
+    if not (b and s and h):
+        return out
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, t, h,
             kvh, d, int(bool(causal)), int(window), int(q_offset), wu,
-            1.0 / d ** 0.5, int(dtype == torch.bfloat16), _stream())
+            1.0 / d ** 0.5)
+    if flash_kernel_for(dtype, d) == "flash_attention_wgmma":
+        if any(a.data_ptr() % 16 for a in (q, k, v)):
+            raise ValueError("flash_attention: bf16 q, k, v must start on 16 "
+                             "bytes (the kernel loads them by TMA)")
+        rc = _build.load("flash_attention_wgmma").flash_attention_wgmma(
+            *args, _stream())
+        _raise_on(rc, "flash_attention_wgmma")
+        LAUNCHES["flash_attention_wgmma"] += 1
+    else:
+        rc = _build.load("flash_attention").flash_attention(
+            *args, int(dtype == torch.bfloat16), _stream())
         _raise_on(rc, "flash_attention")
         LAUNCHES["flash_attention"] += 1
     return out

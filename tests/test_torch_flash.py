@@ -88,3 +88,112 @@ def test_ops_dispatches_cpu_tensors_to_the_plain_version():
     # bf16 in, bf16 out; the math is float32 inside
     got16 = tops.flash_attention(q.bfloat16(), k.bfloat16(), v.bfloat16())
     assert got16.dtype == torch.bfloat16 and got16.shape == q.shape
+
+
+# The CUDA kernel's numerics for bf16 at D 64 / 128
+# (csrc/flash_attention_wgmma.cu), emulated in plain torch: K / V tiles of
+# the kernel's width, logits and the online softmax in float32 as the
+# reference keeps them, and p . V with p cut into `parts` bf16 terms (p1 =
+# bf16(p), p2 = bf16(p - p1), ...) against bf16 V, summed in float32; the
+# output is rounded to bf16.  parts=None keeps the float32 p.  The check
+# is chip_smoke.py's: within one bf16 rounding of the float32 plain
+# version fed the same bf16 inputs, |got - want| <= 2^-8 |want| + 1e-6.
+BF16_REL, F32_FLOOR = 2.0 ** -8, 1e-6
+GQA_D128 = (1, 256, 512, 8, 2, 128, True, 0)
+
+
+def _kernel_tile(d):
+    return 128 if d <= 64 else 64
+
+
+def _flash_bf16_emulation(q, k, v, parts, *, causal, window, q_offset,
+                          written_upto, round_out=True):
+    b, s, h, dd = q.shape
+    t, kvh = k.shape[1], k.shape[2]
+    bk = _kernel_tile(dd)
+    qg = q.reshape(b, s, kvh, h // kvh, dd).float()
+    q_pos = q_offset + torch.arange(s)
+    m = torch.full((b, kvh, h // kvh, s), float("-inf"))
+    l = torch.zeros_like(m)
+    acc = torch.zeros((b, kvh, h // kvh, s, dd))
+    for j in range(0, t, bk):
+        kb, vb = k[:, j:j + bk].float(), v[:, j:j + bk].float()
+        logits = torch.einsum("bskgd,btkd->bkgst", qg, kb) / dd ** 0.5
+        k_pos = j + torch.arange(kb.shape[1])
+        ok = (k_pos[None, :] < written_upto).expand(s, -1).clone()
+        if causal:
+            ok &= k_pos[None, :] <= q_pos[:, None]
+        if window:
+            ok &= k_pos[None, :] > q_pos[:, None] - window
+        logits = logits.masked_fill(~ok, float("-inf"))
+        m_new = torch.maximum(m, logits.amax(-1))
+        shift = torch.where(torch.isfinite(m_new), m_new, torch.zeros_like(m_new))
+        p = torch.exp(logits - shift[..., None]).masked_fill(~ok, 0.0)
+        rescale = torch.where(torch.isfinite(m), torch.exp(m - shift), torch.zeros_like(m))
+        l = l * rescale + p.sum(-1)
+        if parts is None:
+            pv = torch.einsum("bkgst,btkd->bkgsd", p, vb)
+        else:
+            pv, rest = 0.0, p
+            for _ in range(parts):
+                term = rest.bfloat16().float()
+                pv = pv + torch.einsum("bkgst,btkd->bkgsd", term, vb)
+                rest = rest - term
+        acc = acc * rescale[..., None] + pv
+        m = m_new
+    out = (acc / torch.clamp_min(l, 1e-30)[..., None]).permute(0, 3, 1, 2, 4)
+    out = out.reshape(b, s, h, dd)
+    return out.bfloat16() if round_out else out
+
+
+def _bf16_case(shape):
+    b, s, t, h, kv, d, causal, window = shape
+    q, k, v = (torch.from_numpy(a).bfloat16() for a in _qkv(b, s, t, h, kv, d))
+    kw = dict(causal=causal, window=window, q_offset=t - s, written_upto=t)
+    want = tref.flash_attention_ref(q.float(), k.float(), v.float(),
+                                    chunk=_kernel_tile(d), **kw)
+    return q, k, v, kw, want
+
+
+def _ratio(got, want):
+    return float(((got.float() - want).abs() / (BF16_REL * want.abs() + F32_FLOOR)).max())
+
+
+@pytest.mark.parametrize("b,s,t,h,kv,d,causal,window", SHAPES + [GQA_D128])
+def test_bf16_kernel_numerics_stay_within_one_bf16_rounding(b, s, t, h, kv, d,
+                                                           causal, window):
+    """Three bf16 parts of p (the kernel's design) at tests/test_kernels.py's
+    five shapes and a GQA D 128 one."""
+    q, k, v, kw, want = _bf16_case((b, s, t, h, kv, d, causal, window))
+    got = _flash_bf16_emulation(q, k, v, 3, **kw)
+    assert got.dtype == torch.bfloat16
+    assert _ratio(got, want) <= 1.0
+
+
+@pytest.mark.parametrize("shape", [SHAPES[1], GQA_D128])
+def test_a_single_bf16_p_exceeds_one_bf16_rounding(shape):
+    """p rounded once to bf16 errs by 2^-9 of each term: far outside the
+    check, so p has to be split."""
+    q, k, v, kw, want = _bf16_case(shape)
+    assert _ratio(_flash_bf16_emulation(q, k, v, 1, **kw), want) > 10.0
+
+
+def test_two_bf16_parts_of_p_err_above_the_floor_on_short_causal_rows():
+    """Two parts leave 2^-18 of each term: on the first rows of a causal
+    prefill (few keys, no averaging) that is several times the check's 1e-6
+    floor, which an output near 0 must meet.  Three parts hold p exactly:
+    their float32 sum is p, for every p the softmax makes above 1e-30 (below
+    that, the third part would be a bf16 subnormal; such a p adds nothing
+    to a row whose largest p is 1)."""
+    q, k, v, kw, _ = _bf16_case(SHAPES[0])
+    exact = _flash_bf16_emulation(q, k, v, None, round_out=False, **kw)
+    two = _flash_bf16_emulation(q, k, v, 2, round_out=False, **kw)
+    assert float((two - exact)[:, :8].abs().max()) > 2 * F32_FLOOR
+    rng = np.random.default_rng(7)
+    p = torch.exp(-torch.from_numpy(rng.exponential(8.0, 200_000).astype(np.float32)))
+    p = p[p > 1e-30]
+    p1 = p.bfloat16().float()
+    p2 = (p - p1).bfloat16().float()
+    p3 = (p - p1 - p2).bfloat16().float()
+    assert torch.equal(p1 + p2 + p3, p)
+    assert not torch.equal(p1 + p2, p)
