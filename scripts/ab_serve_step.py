@@ -8,8 +8,10 @@ Each tree is a checkout of this repository; its `src/repro_torch` is
 imported afresh (the other tree's modules are dropped from `sys.modules`)
 before each of its runs, so both run in one process on one card.  A run is
 chip_smoke.py's slice run: `AcaiCache.serve_update_batch` over the 2048
-sift-like requests of the 1M x 128 configuration, for each batch size, the
-wall time between two `torch.cuda.synchronize()`.  Each tree first serves
+sift-like requests of the 1M x 128 configuration (with chip_smoke.py's IVF
+and IVF-PQ settings; each run builds its tree's index anew, outside the
+timer), for each batch size, the wall time between two
+`torch.cuda.synchronize()`.  Each tree first serves
 one warm-up run (which builds its kernels).  Prints one line per run and the
 median µs/request per tree and batch size.  Needs a CUDA card.
 """
@@ -24,6 +26,10 @@ from pathlib import Path
 
 N, D, T = 1_000_000, 128, 2048
 H, K, C_REMOTE, C_LOCAL = 400, 10, 64, 16  # chip_smoke.py's slice
+# chip_smoke.py's index settings (IVF_FULL, IVFPQ_FULL); other backends
+# take the registry's defaults
+SPECS = {"ivf": {"nlist": 256, "nprobe": 16, "train_iters": 4},
+         "ivfpq": {"nlist": 256, "nprobe": 16, "m": 8, "refine": 4}}
 
 
 _SRCS: set[str] = set()  # the trees' src directories
@@ -63,7 +69,7 @@ def main() -> int:
     def config(oma, policy, IndexSpec, c_f):  # of the tree imported last
         return policy.AcaiConfig(h=H, k=K, c_f=c_f, c_remote=C_REMOTE, c_local=C_LOCAL,
                                  oma=oma.OMAConfig(eta=0.05 / c_f),
-                                 index=IndexSpec(args.index))
+                                 index=IndexSpec(args.index, SPECS.get(args.index, {})))
 
     for name in dict.fromkeys(args.order):  # set-up and warm-up, tree by tree
         oma, policy, calibrate_fetch_cost, IndexSpec = _use(trees[name] / "src")

@@ -1,10 +1,11 @@
 """IVF-Flat index: coarse k-means partition + exact scan of probed lists
 (port of `repro.index.ivf`, static catalog).
 
-Inverted lists are a dense (nlist, cap) id table padded with -1, so a
-probe is one gather.  The coarse distances run on the `pairwise_l2`
-kernel and the probed lists on the fused `ivf_scan` kernel, which gathers
-the listed rows straight from the catalog in device memory.
+Inverted lists are a dense (nlist, cap) id table padded with -1, with
+each list's true length beside it.  The coarse distances run on the
+`pairwise_l2` kernel and the probed lists on the list-major
+`ivf_scan_lists` kernel, which reads each probed list's rows from the
+catalog in device memory once for all the batch's queries that probe it.
 """
 
 from __future__ import annotations
@@ -34,20 +35,6 @@ def build_invlists(assign: np.ndarray, nlist: int, cap: int | None = None):
     keep = col < cap
     table[assign[order][keep], col[keep]] = order[keep]
     return table
-
-
-def _probe_table(q, centroids, invlists, nprobe: int):
-    """(B, d) -> the (B, nprobe * cap) id table of the probed lists."""
-    dc = ops.pairwise_l2(q, centroids)                          # (B, nlist)
-    # stable: equal centroid distances probe the lower list, as lax.top_k
-    probe = smallest_k(dc, nprobe)[1]
-    return invlists[probe].reshape(q.shape[0], -1)
-
-
-def _ivf_query(q, emb, centroids, invlists, k: int, nprobe: int):
-    """(B, d) -> (dists (B, k), ids (B, k)); ids = -1 on underflow."""
-    return ops.ivf_scan_topk(
-        q, emb, _probe_table(q, centroids, invlists, nprobe), k)
 
 
 class IVFFlatIndex:
@@ -80,6 +67,8 @@ class IVFFlatIndex:
             centroids, dtype=torch.float32).to(self.device).contiguous()
         self.invlists = torch.as_tensor(
             np.asarray(invlists), dtype=torch.int32).to(self.device).contiguous()
+        # each list's true length: the list-major scan walks no padding
+        self.lens = ops.invlist_lengths(self.invlists)
         self.nlist = int(self.centroids.shape[0])
 
     @property
@@ -89,13 +78,21 @@ class IVFFlatIndex:
     def memory_bytes(self) -> int:
         return arrays_bytes(self.embeddings, self.centroids, self.invlists)
 
+    def probe_lists(self, q: torch.Tensor) -> torch.Tensor:
+        """The (B, nprobe) int32 lists `query` scans, nearest centroid
+        first (stable: equal centroid distances probe the lower list, as
+        lax.top_k)."""
+        dc = ops.pairwise_l2(torch.atleast_2d(q).contiguous(), self.centroids)
+        return smallest_k(dc, min(self.nprobe, self.nlist))[1].to(torch.int32)
+
     def probe_table(self, q: torch.Tensor) -> torch.Tensor:
-        """The (B, nprobe * cap) candidate-id table `query` scans, -1 = pad."""
-        return _probe_table(torch.atleast_2d(q).contiguous(), self.centroids,
-                            self.invlists, min(self.nprobe, self.nlist))
+        """The (B, nprobe * cap) candidate-id table of the probed lists,
+        -1 = pad: what `query` scans, in this order."""
+        return ops.probed_table(self.invlists, self.probe_lists(q))
 
     def query(self, q: torch.Tensor, k: int):
+        """(B, d) -> (dists (B, k), ids (B, k)); ids = -1 on underflow."""
         q = torch.atleast_2d(q).contiguous()
         check_finite_queries(q, "IVFFlatIndex.query")
-        return _ivf_query(q, self.embeddings, self.centroids, self.invlists,
-                          k, min(self.nprobe, self.nlist))
+        return ops.ivf_scan_lists(q, self.embeddings, self.invlists, self.probe_lists(q),
+                                  k, lens=self.lens)

@@ -3,7 +3,7 @@ static catalog): the paper's remote-catalog index, ~30 bytes an object
 à la FAISS IVFPQ (Sec. III).
 
 A query probes the coarse quantizer (`pairwise_l2`), builds the
-per-subspace distance tables (one `pairwise_l2` per subspace), scores
+per-subspace distance tables (one `pairwise_l2_batched` launch), scores
 every probed row by ADC in one `pq_adc` launch over the batch's candidate
 table, keeps a stable top-`refine·k` shortlist and re-ranks it exactly
 through the fused `ivf_scan` kernel.  Codes are uint8 (the reference
@@ -22,6 +22,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.ref import smallest_k
 
 COARSE_ITERS = 12  # the reference trains its coarse quantizer this long
+ENCODE_ROWS = 131072  # rows a launch when encoding
 
 
 class PQCodec:
@@ -63,16 +64,20 @@ class PQCodec:
             books.append(cents)
         return cls(torch.stack(books))
 
-    def _subspaces(self, x: torch.Tensor):
-        for mi in range(self.m):
-            yield mi, x[:, mi * self.dsub:(mi + 1) * self.dsub].contiguous()
+    def _distances(self, x: torch.Tensor) -> torch.Tensor:
+        """(n, d) -> (n, m, ksub): each subspace of x against its codebook,
+        one `pairwise_l2_batched` launch over the (m, n, dsub) view."""
+        x = x.contiguous()
+        view = x.view(x.shape[0], self.m, self.dsub).transpose(0, 1)
+        return ops.pairwise_l2_batched(view, self.codebooks)
 
     def encode(self, data: torch.Tensor) -> torch.Tensor:
         """(n, d) -> (n, m) uint8 codes: the nearest centroid of each
-        subspace (the first on ties, as jnp.argmin)."""
-        codes = [torch.argmin(ops.pairwise_l2(sub, self.codebooks[mi]), dim=1)
-                 for mi, sub in self._subspaces(data)]
-        return torch.stack(codes, dim=1).to(torch.uint8).contiguous()
+        subspace (the first on ties, as jnp.argmin), ENCODE_ROWS rows a
+        launch (their (rows, m, ksub) tables stay under 1 GB)."""
+        codes = [torch.argmin(self._distances(data[i:i + ENCODE_ROWS]), dim=2)
+                 for i in range(0, max(data.shape[0], 1), ENCODE_ROWS)]
+        return torch.cat(codes).to(torch.uint8).contiguous()
 
     def decode(self, codes: torch.Tensor) -> torch.Tensor:
         """(n, m) codes -> (n, d) reconstructed rows."""
@@ -81,10 +86,9 @@ class PQCodec:
                          dim=1)
 
     def adc_lut(self, q: torch.Tensor) -> torch.Tensor:
-        """(B, d) -> (B, m, ksub) per-subspace squared distances, one
-        `pairwise_l2` launch per subspace."""
-        return torch.stack([ops.pairwise_l2(sub, self.codebooks[mi])
-                            for mi, sub in self._subspaces(q)], dim=1).contiguous()
+        """(B, d) -> (B, m, ksub) per-subspace squared distances, in one
+        `pairwise_l2_batched` launch (the reference vmaps over subspaces)."""
+        return self._distances(q)
 
 
 class IVFPQIndex(IVFFlatIndex):
@@ -147,18 +151,25 @@ class IVFPQIndex(IVFFlatIndex):
         return arrays_bytes(self.codes, self.codec.codebooks, self.centroids,
                             self.invlists)
 
-    def query(self, q: torch.Tensor, k: int):
-        q = torch.atleast_2d(q).contiguous()
-        check_finite_queries(q, "IVFPQIndex.query")
+    def shortlist(self, q: torch.Tensor, k: int):
+        """(ADC distances, ids), each (B, kk): the stable top kk of the
+        probed rows by ADC, kk = refine * k with the exact re-rank (k
+        without), at most the probed slots; ids -1 where they ran out."""
         cand = self.probe_table(q)                                 # (B, P)
         d_adc = ops.pq_adc_gather(self.codec.adc_lut(q), self.codes, cand)
         kk = min(self.refine * k if self.exact_distances else k, cand.shape[1])
         vals, pos = smallest_k(d_adc, kk)                          # stable
         ids = torch.gather(cand, 1, pos)
-        ids = torch.where(torch.isfinite(vals), ids, torch.full_like(ids, -1))
+        return vals, torch.where(torch.isfinite(vals), ids, torch.full_like(ids, -1))
+
+    def query(self, q: torch.Tensor, k: int):
+        q = torch.atleast_2d(q).contiguous()
+        check_finite_queries(q, "IVFPQIndex.query")
+        vals, ids = self.shortlist(q, k)
         if self.exact_distances:
             # exact re-rank of the ADC shortlist through the fused scan
             return ops.ivf_scan_topk(q, self.embeddings, ids.contiguous(), k)
+        kk = ids.shape[1]
         if kk < k:  # fewer probed slots than k: underflow slots
             b = ids.shape[0]
             ids = torch.cat([ids, ids.new_full((b, k - kk), -1)], dim=1)

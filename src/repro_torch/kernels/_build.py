@@ -20,14 +20,15 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-KERNELS = ("pairwise_l2", "l2_topk", "ivf_scan", "pq_adc", "flash_attention",
-           "flash_attention_wgmma")
+KERNELS = ("pairwise_l2", "l2_topk", "ivf_scan", "ivf_scan_lists", "pq_adc",
+           "flash_attention", "flash_attention_wgmma")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C entry points per library: name -> (restype, argtypes)
 _SIGNATURES = {
     "pairwise_l2": {
-        "pairwise_l2": (_I, [_P, _P, _P, _I, _I, _I, _P]),
+        "pairwise_l2": (_I, [_P, _P, _P] + [_I] * 4 + [_L] * 5 + [_I] * 3 + [_P]),
+        "pairwise_l2_skinny_smem_bytes": (_L, [_I, _I]),
     },
     "l2_topk": {
         "l2_topk_partial": (_I, [_P] * 8 + [_I] * 7 + [_P]),
@@ -37,6 +38,10 @@ _SIGNATURES = {
         "ivf_scan_partial": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                   _I, _I, _P]),
         "ivf_scan_smem_bytes": (ctypes.c_longlong, [_I, _I]),
+    },
+    "ivf_scan_lists": {
+        "ivf_scan_lists": (_I, [_P] * 9 + [_I] * 10 + [_P]),
+        "ivf_scan_lists_smem_bytes": (_L, [_I, _I]),
     },
     "pq_adc": {
         "pq_adc": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]),

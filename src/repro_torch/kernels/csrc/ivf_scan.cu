@@ -25,9 +25,13 @@
 // (B, P) distances are never materialised.  Blocks go out in ascending
 // position order; the wrapper merges them with one stable sort and maps
 // positions to ids.  Each query gathers its own rows, so a row that
-// several queries of a batch probe is read once for each of them: a
-// list-major scan that reads a list once for all its queries is the step
-// towards the bound.
+// several queries of a batch probe is read once for each of them; the IVF
+// probe, whose table is whole inverted lists, takes the list-major kernel
+// instead (ivf_scan_lists.cu), which reads a list once for all its
+// queries.  This kernel serves tables of arbitrary ids: LSH's buckets, the
+// exact re-rank of retrieved ids and IVF-PQ's refine.  A warp's sub-run is
+// an eighth of its block's real run, not of the nominal chunk, so a short
+// table keeps all eight warps busy.
 #include <cuda_runtime.h>
 
 #include "topk_common.cuh"
@@ -61,7 +65,9 @@ ivf_scan_kernel(const float* __restrict__ q, const float* __restrict__ x,
 
   const int blk_begin = blockIdx.x * chunk;
   const int blk_end = min(P, blk_begin + chunk);
-  const int sub = (chunk + WARPS - 1) / WARPS;
+  // each warp a share of the block's real run, so a short table (the
+  // IVF-PQ re-rank's 256 slots) still spreads over all eight warps
+  const int sub = (blk_end - blk_begin + WARPS - 1) / WARPS;
   const int w_begin = min(blk_end, blk_begin + warp * sub);
   const int w_end = min(blk_end, w_begin + sub);
   float* L = lv + warp * k;

@@ -10,16 +10,22 @@ in `LAUNCHES`, so a run can show that its path went through the kernels.
 
 from __future__ import annotations
 
+from collections import Counter
+
 import torch
 
 from repro_torch.kernels import _build, ref
 
-# kernel launches since the last reset_launches(), by kernel
-# by kernel; flash_attention has two: "flash_attention" (float32 FMA
-# products: float32 inputs, D 16 and 32) and "flash_attention_wgmma" (bf16
-# on the tensor cores at D 64 and 128)
-LAUNCHES = {"pairwise_l2": 0, "l2_topk": 0, "ivf_scan": 0, "pq_adc": 0,
-            "flash_attention": 0, "flash_attention_wgmma": 0}
+# kernel launches since the last reset_launches(), by kernel; flash_attention
+# has two: "flash_attention" (float32 FMA products: float32 inputs, D 16 and
+# 32) and "flash_attention_wgmma" (bf16 on the tensor cores at D 64 and 128);
+# the IVF probe's list-major scan counts as "ivf_scan_lists", apart from the
+# per-query "ivf_scan"; pairwise_l2_batched counts as "pairwise_l2"
+LAUNCHES = {"pairwise_l2": 0, "l2_topk": 0, "ivf_scan": 0, "ivf_scan_lists": 0,
+            "pq_adc": 0, "flash_attention": 0, "flash_attention_wgmma": 0}
+# the same launches by (kernel, shape): pairwise_l2 (Q, N, D) or batched
+# (Q, N, D, M); ivf_scan (B, P, D, k); ivf_scan_lists (B, nprobe, cap, D, k)
+SHAPE_LAUNCHES: Counter = Counter()
 
 MAX_K = 128          # the top-k kernels keep four list slots per lane
 SMEM_LIMIT = 232448  # dynamic shared memory a block may use on Hopper
@@ -34,6 +40,18 @@ _TOPK_TARGET_BLOCKS = 132
 # smaller ones the sample is too large a share of the catalog to pay
 TOPK_SAMPLE, TOPK_SAMPLE_MIN_N = 16384, 131072
 IVF_MIN_RUN = 32     # an ivf_scan block selects k of at least this many x k
+_IVF_WARPS = 8       # warps of an ivf_scan block
+# ivf_scan_lists: rows of up to 256 floats (32-row tiles in a 2-stage ring
+# and 8 queries in shared memory); lists cut into runs of at least
+# _LISTS_MIN_RUN * k slots for about _LISTS_TARGET_BLOCKS blocks
+IVF_LISTS_MAX_D, _LISTS_MIN_RUN, _LISTS_TARGET_BLOCKS = 256, 8, 8 * 132
+_MERGE_MAX_WIDTH = 4096  # partials a query the merge sorts in one block
+_SMS = 132           # the H100's SMs
+# pairwise_l2's skinny design (pairwise_l2.cu): up to 16 queries, 8 warps of
+# 32-row tiles in 2-stage rings of 64 columns (rows padded to 68 floats)
+SKINNY_MAX_Q = 16
+_SK_WARPS, _SK_ROWS, _SK_DK, _SK_STAGES, _SK_LD = 8, 32, 64, 2, 68
+PAIRWISE_KINDS = {"tile64": 0, "tile32": 1, "skinny": 2}
 PQ_MAX_C = 256       # pq_adc codes are uint8
 FLASH_HEAD_DIMS = (16, 32, 64, 128)  # head widths flash_attention is built for
 FLASH_WGMMA_HEAD_DIMS = (64, 128)    # of which bf16 takes flash_attention_wgmma
@@ -45,6 +63,12 @@ _PQ_THREADS = 256    # threads of a pq_adc block, one slot each at a time
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    SHAPE_LAUNCHES.clear()
+
+
+def _count(kernel: str, shape: tuple) -> None:
+    LAUNCHES[kernel] += 1
+    SHAPE_LAUNCHES[(kernel, shape)] += 1
 
 
 def _on_cuda(*tensors) -> bool:
@@ -102,10 +126,57 @@ def _merge_partials(pd: torch.Tensor, pi: torch.Tensor, k: int):
     return vals[:, :k], torch.gather(pi, 1, order[:, :k])
 
 
+def pairwise_l2_skinny_smem_bytes_host(qm: int, d: int) -> int:
+    """A host copy of pairwise_l2.cu's `skinny_smem_bytes`: qm queries of
+    D rounded up to 64 columns, their norms (qm rounded up to 4, so the
+    rings start on 16 bytes), and each warp's ring.
+    chip_smoke.py holds it equal to the library's."""
+    dpad = -(-d // _SK_DK) * _SK_DK
+    return 4 * (qm * dpad + -(-qm // 4) * 4 + _SK_WARPS * _SK_STAGES * _SK_ROWS * _SK_LD)
+
+
+def pairwise_l2_plan(nq: int, n: int, d: int, m: int = 1,
+                     streamable: bool = True) -> tuple[str, int, int]:
+    """(kind, qm, blocks) of a `pairwise_l2` launch over m pairs, chosen
+    from the shape (pairwise_l2.cu says why):
+      - "skinny" for a streamable pair (one contiguous pair whose catalog
+        starts on 16 bytes, for cp.async's 16-byte pieces) of at most
+        SKINNY_MAX_Q queries of a width divisible by 4, when the queries
+        fit shared memory beside the rings: qm is the template's bound on
+        Q (a power of two), blocks the persistent grid (a block an SM at
+        most);
+      - else "tile64" (64 x 64 tiles) when those tiles alone fill the 132
+        SMs, "tile32" (32 x 32) when they do not; blocks is the grid.
+        Where 64 x 64 tiles fill the SMs, 32 x 32 ones are 1.5-1.6x
+        slower on an H100 (half the reuse of each staged element; 64 x
+        16384 x 128, 64 x 16384 x 1024, 1M x 256 x 128:
+        `scripts/kernel_shapes.py --designs`, PERF.md)."""
+    if m == 1 and streamable and nq <= SKINNY_MAX_Q and d % 4 == 0:
+        qm = 1 << max(nq - 1, 0).bit_length()
+        if pairwise_l2_skinny_smem_bytes_host(qm, d) <= SMEM_LIMIT:
+            tiles = -(-n // _SK_ROWS)
+            return "skinny", qm, min(-(-tiles // _SK_WARPS), _SMS)
+    grid64 = -(-nq // 64) * -(-n // 64) * m
+    if grid64 >= _SMS:
+        return "tile64", 0, grid64
+    return "tile32", 0, -(-nq // 32) * -(-n // 32) * m
+
+
+def _pairwise_launch(q, x, out, nq, n, d, m, strides, kind, qm, blocks):
+    if -(-nq // (64 if kind == "tile64" else 32)) > 65535 or m > 65535:
+        raise NotImplementedError(f"pairwise_l2: Q = {nq}, M = {m} exceed the grid")
+    rc = _build.load("pairwise_l2").pairwise_l2(
+        q.data_ptr(), x.data_ptr(), out.data_ptr(), nq, n, d, m, *strides,
+        PAIRWISE_KINDS[kind], qm, blocks, _stream())
+    _raise_on(rc, "pairwise_l2")
+
+
 def pairwise_l2(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """(Q, D), (N, D) -> (Q, N) float32 squared L2 distances, clamped at 0.
 
-    CUDA: float32 contiguous inputs, the `pairwise_l2` kernel."""
+    CUDA: float32 contiguous inputs, the `pairwise_l2` kernel in the design
+    `pairwise_l2_plan` picks from the shape (IEEE float32 FMAs in every
+    one, bitwise the same sums)."""
     if not _on_cuda(q, x):
         return ref.pairwise_l2_ref(q, x)
     _ieee_fp32()
@@ -114,16 +185,42 @@ def pairwise_l2(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     if q.shape[1] != x.shape[1]:
         raise ValueError(f"pairwise_l2: depth mismatch {tuple(q.shape)} vs "
                          f"{tuple(x.shape)}")
-    nq, n = q.shape[0], x.shape[0]
-    if nq > 65535 * 64:
-        raise NotImplementedError(f"pairwise_l2: Q = {nq} exceeds the grid")
+    nq, n, d = q.shape[0], x.shape[0], q.shape[1]
     out = torch.empty((nq, n), dtype=torch.float32, device=q.device)
     if nq and n:
-        rc = _build.load("pairwise_l2").pairwise_l2(
-            q.data_ptr(), x.data_ptr(), out.data_ptr(), nq, n, q.shape[1],
-            _stream())
-        _raise_on(rc, "pairwise_l2")
-        LAUNCHES["pairwise_l2"] += 1
+        kind, qm, blocks = pairwise_l2_plan(nq, n, d, 1, x.data_ptr() % 16 == 0)
+        _pairwise_launch(q, x, out, nq, n, d, 1, (0, d, 0, n, 0), kind, qm, blocks)
+        _count("pairwise_l2", (nq, n, d))
+    return out
+
+
+def pairwise_l2_batched(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """M pairs at once: q (M, Q, d), x (M, C, d) -> (Q, M, C) float32,
+    out[:, i] = pairwise_l2(q[i], x[i]) (the PQ distance tables: subspace
+    i's requests against codebook i, in adc_lut's layout).
+
+    CUDA: one launch with grid z = M; q may be a strided view whose rows
+    are contiguous (the (M, B, d) view of (B, M * d) requests), x
+    contiguous.  Counted as a `pairwise_l2` launch."""
+    if not _on_cuda(q, x):
+        return ref.pairwise_l2_batched_ref(q, x)
+    _ieee_fp32()
+    if q.dtype != torch.float32 or x.dtype != torch.float32:
+        raise TypeError(f"pairwise_l2_batched: float32 inputs, got {q.dtype}, {x.dtype}")
+    if q.dim() != 3 or x.dim() != 3 or q.shape[0] != x.shape[0] or q.shape[2] != x.shape[2]:
+        raise ValueError(f"pairwise_l2_batched: shapes q {tuple(q.shape)}, "
+                         f"x {tuple(x.shape)}")
+    if q.stride(2) != 1 or not x.is_contiguous():
+        raise ValueError("pairwise_l2_batched: q's rows and x must be contiguous")
+    m, nq, d = q.shape
+    c = x.shape[1]
+    out = torch.empty((nq, m, c), dtype=torch.float32, device=q.device)
+    if m and nq and c:
+        # the tiles read q through strides; skinny takes one contiguous pair
+        kind, qm, blocks = pairwise_l2_plan(nq, c, d, m, streamable=False)
+        _pairwise_launch(q, x, out, nq, c, d, m,
+                         (q.stride(0), q.stride(1), c * d, m * c, c), kind, qm, blocks)
+        _count("pairwise_l2", (nq, c, d, m))
     return out
 
 
@@ -277,9 +374,16 @@ def ivf_scan_chunks(b: int, p: int, k: int) -> tuple[int, int]:
     Enough blocks for a few waves over the SMs, but every run at least
     IVF_MIN_RUN * k slots long: each block writes its k best, so the kernel
     keeps about one slot in IVF_MIN_RUN and the merge sorts P / IVF_MIN_RUN
-    partials a query, not P."""
+    partials a query, not P.  A short table (one such run a query, as the
+    IVF-PQ re-rank's 256 slots at k 64) is split instead into runs of at
+    least 16 slots a warp until the batch's blocks cover the SMs: there
+    the time is one block's walk, not the merge."""
     target = max(1, _TARGET_BLOCKS * 2 // max(b, 1))
     chunk = max(256, IVF_MIN_RUN * k, -(-p // target))
+    if chunk >= p:
+        per_query = -(-_SMS // max(b, 1))
+        chunk = max(16 * _IVF_WARPS, -(-p // per_query))
+        chunk = -(-chunk // 32) * 32
     return chunk, -(-p // chunk)
 
 
@@ -322,9 +426,127 @@ def ivf_scan_topk(q: torch.Tensor, x: torch.Tensor, cand: torch.Tensor, k: int,
         q.data_ptr(), x.data_ptr(), cand.data_ptr(), pd.data_ptr(), pp.data_ptr(),
         b, x.shape[0], d, p, k, chunk, nchunks, _stream())
     _raise_on(rc, "ivf_scan")
-    LAUNCHES["ivf_scan"] += 1
+    _count("ivf_scan", (b, p, d, k))
     vals, ppos = _merge_partials(pd, pp, k)
     ids = torch.gather(cand, 1, torch.clamp_min(ppos, 0).long())
+    ids = torch.where(torch.isfinite(vals), ids, torch.full_like(ids, -1))
+    return vals, ids
+
+
+def invlist_lengths(invlists: torch.Tensor) -> torch.Tensor:
+    """(nlist,) int32: each inverted list's true length, one past its last
+    id >= 0 (lists are padded with -1 at the tail; a -1 before the last id,
+    a folded tombstone, stays inside the length)."""
+    nlist, cap = invlists.shape
+    if cap == 0:
+        return torch.zeros(nlist, dtype=torch.int32, device=invlists.device)
+    slot = torch.arange(1, cap + 1, dtype=torch.int32, device=invlists.device)
+    return torch.amax(torch.where(invlists >= 0, slot, torch.zeros_like(slot)),
+                      dim=1).to(torch.int32).contiguous()
+
+
+def ivf_lists_plan(nlist: int, cap: int, nprobe: int, k: int) -> tuple[int, int]:
+    """(nruns, run) of an `ivf_scan_lists` launch: each list is cut into
+    nruns runs of `run` slots, for about _LISTS_TARGET_BLOCKS blocks (a
+    block's warps each walk their query's whole run) but runs of at least
+    _LISTS_MIN_RUN * k slots, and no more than _MERGE_MAX_WIDTH partials a
+    query (nprobe * nruns * k, which the merge sorts: PyTorch sorts rows
+    of up to 4096 in one block, longer ones by a segmented radix sort of
+    several launches; at 16 probes and k 64, 5 runs a list made the call
+    at B 8 slower than the per-query kernel's, 4 runs faster at every B
+    from 1 to 64: `scripts/kernel_shapes.py --designs`, PERF.md).  Only
+    static numbers enter, so the grid needs nothing from the device."""
+    nruns = max(1, min(-(-_LISTS_TARGET_BLOCKS // max(nlist, 1)),
+                       cap // (_LISTS_MIN_RUN * k),
+                       _MERGE_MAX_WIDTH // max(nprobe * k, 1)))
+    return nruns, -(-cap // nruns)
+
+
+def probed_table(invlists: torch.Tensor, probe: torch.Tensor) -> torch.Tensor:
+    """(B, nprobe * cap) int32: the ids of the lists `probe` (B, nprobe)
+    names, in probe order, -1 = pad.  An entry outside [0, nlist) names no
+    list: its cap slots are -1."""
+    nlist = invlists.shape[0]
+    p = probe.long()
+    rows = invlists[p.clamp(0, max(nlist - 1, 0))]
+    inside = ((p >= 0) & (p < nlist))[..., None]
+    return torch.where(inside, rows, torch.full_like(rows, -1)).reshape(probe.shape[0], -1)
+
+
+def ivf_probe_kernel_for(d: int) -> str:
+    """The kernel an IVF probe at width d takes on the card:
+    "ivf_scan_lists" (list-major, each probed row read once for the batch)
+    up to IVF_LISTS_MAX_D columns (its ring of 32-row tiles and 8 queries
+    fit shared memory there), else "ivf_scan" over the (B, nprobe * cap)
+    table."""
+    return "ivf_scan_lists" if d <= IVF_LISTS_MAX_D else "ivf_scan"
+
+
+def ivf_scan_lists(q: torch.Tensor, x: torch.Tensor, invlists: torch.Tensor,
+                   probe: torch.Tensor, k: int, *, valid=None, lens=None):
+    """The IVF probe: the top k of the probed lists' rows for each query.
+
+    q (B, D), x (N, D), invlists (nlist, cap) int32 padded with -1, probe
+    (B, nprobe) the lists each query scans (an entry outside [0, nlist)
+    scans nothing).  Returns exactly what `ivf_scan_topk(q, x,
+    probed_table(invlists, probe), k, valid=valid)` returns: the same ids,
+    ties to the lowest position r * cap + slot, +inf / -1 on underflow; on
+    the CPU it is that call.
+    `lens` (nlist,) int32 are the lists' true lengths (`invlist_lengths`,
+    computed when None).
+
+    CUDA: `ivf_probe_kernel_for` picks the kernel from the shape:
+    `ivf_scan_lists` (a block a run of a list, reading its rows once for
+    every query that probes it), or at D > IVF_LISTS_MAX_D the per-query
+    `ivf_scan` over the gathered table.  k <= 128."""
+    b = q.shape[0]
+    if not _on_cuda(q, x, invlists, probe, *([] if valid is None else [valid]),
+                    *([] if lens is None else [lens])):
+        return ivf_scan_topk(q, x, probed_table(invlists, probe), k, valid=valid)
+    _ieee_fp32()
+    _check_k("ivf_scan_lists", k)
+    _check("ivf_scan_lists q", q, torch.float32, 2)
+    _check("ivf_scan_lists x", x, torch.float32, 2)
+    _check("ivf_scan_lists invlists", invlists, torch.int32, 2)
+    if probe.dim() != 2 or probe.shape[0] != b or x.shape[1] != q.shape[1]:
+        raise ValueError(f"ivf_scan_lists: shapes q {tuple(q.shape)}, x "
+                         f"{tuple(x.shape)}, probe {tuple(probe.shape)}")
+    d = q.shape[1]
+    nlist, cap = invlists.shape
+    nprobe = probe.shape[1]
+    if b == 0 or nprobe * cap == 0:
+        raise ValueError(f"ivf_scan_lists: empty input, B = {b}, P = {nprobe * cap}")
+    if ivf_probe_kernel_for(d) == "ivf_scan":
+        return ivf_scan_topk(q, x, probed_table(invlists, probe), k, valid=valid)
+    if valid is not None:
+        _check("ivf_scan_lists valid", valid, torch.bool, 1)
+        if valid.shape[0] != x.shape[0]:
+            raise ValueError("ivf_scan_lists: valid must have one entry per row")
+    lens = invlist_lengths(invlists) if lens is None else lens
+    _check("ivf_scan_lists lens", lens, torch.int32, 1)
+    if lens.shape[0] != nlist:
+        raise ValueError(f"ivf_scan_lists: {lens.shape[0]} lengths for {nlist} lists")
+    probe = probe.to(torch.int32).contiguous()
+    lib = _build.load("ivf_scan_lists")
+    nruns, run = ivf_lists_plan(nlist, cap, nprobe, k)
+    vec4 = int(d % 4 == 0 and x.data_ptr() % 16 == 0)
+    if lib.ivf_scan_lists_smem_bytes(d, vec4) > SMEM_LIMIT:
+        raise NotImplementedError(f"ivf_scan_lists: D = {d} needs more shared memory "
+                                  f"than a block has")
+    if nlist * nruns >= 2 ** 31:
+        raise NotImplementedError(f"ivf_scan_lists: {nlist} lists exceed the grid")
+    width = nprobe * nruns * k
+    buf = torch.empty(b * (width + 1), dtype=torch.float32, device=q.device)
+    # the partials, and each query's bound on its k-th distance (scratch)
+    pd, bound = buf[:b * width].view(b, width), buf[b * width:]
+    pi = torch.empty((b, width), dtype=torch.int32, device=q.device)
+    rc = lib.ivf_scan_lists(
+        q.data_ptr(), x.data_ptr(), invlists.data_ptr(), lens.data_ptr(), probe.data_ptr(),
+        None if valid is None else valid.data_ptr(), pd.data_ptr(), pi.data_ptr(),
+        bound.data_ptr(), b, x.shape[0], d, nlist, cap, nprobe, k, nruns, run, vec4, _stream())
+    _raise_on(rc, "ivf_scan_lists")
+    _count("ivf_scan_lists", (b, nprobe, cap, d, k))
+    vals, ids = _merge_partials(pd, pi, k)
     ids = torch.where(torch.isfinite(vals), ids, torch.full_like(ids, -1))
     return vals, ids
 

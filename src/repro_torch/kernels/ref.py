@@ -29,6 +29,13 @@ def pairwise_l2_ref(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return torch.clamp_min(qn - 2.0 * (q @ x.T) + xn, 0.0)
 
 
+def pairwise_l2_batched_ref(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """q (M, Q, d), x (M, C, d) -> (Q, M, C): the stack of pairwise_l2_ref
+    over the M pairs, bitwise (each pair on its own)."""
+    return torch.stack([pairwise_l2_ref(q[i].contiguous(), x[i].contiguous())
+                        for i in range(q.shape[0])], dim=1)
+
+
 def l2_topk_ref(q: torch.Tensor, x: torch.Tensor, k: int, valid=None):
     """Exact top-k smallest distances: (dists (Q, k), ids (Q, k) int32).
 

@@ -156,9 +156,14 @@ def test_cuda_wrappers_refuse_what_the_kernels_do_not_take():
                        torch.zeros(2, 5, dtype=torch.int32))
     tops.flash_attention(torch.zeros(1, 3, 2, 16), torch.zeros(1, 5, 1, 16),
                          torch.zeros(1, 5, 1, 16))
+    tops.pairwise_l2_batched(torch.zeros(2, 3, 4), torch.zeros(2, 5, 4))
+    tops.ivf_scan_lists(torch.zeros(2, 4), torch.zeros(6, 4),
+                        torch.zeros(3, 2, dtype=torch.int32),
+                        torch.zeros(2, 1, dtype=torch.int32), 1)
     assert tops.LAUNCHES == {"pairwise_l2": 0, "l2_topk": 0, "ivf_scan": 0,
-                             "pq_adc": 0, "flash_attention": 0,
+                             "ivf_scan_lists": 0, "pq_adc": 0, "flash_attention": 0,
                              "flash_attention_wgmma": 0}
+    assert not tops.SHAPE_LAUNCHES
 
 
 @pytest.mark.parametrize("nq,d,k,want", [
