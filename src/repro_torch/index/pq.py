@@ -3,11 +3,11 @@ static catalog): the paper's remote-catalog index, ~30 bytes an object
 à la FAISS IVFPQ (Sec. III).
 
 A query probes the coarse quantizer (`pairwise_l2`), builds the
-per-subspace distance tables (one `pairwise_l2_batched` launch), scores
-every probed row by ADC in one `pq_adc` launch over the batch's candidate
-table, keeps a stable top-`refine·k` shortlist and re-ranks it exactly
-through the fused `ivf_scan` kernel.  Codes are uint8 (the reference
-holds int32), so the byte counts here are the port's own.
+per-subspace distance tables (one `pairwise_l2_batched` launch), takes
+the stable top-`refine·k` shortlist of the probed rows by ADC in one
+list-major `pq_adc_lists` launch over the codes stored list by list, and
+re-ranks it exactly through the fused `ivf_scan` kernel.  Codes are uint8
+(the reference holds int32), so the byte counts here are the port's own.
 """
 
 from __future__ import annotations
@@ -19,7 +19,6 @@ from repro_torch.index.base import arrays_bytes, check_finite_queries
 from repro_torch.index.ivf import IVFFlatIndex
 from repro_torch.index.kmeans import kmeans
 from repro_torch.kernels import ops
-from repro_torch.kernels.ref import smallest_k
 
 COARSE_ITERS = 12  # the reference trains its coarse quantizer this long
 ENCODE_ROWS = 131072  # rows a launch when encoding
@@ -137,11 +136,16 @@ class IVFPQIndex(IVFFlatIndex):
         if self.codes.shape != (self.n, self.codec.m):
             raise ValueError(f"PQ codes {tuple(self.codes.shape)} do not match "
                              f"{self.n} rows x {self.codec.m} subspaces")
+        # the code rows list-major: a probed list's rows are contiguous for
+        # the shortlist's scan (the (N, M) codes stay for decode and the
+        # dense scan)
+        self.codes_lists = ops.codes_by_list(self.codes, self.invlists)
 
     def memory_bytes(self) -> int:
         """Everything resident at query time: the float32 catalog (the
-        refine re-rank gathers from it) plus the PQ structures."""
-        return super().memory_bytes() + arrays_bytes(self.codes,
+        refine re-rank gathers from it) plus the PQ structures, the
+        list-major code slab included."""
+        return super().memory_bytes() + arrays_bytes(self.codes, self.codes_lists,
                                                      self.codec.codebooks)
 
     def compressed_bytes(self) -> int:
@@ -154,13 +158,14 @@ class IVFPQIndex(IVFFlatIndex):
     def shortlist(self, q: torch.Tensor, k: int):
         """(ADC distances, ids), each (B, kk): the stable top kk of the
         probed rows by ADC, kk = refine * k with the exact re-rank (k
-        without), at most the probed slots; ids -1 where they ran out."""
-        cand = self.probe_table(q)                                 # (B, P)
-        d_adc = ops.pq_adc_gather(self.codec.adc_lut(q), self.codes, cand)
-        kk = min(self.refine * k if self.exact_distances else k, cand.shape[1])
-        vals, pos = smallest_k(d_adc, kk)                          # stable
-        ids = torch.gather(cand, 1, pos)
-        return vals, torch.where(torch.isfinite(vals), ids, torch.full_like(ids, -1))
+        without), at most the probed slots; ids -1 where they ran out.  One
+        `pq_shortlist_lists` call: on the card a single list-major launch
+        and the merge of its partials."""
+        probe = self.probe_lists(q)
+        kk = min(self.refine * k if self.exact_distances else k,
+                 probe.shape[1] * self.invlists.shape[1])
+        return ops.pq_shortlist_lists(self.codec.adc_lut(q), self.codes_lists, self.invlists,
+                                      probe, kk, lens=self.lens)
 
     def query(self, q: torch.Tensor, k: int):
         q = torch.atleast_2d(q).contiguous()

@@ -21,7 +21,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 KERNELS = ("pairwise_l2", "l2_topk", "ivf_scan", "ivf_scan_lists", "pq_adc",
-           "flash_attention", "flash_attention_wgmma")
+           "pq_adc_lists", "flash_attention", "flash_attention_wgmma")
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C entry points per library: name -> (restype, argtypes)
@@ -46,6 +46,10 @@ _SIGNATURES = {
     "pq_adc": {
         "pq_adc": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
         "pq_adc_smem_bytes": (ctypes.c_longlong, [_I, _I]),
+    },
+    "pq_adc_lists": {
+        "pq_adc_lists": (_I, [_P] * 9 + [_I] * 14 + [_P]),
+        "pq_adc_lists_smem_bytes": (_L, [_I] * 5),
     },
     "flash_attention": {
         "flash_attention": (_I, [_P, _P, _P, _P] + [_I] * 10

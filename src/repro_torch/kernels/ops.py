@@ -20,11 +20,17 @@ from repro_torch.kernels import _build, ref
 # has two: "flash_attention" (float32 FMA products: float32 inputs, D 16 and
 # 32) and "flash_attention_wgmma" (bf16 on the tensor cores at D 64 and 128);
 # the IVF probe's list-major scan counts as "ivf_scan_lists", apart from the
-# per-query "ivf_scan"; pairwise_l2_batched counts as "pairwise_l2"
+# per-query "ivf_scan"; the IVF-PQ shortlist's list-major scan as
+# "pq_adc_lists", apart from the per-query "pq_adc"; pairwise_l2_batched
+# counts as "pairwise_l2"
 LAUNCHES = {"pairwise_l2": 0, "l2_topk": 0, "ivf_scan": 0, "ivf_scan_lists": 0,
-            "pq_adc": 0, "flash_attention": 0, "flash_attention_wgmma": 0}
+            "pq_adc": 0, "pq_adc_lists": 0, "flash_attention": 0,
+            "flash_attention_wgmma": 0}
 # the same launches by (kernel, shape): pairwise_l2 (Q, N, D) or batched
-# (Q, N, D, M); ivf_scan (B, P, D, k); ivf_scan_lists (B, nprobe, cap, D, k)
+# (Q, N, D, M); l2_topk (Q, N, D, k); ivf_scan (B, P, D, k); ivf_scan_lists
+# (B, nprobe, cap, D, k); pq_adc (B, P, M, C); pq_adc_lists (B, nprobe, cap,
+# M, kk); the flash kernels (B, S, T, H, KV, D, mask kind): see the *_key
+# helpers
 SHAPE_LAUNCHES: Counter = Counter()
 
 MAX_K = 128          # the top-k kernels keep four list slots per lane
@@ -58,6 +64,10 @@ FLASH_WGMMA_HEAD_DIMS = (64, 128)    # of which bf16 takes flash_attention_wgmma
 TOPK_BN = 128        # catalog rows of an l2_topk tile
 _TOPK_DK, _TOPK_STAGES = 64, 2  # l2_topk's chunk depth and ring (l2_topk.cu)
 _PQ_THREADS = 256    # threads of a pq_adc block, one slot each at a time
+# pq_adc_lists: shared memory an SM holds; blocks a launch is aimed at (two
+# an SM); a list's groups of queries spread over up to _PQ_SPREAD times the
+# blocks the batch's average list needs (at most 8)
+_SM_SMEM, _PQ_LISTS_TARGET_BLOCKS, _PQ_SPREAD = 233472, 2 * 132, 2
 
 
 def reset_launches() -> None:
@@ -69,6 +79,28 @@ def reset_launches() -> None:
 def _count(kernel: str, shape: tuple) -> None:
     LAUNCHES[kernel] += 1
     SHAPE_LAUNCHES[(kernel, shape)] += 1
+
+
+def l2_topk_key(nq: int, n: int, d: int, k: int) -> tuple:
+    """The shape an `l2_topk` launch is counted under: (Q, N, D, k)."""
+    return (nq, n, d, k)
+
+
+def pq_adc_key(b: int, p: int, m: int, c: int) -> tuple:
+    """The shape a `pq_adc` launch is counted under: (B, P, M, C), P = N for
+    the dense form."""
+    return (b, p, m, c)
+
+
+def flash_key(q_shape, k_shape, causal: bool, window: int, written_upto: int) -> tuple:
+    """The shape a flash launch is counted under: (B, S, T, H, KV, D, mask
+    kind), the kind "causal" or "full", "+window" with a sliding window and
+    "+written_upto" when keys at or past written_upto (< T) are masked."""
+    b, s, h, d = q_shape
+    t, kvh = k_shape[1], k_shape[2]
+    kind = ("causal" if causal else "full") + ("+window" if window else "") + (
+        "+written_upto" if written_upto < t else "")
+    return (b, s, t, h, kvh, d, kind)
 
 
 def _on_cuda(*tensors) -> bool:
@@ -315,12 +347,15 @@ def _tma_ready(a: torch.Tensor) -> torch.Tensor:
 def topk_l2(q: torch.Tensor, x: torch.Tensor, k: int, *, valid=None):
     """Fused distance + top-k: (dists (Q, k) ascending, ids (Q, k) int32).
 
-    `valid` (N,) bool is the tombstone mask: masked rows never surface,
-    and queries with fewer than k live rows underflow as +inf / -1.  On
-    CUDA the (Q, N) distance matrix never reaches device memory; k <= 128
-    (larger k raises NotImplementedError).  A catalog whose width is not a
-    multiple of 4, or that does not start on 16 bytes, is copied padded
-    first (TMA's rows are 16-byte multiples)."""
+    `valid` (N,) bool is the tombstone mask: masked rows never surface.
+    Slots past the live rows underflow as +inf / -1, k > N included (both
+    devices return k columns).  On CUDA the (Q, N) distance matrix never
+    reaches device memory; k <= 128 (larger k raises NotImplementedError).
+    The kernel's lists start as +inf / -1 and only finite distances enter
+    them, so a merged id is -1 exactly where its distance is +inf, with or
+    without `valid`.  A catalog whose width is not a multiple of 4, or that
+    does not start on 16 bytes, is copied padded first (TMA's rows are
+    16-byte multiples)."""
     if not _on_cuda(q, x, *([] if valid is None else [valid])):
         return ref.l2_topk_ref(q, x, k, valid)
     _ieee_fp32()
@@ -353,11 +388,8 @@ def topk_l2(q: torch.Tensor, x: torch.Tensor, k: int, *, valid=None):
         None if bound is None else bound.data_ptr(), pd.data_ptr(), pi.data_ptr(),
         nq, n, xk.shape[1], k, chunk, nchunks, qt, _stream())
     _raise_on(rc, "l2_topk")
-    LAUNCHES["l2_topk"] += 1
-    vals, ids = _merge_partials(pd, pi, k)
-    if valid is not None:
-        ids = torch.where(torch.isfinite(vals), ids, torch.full_like(ids, -1))
-    return vals, ids
+    _count("l2_topk", l2_topk_key(nq, n, d, k))
+    return _merge_partials(pd, pi, k)
 
 
 def _fold_tombstones(cand: torch.Tensor, valid: torch.Tensor, n: int):
@@ -462,15 +494,9 @@ def ivf_lists_plan(nlist: int, cap: int, nprobe: int, k: int) -> tuple[int, int]
     return nruns, -(-cap // nruns)
 
 
-def probed_table(invlists: torch.Tensor, probe: torch.Tensor) -> torch.Tensor:
-    """(B, nprobe * cap) int32: the ids of the lists `probe` (B, nprobe)
-    names, in probe order, -1 = pad.  An entry outside [0, nlist) names no
-    list: its cap slots are -1."""
-    nlist = invlists.shape[0]
-    p = probe.long()
-    rows = invlists[p.clamp(0, max(nlist - 1, 0))]
-    inside = ((p >= 0) & (p < nlist))[..., None]
-    return torch.where(inside, rows, torch.full_like(rows, -1)).reshape(probe.shape[0], -1)
+# the (B, nprobe * cap) ids of the probed lists (an entry outside [0, nlist)
+# gives only -1): the plain versions' table
+probed_table = ref.probed_table
 
 
 def ivf_probe_kernel_for(d: int) -> str:
@@ -596,7 +622,7 @@ def _pq_adc_launch(lut: torch.Tensor, codes: torch.Tensor, cand):
                     None if cand is None else cand.data_ptr(), out.data_ptr(),
                     b, n, m, c, p, chunk, nchunks, vec8, _stream())
     _raise_on(rc, "pq_adc")
-    LAUNCHES["pq_adc"] += 1
+    _count("pq_adc", pq_adc_key(b, p, m, c))
     return out
 
 
@@ -623,6 +649,144 @@ def pq_adc_gather(lut: torch.Tensor, codes: torch.Tensor,
     if not _on_cuda(lut, codes, cand):
         return ref.pq_adc_gather_ref(lut, codes, cand)
     return _pq_adc_launch(lut, codes, cand)
+
+
+def codes_by_list(codes: torch.Tensor, invlists: torch.Tensor) -> torch.Tensor:
+    """(nlist, ccap, M) uint8: the code rows list-major, [l, s] =
+    codes[invlists[l, s]] at every listed slot, 0 at -1 slots and past cap;
+    ccap is cap rounded up to even, so at M 8 a 16-byte load of two rows
+    stays aligned (`pq_shortlist_lists` reads them so)."""
+    nlist, cap = invlists.shape
+    out = torch.zeros((nlist, cap + cap % 2, codes.shape[1]), dtype=torch.uint8,
+                      device=codes.device)
+    ids = invlists.long()
+    rows = codes[ids.clamp(0, max(codes.shape[0] - 1, 0))]
+    out[:, :cap] = torch.where((ids >= 0)[..., None], rows, torch.zeros_like(rows))
+    return out
+
+
+def pq_lists_smem_bytes_host(gmax: int, m: int, c: int, run: int, kp: int) -> int:
+    """A host copy of pq_adc_lists.cu's `smem_bytes`: a group's gmax LUTs
+    (M x C floats each), its keys (a run's slots each), histograms (256
+    bins each) and kept slots (kp = min(kk, run) each).  chip_smoke.py holds
+    it equal to the library's."""
+    return 4 * gmax * (m * c + run + 256 + kp)
+
+
+def pq_lists_plan(nlist: int, cap: int, nprobe: int, kk: int, m: int, c: int,
+                  b: int = 1) -> tuple[int, int, int, int]:
+    """(nruns, run, gmax, qsplit) of a `pq_shortlist_lists` launch over a
+    batch of b queries.  Each list is cut into nruns runs of `run` slots
+    (even), for about _PQ_LISTS_TARGET_BLOCKS blocks, but no run shorter
+    than kk (a run keeps kk of its slots) and no more than _MERGE_MAX_WIDTH
+    partials a query (nprobe * nruns * kk, which the merge sorts in one
+    block, as `ivf_lists_plan` caps them); more runs only where one run's
+    keys do not fit shared memory beside a LUT.  gmax, the queries a block
+    holds at once, is the largest of 8, 4, 2, 1 whose block leaves room
+    for a second one on its SM, else the largest that fits.  qsplit blocks
+    share each (list, run), one taking every qsplit-th group of the
+    queries probing the list: _PQ_SPREAD times the groups the batch's
+    average list holds (b * nprobe / nlist / gmax), at most 8 and at most
+    the groups b queries make, so the lists many queries probe do not hold
+    the grid up (`scripts/kernel_shapes.py --designs pq_adc_lists` times
+    the alternatives).  Only static numbers enter, so the grid needs
+    nothing from the device."""
+    nruns = max(1, min(-(-_PQ_LISTS_TARGET_BLOCKS // max(nlist, 1)),
+                       cap // max(kk, 1),
+                       _MERGE_MAX_WIDTH // max(nprobe * kk, 1)))
+    while True:
+        run = -(-cap // nruns)
+        run += run % 2
+        sizes = [(g, pq_lists_smem_bytes_host(g, m, c, run, min(kk, run)))
+                 for g in (8, 4, 2, 1)]
+        fits = [g for g, size in sizes if 2 * (size + 1024) <= _SM_SMEM] or [
+            g for g, size in sizes if size <= SMEM_LIMIT]
+        if fits:
+            gmax = fits[0]
+            qsplit = max(1, min(8, -(-b // gmax),
+                                -(-_PQ_SPREAD * b * nprobe // (max(nlist, 1) * gmax))))
+            return nruns, run, gmax, qsplit
+        if run <= 2:
+            raise NotImplementedError(f"pq_shortlist_lists: an M = {m} x C = {c} LUT "
+                                      f"needs more shared memory than a block has")
+        nruns += 1
+
+
+def pq_shortlist_lists(lut: torch.Tensor, codes_lists: torch.Tensor,
+                       invlists: torch.Tensor, probe: torch.Tensor, kk: int, *,
+                       valid=None, lens=None):
+    """The IVF-PQ shortlist: (ADC distances (B, kk), ids (B, kk) int32), the
+    stable top kk of the probed lists' slots by ADC distance, exactly
+    `ref.pq_shortlist_ref` (its plain version, which the CPU runs): ties to
+    the lowest position r * cap + slot, +inf / -1 where the probed slots
+    run out, an entry of probe outside [0, nlist) scans nothing, `valid`
+    (N,) bool folds tombstones to -1 slots.
+
+    lut (B, M, C) float32; codes_lists (nlist, ccap, M) uint8, the code rows
+    list-major (`codes_by_list`); invlists (nlist, cap) int32 padded with
+    -1; probe (B, nprobe); `lens` (nlist,) int32 the lists' true lengths
+    (`invlist_lengths`, computed when None).
+
+    CUDA: one `pq_adc_lists` launch (a block a run of a list, its code rows
+    read once for every query that probes it, the run's kk best kept in
+    the kernel) and a stable sort of each query's nprobe * nruns * kk
+    partials (`pq_lists_plan`).  The kernel keeps no per-query list, so kk
+    has no limit of its own; the sums are the plain version's, bit for
+    bit, so its ids and distances equal the plain version's exactly."""
+    if not _on_cuda(lut, codes_lists, invlists, probe,
+                    *([] if valid is None else [valid]), *([] if lens is None else [lens])):
+        return ref.pq_shortlist_ref(lut, codes_lists, invlists, probe, kk, valid)
+    _check("pq_shortlist_lists lut", lut, torch.float32, 3)
+    _check("pq_shortlist_lists codes_lists", codes_lists, torch.uint8, 3)
+    _check("pq_shortlist_lists invlists", invlists, torch.int32, 2)
+    b, m, c = lut.shape
+    nlist, cap = invlists.shape
+    if probe.dim() != 2 or probe.shape[0] != b or codes_lists.shape[0] != nlist or \
+            codes_lists.shape[1] < cap or codes_lists.shape[2] != m:
+        raise ValueError(f"pq_shortlist_lists: shapes lut {tuple(lut.shape)}, codes_lists "
+                         f"{tuple(codes_lists.shape)}, invlists {tuple(invlists.shape)}, "
+                         f"probe {tuple(probe.shape)}")
+    nprobe = probe.shape[1]
+    if b == 0 or nprobe * cap == 0:
+        raise ValueError(f"pq_shortlist_lists: empty input, B = {b}, P = {nprobe * cap}")
+    if kk < 1:
+        raise ValueError(f"pq_shortlist_lists: kk must be >= 1, got {kk}")
+    if c > PQ_MAX_C:
+        raise NotImplementedError(f"pq_shortlist_lists: C = {c} > {PQ_MAX_C} does not fit "
+                                  f"the kernel's uint8 codes")
+    if valid is not None:
+        _check("pq_shortlist_lists valid", valid, torch.bool, 1)
+    # ids at or past N are dead only where `valid` says what N is
+    n = 2 ** 31 - 1 if valid is None else valid.shape[0]
+    lens = invlist_lengths(invlists) if lens is None else lens
+    _check("pq_shortlist_lists lens", lens, torch.int32, 1)
+    if lens.shape[0] != nlist:
+        raise ValueError(f"pq_shortlist_lists: {lens.shape[0]} lengths for {nlist} lists")
+    probe = probe.to(torch.int32).contiguous()
+    lib = _build.load("pq_adc_lists")
+    nruns, run, gmax, qsplit = pq_lists_plan(nlist, cap, nprobe, kk, m, c, b)
+    if nlist * nruns * qsplit >= 2 ** 31:
+        raise NotImplementedError(f"pq_shortlist_lists: {nlist} lists exceed the grid")
+    kp = min(kk, run)
+    width = nprobe * nruns * kp
+    buf = torch.empty(b * (width + 1), dtype=torch.float32, device=lut.device)
+    # the partials, and each query's bound on its kk-th distance (scratch)
+    pd, bound = buf[:b * width].view(b, width), buf[b * width:]
+    pi = torch.empty((b, width), dtype=torch.int32, device=lut.device)
+    ccap = codes_lists.shape[1]
+    vec8 = int(m == 8 and ccap % 2 == 0 and run % 2 == 0
+               and codes_lists.data_ptr() % 16 == 0)
+    rc = lib.pq_adc_lists(
+        lut.data_ptr(), codes_lists.data_ptr(), invlists.data_ptr(), lens.data_ptr(),
+        probe.data_ptr(), None if valid is None else valid.data_ptr(), pd.data_ptr(),
+        pi.data_ptr(), bound.data_ptr(), b, n, m, c,
+        nlist, cap, ccap, nprobe, kp, nruns, run, gmax, qsplit, vec8, _stream())
+    _raise_on(rc, "pq_adc_lists")
+    _count("pq_adc_lists", (b, nprobe, cap, m, kk))
+    vals, ids = _merge_partials(pd, pi, min(kk, width))
+    if width < kk:  # kk beyond the probed slots: padded as the plain version
+        return ref._underflow(vals, ids, kk)
+    return vals, ids
 
 
 def flash_kernel_for(dtype: torch.dtype, d: int) -> str:
@@ -697,12 +861,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         rc = _build.load("flash_attention_wgmma").flash_attention_wgmma(
             *args, _stream())
         _raise_on(rc, "flash_attention_wgmma")
-        LAUNCHES["flash_attention_wgmma"] += 1
+        _count("flash_attention_wgmma", flash_key(q.shape, k.shape, causal, window, wu))
     else:
         rc = _build.load("flash_attention").flash_attention(
             *args, int(dtype == torch.bfloat16), _stream())
         _raise_on(rc, "flash_attention")
-        LAUNCHES["flash_attention"] += 1
+        _count("flash_attention", flash_key(q.shape, k.shape, causal, window, wu))
     return out
 
 

@@ -36,20 +36,30 @@ def pairwise_l2_batched_ref(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
                         for i in range(q.shape[0])], dim=1)
 
 
+def _underflow(vals: torch.Tensor, ids: torch.Tensor, k: int):
+    """A top-k's tail conventions: id -1 wherever the distance is +inf, and
+    fewer than k columns (k beyond the scanned width) padded to k with
+    +inf / -1.  ids come back int32."""
+    ids = torch.where(torch.isfinite(vals), ids, torch.full_like(ids, -1))
+    short = k - vals.shape[1]
+    if short > 0:
+        ids = torch.cat([ids, ids.new_full((ids.shape[0], short), -1)], dim=1)
+        vals = torch.cat([vals, vals.new_full((vals.shape[0], short), float("inf"))],
+                         dim=1)
+    return vals, ids.to(torch.int32)
+
+
 def l2_topk_ref(q: torch.Tensor, x: torch.Tensor, k: int, valid=None):
     """Exact top-k smallest distances: (dists (Q, k), ids (Q, k) int32).
 
-    `valid` (N,) bool marks live catalog rows: masked rows never surface,
-    and queries with fewer than k live rows underflow as dist = +inf,
-    id = -1.  With valid=None the output is the unmasked scan."""
+    `valid` (N,) bool marks live catalog rows: masked rows never surface.
+    Slots past the live rows underflow as dist = +inf, id = -1, including
+    k > N (the CUDA kernel's shape).  With valid=None the output is the
+    unmasked scan."""
     d = pairwise_l2_ref(q, x)
     if valid is not None:
         d = torch.where(valid[None, :], d, torch.full_like(d, float("inf")))
-    vals, idx = smallest_k(d, k)
-    idx = idx.to(torch.int32)
-    if valid is not None:
-        idx = torch.where(torch.isfinite(vals), idx, torch.full_like(idx, -1))
-    return vals, idx
+    return _underflow(*smallest_k(d, k), k)
 
 
 def ivf_scan_ref(q: torch.Tensor, x: torch.Tensor, cand: torch.Tensor, k: int,
@@ -70,15 +80,8 @@ def ivf_scan_ref(q: torch.Tensor, x: torch.Tensor, cand: torch.Tensor, k: int,
     diff = embs - q[:, None, :]
     d = torch.sum(diff * diff, dim=-1)
     d = torch.where(cand >= 0, d, torch.full_like(d, float("inf")))
-    kk = min(k, cand.shape[1])
-    vals, pos = smallest_k(d, kk)
-    ids = torch.gather(cand, 1, pos)
-    ids = torch.where(torch.isfinite(vals), ids, torch.full_like(ids, -1))
-    if kk < k:
-        b = cand.shape[0]
-        ids = torch.cat([ids, ids.new_full((b, k - kk), -1)], dim=1)
-        vals = torch.cat([vals, vals.new_full((b, k - kk), float("inf"))], dim=1)
-    return vals, ids.to(torch.int32)
+    vals, pos = smallest_k(d, k)
+    return _underflow(vals, torch.gather(cand, 1, pos), k)
 
 
 def _adc_sum(lut: torch.Tensor, code_at) -> torch.Tensor:
@@ -119,6 +122,43 @@ def pq_adc_gather_ref(lut: torch.Tensor, codes: torch.Tensor,
     codes = codes.long()
     d = _adc_sum(lut, lambda mi: codes[:, mi][safe])
     return torch.where(cand >= 0, d, torch.full_like(d, float("inf")))
+
+
+def probed_table(invlists: torch.Tensor, probe: torch.Tensor) -> torch.Tensor:
+    """(B, nprobe * cap) int32: the ids of the lists `probe` (B, nprobe)
+    names, in probe order, -1 = pad.  An entry outside [0, nlist) names no
+    list: its cap slots are -1."""
+    nlist = invlists.shape[0]
+    p = probe.long()
+    rows = invlists[p.clamp(0, max(nlist - 1, 0))]
+    inside = ((p >= 0) & (p < nlist))[..., None]
+    return torch.where(inside, rows, torch.full_like(rows, -1)).reshape(probe.shape[0], -1)
+
+
+def pq_shortlist_ref(lut: torch.Tensor, codes_lists: torch.Tensor,
+                     invlists: torch.Tensor, probe: torch.Tensor, kk: int, valid=None):
+    """The IVF-PQ shortlist: (ADC distances (B, kk), ids (B, kk) int32), the
+    stable top kk of `pq_adc_gather_ref(lut, codes, table)` over the probed
+    lists' table `probed_table(invlists, probe)` (ties to the lowest
+    position r * cap + slot, as lax.top_k), ids -1 and distances +inf where
+    the probed slots run out (kk beyond them included).
+
+    lut (B, M, C); codes_lists (nlist, ccap >= cap, M) holds each listed
+    slot's code row, codes_lists[l, s] = codes[invlists[l, s]]; `valid`
+    (N,) bool folds tombstoned ids to -1 slots, as the reference's masked
+    branch does."""
+    b, nprobe = probe.shape
+    nlist, cap = invlists.shape
+    table = probed_table(invlists, probe)
+    if valid is not None:
+        safe = torch.clamp(table, 0, valid.shape[0] - 1).long()
+        table = torch.where((table >= 0) & valid[safe], table, torch.full_like(table, -1))
+    rows = codes_lists[probe.long().clamp(0, max(nlist - 1, 0))][:, :, :cap]
+    rows = rows.reshape(b, nprobe * cap, -1).long()                # (B, P, M)
+    d = _adc_sum(lut, lambda mi: rows[:, :, mi])
+    d = torch.where(table >= 0, d, torch.full_like(d, float("inf")))
+    vals, pos = smallest_k(d, kk)
+    return _underflow(vals, torch.gather(table, 1, pos), kk)
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -1,18 +1,23 @@
 """Where the time of the batched serving step goes, on the CUDA card.
 
     PYTHONPATH=src python -m repro_torch.profile_step [--steps 8] [--n 1000000]
+        [--index flat ivf ivfpq] [--batch 8 64]
     PYTHONPATH=src python -m repro_torch.profile_step --lm [--steps 8]
+    PYTHONPATH=other/src python src/repro_torch/profile_step.py [...]
 
 Builds the slice's 1M x 128 configuration (the one chip_smoke.py serves),
 then for each of flat, IVF and IVF-PQ at B = 8 and 64 runs a few warm
-steps and profiles `--steps` more with torch.profiler.  With `--lm` it
+steps and profiles `--steps` more with torch.profiler (`--index` and
+`--batch` pick a subset; run as a file with another checkout's `src` on
+PYTHONPATH, it profiles that checkout's code).  With `--lm` it
 profiles the LM tier instead, qwen1.5-0.5b at full width as chip_smoke.py
 serves it: a 4096-token prefill into an 8192-token cache (the flash
 path), and decode steps of a batch of 4 over that cache.  Prints, per
 run, the wall time per step, the device busy time per step (the union of
 kernel intervals on the card's timeline), the idle share (1 - busy /
-wall) and the device time by kernel name.  Needs a CUDA card; it does not
-fall back.
+wall), the device operations a step (kernels, copies and fills: each one a
+launch the host paid for) and the device time by kernel name.  Needs a
+CUDA card; it does not fall back.
 """
 
 from __future__ import annotations
@@ -53,9 +58,10 @@ def _profile(label: str, fn, steps: int) -> None:
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     busy = _busy_us(prof.events())
+    ops = sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
     print(f"== {label}: wall_us/step={wall_us / steps} "
           f"device_busy_us/step={busy / steps} "
-          f"idle_share={1 - busy / wall_us}", flush=True)
+          f"idle_share={1 - busy / wall_us} device_ops/step={ops / steps}", flush=True)
     rows = [(e.key, e.device_time_total / steps, e.count // steps)
             for e in prof.key_averages() if e.device_time_total > 0]
     for key, us, count in sorted(rows, key=lambda r: -r[1])[:20]:
@@ -94,6 +100,9 @@ def main() -> None:
     ap.add_argument("--steps", type=int, default=8)
     ap.add_argument("--n", type=int, default=1_000_000)
     ap.add_argument("--lm", action="store_true")
+    ap.add_argument("--index", nargs="+", default=["flat", "ivf", "ivfpq"],
+                    choices=["flat", "ivf", "ivfpq"])
+    ap.add_argument("--batch", type=int, nargs="+", default=[8, 64])
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_step: needs a CUDA card")
@@ -113,10 +122,11 @@ def main() -> None:
                             oma=oma.OMAConfig(eta=0.05 / c_f))
     state0 = policy.init_state(args.n, cfg, seed=0, device=dev)
     rq = torch.from_numpy(reqs).to(dev)
-    for spec in (IndexSpec("flat"),
-                 IndexSpec("ivf", {"nlist": 256, "nprobe": 16, "train_iters": 4}),
-                 IndexSpec("ivfpq", {"nlist": 256, "nprobe": 16, "m": 8, "refine": 4})):
-        for b in (8, 64):
+    specs = {"flat": IndexSpec("flat"),
+             "ivf": IndexSpec("ivf", {"nlist": 256, "nprobe": 16, "train_iters": 4}),
+             "ivfpq": IndexSpec("ivfpq", {"nlist": 256, "nprobe": 16, "m": 8, "refine": 4})}
+    for spec in (specs[name] for name in args.index):
+        for b in args.batch:
             cache = policy.AcaiCache(cat, dataclasses.replace(cfg, index=spec),
                                      device=dev, state=policy.copy_state(state0))
             warm = 4

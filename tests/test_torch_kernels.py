@@ -160,9 +160,12 @@ def test_cuda_wrappers_refuse_what_the_kernels_do_not_take():
     tops.ivf_scan_lists(torch.zeros(2, 4), torch.zeros(6, 4),
                         torch.zeros(3, 2, dtype=torch.int32),
                         torch.zeros(2, 1, dtype=torch.int32), 1)
+    tops.pq_shortlist_lists(torch.zeros(2, 2, 4), torch.zeros(3, 2, 2, dtype=torch.uint8),
+                            torch.zeros(3, 2, dtype=torch.int32),
+                            torch.zeros(2, 1, dtype=torch.int32), 1)
     assert tops.LAUNCHES == {"pairwise_l2": 0, "l2_topk": 0, "ivf_scan": 0,
-                             "ivf_scan_lists": 0, "pq_adc": 0, "flash_attention": 0,
-                             "flash_attention_wgmma": 0}
+                             "ivf_scan_lists": 0, "pq_adc": 0, "pq_adc_lists": 0,
+                             "flash_attention": 0, "flash_attention_wgmma": 0}
     assert not tops.SHAPE_LAUNCHES
 
 
@@ -387,3 +390,37 @@ def test_tf32_split_rounds_as_the_kernel_and_the_emulation():
     assert torch.equal(tops._tma_ready(a), a)
     padded = tops._tma_ready(a[:, :33].contiguous())
     assert padded.shape == (40, 36) and not padded[:, 33:].any()
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_topk_l2_pads_k_beyond_the_catalog(masked):
+    """k > N returns k columns on either device: the N rows (the live ones
+    under `valid`), then +inf distances with id -1."""
+    rng = np.random.default_rng(8)
+    q, x = _t(rng.normal(size=(2, 4)).astype(np.float32)), _t(rng.normal(size=(5, 4)).astype(np.float32))
+    valid = _t(np.array([True, False, True, True, False])) if masked else None
+    gd, gi = tops.topk_l2(q, x, 10, valid=valid)
+    live = 3 if masked else 5
+    assert gd.shape == gi.shape == (2, 10) and gi.dtype == torch.int32
+    assert torch.isfinite(gd[:, :live]).all() and torch.isinf(gd[:, live:]).all()
+    assert (gi[:, live:] == -1).all() and (gi[:, :live] >= 0).all()
+    d = tref.pairwise_l2_ref(q, x)
+    want = torch.sort(d if valid is None else d[:, valid], dim=1, stable=True).values
+    assert torch.equal(gd[:, :live], want)
+    if masked:
+        assert valid[gi[:, :live].long()].all()
+
+
+def test_launch_shape_keys():
+    """The shapes `_count` files l2_topk, pq_adc and the flash kernels
+    under (the counts themselves move only on the card)."""
+    assert tops.l2_topk_key(8, 1_000_000, 128, 64) == (8, 1_000_000, 128, 64)
+    assert tops.pq_adc_key(64, 66448, 8, 256) == (64, 66448, 8, 256)
+    # a prompt's prefill into the cache: causal, keys past the prompt masked
+    q, kv = (1, 512, 16, 64), (1, 8192, 16, 64)
+    assert tops.flash_key(q, kv, True, 0, 512) == (1, 512, 8192, 16, 16, 64,
+                                                   "causal+written_upto")
+    assert tops.flash_key(q, kv, True, 0, 8192)[-1] == "causal"
+    assert tops.flash_key(q, kv, True, 4096, 8192)[-1] == "causal+window"
+    assert tops.flash_key((2, 300, 8, 128), (2, 1024, 2, 128), False, 0, 700) == (
+        2, 300, 1024, 8, 2, 128, "full+written_upto")

@@ -170,7 +170,11 @@ def test_ivfpq_structures_and_bytes(clustered):
     pq = idx.codes.nbytes + idx.codec.codebooks.nbytes
     coarse = idx.centroids.nbytes + idx.invlists.nbytes
     assert idx.compressed_bytes() == pq + coarse
-    assert idx.memory_bytes() == idx.embeddings.nbytes + pq + coarse
+    # resident at query time: the list-major code slab the shortlist scans too
+    cap = idx.invlists.shape[1]
+    assert idx.codes_lists.shape == (8, cap + cap % 2, 4)
+    assert idx.memory_bytes() == (idx.embeddings.nbytes + pq + coarse
+                                  + idx.codes_lists.nbytes)
     with pytest.raises(ValueError, match="together"):
         IVFPQIndex(cat, codes=np.zeros((cat.shape[0], 4), np.int32), device="cpu")
 
