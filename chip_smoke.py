@@ -20,7 +20,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
              off the main path now, keeps its rows for comparison), with the
              kernel's device time (torch.profiler) beside the call's (CUDA
              events), bound, plain version and a library yardstick, taken
-             last, after phase 7 (the profiler slows every later launch of
+             last, after phase 8 (the profiler slows every later launch of
              the process);
 3. parity  — the n = 2000, d = 16 sift replay (B = 8; flat, IVF, IVF-PQ,
              LSH and NSW at benchmarks/backends_bench.py's settings) on the
@@ -32,7 +32,18 @@ Phases, each of which raises on failure (the script then exits non-zero):
              (IVF: one `ivf_scan_lists` launch a step; IVF-PQ: one
              `pq_adc_lists` launch and no `pq_adc` one a step, and three
              `pairwise_l2` launches, the PQ tables one of them);
-5. flash   — `flash_attention` against its plain version on the card: f32
+5. policies — the policy registry, the five baselines and the experiments
+             harness (`repro_torch.experiments`): BENCH_experiments.json's
+             24 rows replayed on the card (`--from-bench`; baselines within
+             1e-3 of the reference's NAG, AÇAI within 0.03 of the file),
+             its sift_like AÇAI row on the card and on the CPU with the
+             same uniforms (NAG to 1e-3), then the experiments grid's six
+             policies at the slice's 1M x 128 over one shared server oracle
+             (exactly 4 `l2_topk` launches at 512 x 1M x 128, k 128, for
+             the precompute, none inside any replay; occupancy <= h; NAG
+             finite) and SIM-LRU again with an online oracle (one `l2_topk`
+             launch a batch of 8, NAG within 1e-3 of the precomputed run);
+6. flash   — `flash_attention` against its plain version on the card: f32
              at tests/test_kernels.py's five shapes (<= 1e-4, the float32
              FMA kernel) and bf16 (within 2^-8 of the output, the wgmma
              kernel) at the LM path's prefill shapes, ragged edge cases and
@@ -42,11 +53,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
              the same boolean mask, and with is_causal where the mask is
              plain causal); and `l2_topk` at 64 x 1M x 1024 (the semantic
              tier's width) and 64 x 1M x 4096 (yi-6b's);
-6. lm parity — qwen1.5-0.5b SMOKE in float32 with the flash path forced
+7. lm parity — qwen1.5-0.5b SMOKE in float32 with the flash path forced
              (flash_threshold 32, flash_chunk 16), card against the CPU
              port on the same weights and uniforms: generate tokens and
              ServeEngine outputs equal, SemanticCachedLM NAG to 1e-3;
-7. lm slice — qwen1.5-0.5b at full width through
+8. lm slice — qwen1.5-0.5b at full width through
              `repro_torch.launch.serve.main`: continuous batching of 8
              prompts of 2048-8000 tokens over an 8192-token cache, then the
              semantic tier over a 1M x 1024 catalog of earlier prompts'
@@ -108,6 +119,16 @@ NEEDS = {"flat": ("l2_topk",), "ivf": ("ivf_scan_lists",),
 # cached-row scan)
 STEP_LAUNCHES = {"ivf": {"ivf_scan_lists": 1, "ivf_scan": 0},
                  "ivfpq": {"pq_adc_lists": 1, "pq_adc": 0, "pairwise_l2": 3}}
+
+# the policies phase: the reference's results file (its rows replayed with
+# their own policy dicts), where the reference at HEAD gives another NAG
+# than the file (a near-tie of its oracle's answers), and the tolerances
+BENCH_EXPERIMENTS = ROOT / "BENCH_experiments.json"
+REFERENCE_NAG = {("adversarial", "qcache"): 0.8182}
+BASELINE_TOL, ACAI_TOL, CARD_CPU_TOL = 1e-3, 0.03, 1e-3
+# the full-width run: the experiments grid's six specs at the slice's h and
+# k over one oracle precomputed at kmax 128 (512 queries a launch)
+ORACLE_KMAX, ORACLE_BLOCK = 128, 512
 
 # the PyTorch calls timed as each kernel's library yardstick (`library_ms`)
 LIBRARY = {
@@ -822,6 +843,137 @@ def slice_phase(torch, ops, catalog_np, reqs_np, dev):
     return total
 
 
+def policies_phase(torch, ops, catalog_np, reqs_np, dev):
+    """The policy registry, the baselines and the experiments harness on the
+    card: BENCH_experiments.json's grid, the sift_like AÇAI row card
+    against CPU, then the six policies at 1M x 128 (launches counted by
+    shape into MAIN_SHAPES); returns the full-width run's launch counts."""
+    import numpy as np
+
+    from repro_torch import convert
+    from repro_torch import experiments as X
+    from repro_torch.core import baselines as B
+    from repro_torch.core import policy_api as PA
+    from repro_torch.core.costs import CostModel, calibrate_fetch_cost
+    from repro_torch.core.trace import TraceSpec
+
+    t_phase = time.perf_counter()
+    bench = json.loads(BENCH_EXPERIMENTS.read_text())
+    t0 = time.perf_counter()
+    rows = X.from_bench(bench, device=dev)
+    worst = {"baseline": 0.0, "acai": 0.0}
+    for r in rows:
+        name, trace = r["policy"]["policy"], r["trace"]["name"]
+        kind = "acai" if name == "acai" else "baseline"
+        want = REFERENCE_NAG.get((trace, name), r["reference_nag"])
+        diff = abs(r["nag_full"] - want)
+        worst[kind] = max(worst[kind], diff)
+        log(f"  policies grid {trace}/{r['label']}: NAG={r['nag_full']} reference={want} "
+            f"(file {r['reference_nag']}) |diff|={diff} hit={r['hit_ratio']} "
+            f"us/request={r['us_per_request']}")
+        if diff > (ACAI_TOL if kind == "acai" else BASELINE_TOL):
+            raise AssertionError(f"policies grid {trace}/{r['label']}: NAG {r['nag_full']} "
+                                 f"against the reference's {want}")
+    log(f"policies: BENCH_experiments.json's {len(rows)} rows on the card in "
+        f"{time.perf_counter() - t0} s; max |diff| baselines {worst['baseline']} "
+        f"(<= {BASELINE_TOL}), acai {worst['acai']} (<= {ACAI_TOL})")
+    if len(rows) != 24:
+        raise AssertionError(f"policies grid: {len(rows)} rows, expected 24")
+
+    # the sift_like AÇAI row: one initial state and one set of uniforms,
+    # drawn on the CPU, on the card and through the CPU port
+    row = next(r for r in bench["rows"] if r["trace"]["name"] == "sift_like"
+               and r["policy"]["policy"] == "acai")
+    spec = PA.PolicySpec.from_dict(row["policy"])
+    cat, reqs = X._get_trace(TraceSpec.from_dict(row["trace"]), {"n": bench["n"],
+                                                                  "t": bench["t"]})
+    nags = {}
+    for where in ("cpu", dev):
+        pol = PA.build_policy(spec, cat, None, seed=0, device=where)
+        if where == "cpu":
+            state0, n = pol.cache.state, cat.shape[0]
+            uniforms = torch.rand(bench["t"] // pol.batch, n,
+                                  generator=torch.Generator().manual_seed(0))
+        pol.cache.state = convert.cache_state_from_numpy(
+            state0.y.numpy(), state0.x.numpy(), 0, device=where)
+        res = pol.replay(reqs, uniforms=uniforms)
+        nags[where] = pol.normalized_gain(res["gain"].sum(), res["requests"])
+    diff = abs(nags["cpu"] - nags[dev])
+    log(f"policies: sift_like acai row, same state and uniforms: NAG cpu={nags['cpu']} "
+        f"cuda={nags[dev]} |diff|={diff} (<= {CARD_CPU_TOL})")
+    if diff > CARD_CPU_TOL:
+        raise AssertionError("policies: sift_like acai row differs between card and CPU")
+
+    # full width: the experiments grid's six specs at 1M x 128
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    c_f = calibrate_fetch_cost(catalog_np, kth=50, sample=256, device=dev)
+    log(f"policies 1M: c_f={c_f} (calibrate_fetch_cost kth=50 sample=256, "
+        f"{time.perf_counter() - t0} s)")
+    specs = X._grid_experiments(c_f, H_FULL, K_FULL)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    oracle = B.ServerOracle(catalog_np, reqs_np, kmax=ORACLE_KMAX, device=dev)
+    torch.cuda.synchronize()
+    key = ("l2_topk", ops.l2_topk_key(ORACLE_BLOCK, N_FULL, D_FULL, ORACLE_KMAX))
+    n_pre = -(-T_FULL // ORACLE_BLOCK)
+    log(f"policies 1M: oracle precompute {time.perf_counter() - t0} s, "
+        f"launches {dict(ops.SHAPE_LAUNCHES)}")
+    if ops.SHAPE_LAUNCHES[key] != n_pre or ops.LAUNCHES["l2_topk"] != n_pre + 1:
+        raise AssertionError(f"policies 1M: precompute launched l2_topk "
+                             f"{ops.SHAPE_LAUNCHES[key]} times at {key[1]} "
+                             f"({ops.LAUNCHES['l2_topk']} in all with c_f's), expected "
+                             f"{n_pre}")
+    tspec = TraceSpec("sift_like", {"n": N_FULL, "d": D_FULL, "t": T_FULL})
+    nag = {}
+    for spec in specs:
+        before = dict(ops.LAUNCHES)
+        r = X.run_cell("policies", tspec, spec, catalog_np, reqs_np, oracle, c_f, 50, H_FULL,
+                       8, dev)
+        launched = {k: ops.LAUNCHES[k] - before[k] for k in before if ops.LAUNCHES[k] != before[k]}
+        nag[spec.name] = r["nag_full"]
+        log(f"policies 1M {spec.label}: NAG={r['nag_full']} hit_ratio={r['hit_ratio']} "
+            f"us/request={r['us_per_request']} p50_step_us={r['p50_step_us']} "
+            f"occupancy_mean={r['occupancy_mean']} occupancy_max={r['occupancy_max']} "
+            f"local_share={r['local_share']} launches={launched}")
+        if not np.isfinite(r["nag_full"]):
+            raise AssertionError(f"policies 1M {spec.label}: NAG not finite")
+        if launched.get("l2_topk"):
+            raise AssertionError(f"policies 1M {spec.label}: l2_topk launched "
+                                 f"{launched['l2_topk']} times inside the replay")
+        if spec.name != "acai" and r["occupancy_max"] > H_FULL:
+            raise AssertionError(f"policies 1M {spec.label}: occupancy "
+                                 f"{r['occupancy_max']} > h {H_FULL}")
+    best = max(v for k, v in nag.items() if k != "acai")
+    log(f"policies 1M: AÇAI's NAG {nag['acai']} is "
+        f"{'at least' if nag['acai'] >= best else 'below'} every baseline's (best {best})")
+
+    # SIM-LRU with an online oracle: one l2_topk launch a batch
+    sim = next(s for s in specs if s.name == "sim_lru")
+    pol = PA.build_policy(sim, catalog_np, CostModel(c_f=c_f), seed=0, device=dev)
+    before = ops.LAUNCHES["l2_topk"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = PA.replay_trace(pol, reqs_np, None, batch=8)
+    dt = time.perf_counter() - t0
+    online = pol.normalized_gain(res["gain"].sum(), res["requests"])
+    steps = T_FULL // 8
+    log(f"policies 1M sim_lru online oracle: NAG={online} (precomputed {nag['sim_lru']}, "
+        f"|diff|={abs(online - nag['sim_lru'])}) us/request={dt / T_FULL * 1e6} "
+        f"l2_topk launches={ops.LAUNCHES['l2_topk'] - before} for {steps} batches")
+    if ops.LAUNCHES["l2_topk"] - before != steps:
+        raise AssertionError("policies 1M: the online oracle did not launch l2_topk once "
+                             "a batch")
+    if abs(online - nag["sim_lru"]) > 1e-3:
+        raise AssertionError("policies 1M: online and precomputed SIM-LRU NAG differ")
+    MAIN_SHAPES.update(ops.SHAPE_LAUNCHES)
+    log(f"policies: phase {time.perf_counter() - t_phase} s")
+    del oracle, pol
+    torch.cuda.empty_cache()
+    return dict(ops.LAUNCHES)
+
+
 def flash_phase(torch, ops, ref, dev):
     """flash_attention against its plain version, f32 (the FMA kernel) and
     bf16 (the wgmma kernel), with FLASH_BF16's shapes timed in the log (the
@@ -1153,6 +1305,7 @@ def main() -> int:
     kernel_phase(torch, ops, ref, catalog, reqs, ivf_index, pq_index, dev)
     parity_phase(torch, ops, dev)
     launches = slice_phase(torch, ops, cat_np, reqs_np, dev)
+    pol_launches = policies_phase(torch, ops, cat_np, reqs_np, dev)
     del cat_np, reqs_np
     torch.cuda.empty_cache()
 
@@ -1166,7 +1319,8 @@ def main() -> int:
     rows = shapes_phase(torch, ops, ref, catalog, reqs, ivf_index, pq_index, dev)
     del ivf_index, pq_index, catalog, reqs
     for name in sorted({k for k, _ in MAIN_SHAPES}):
-        log(f"main path {name}: {launches[name] + lm_launches[name]} launches; by shape: "
+        total = launches[name] + pol_launches[name] + lm_launches[name]
+        log(f"main path {name}: {total} launches; by shape: "
             + ", ".join(f"{dims} x {n}" for (k, dims), n in sorted(MAIN_SHAPES.items())
                         if k == name))
     for row in rows:

@@ -22,15 +22,19 @@ For each shape it prints one line with
   - library_ms: one PyTorch call that computes the same function.
 
 The shapes (Q x N x D for pairwise_l2): the cached-row scan (B x 864 x
-128), the IVF coarse quantizer (B x 256 x 128), the PQ tables (B x 256 x
-16, 8 subspaces), topk_l2's sample bound (B x 16384 x 128 and 64 x 16384
-x 1024), the semantic tier's exact scan (1 and 8 x 1M x 1024), k-means'
-assignment (1M x 256 x 128, build time); for ivf_scan the IVF probe (B x
+128; 1 and 8 x 864 x 1024 in the semantic tier's flat index), the IVF
+coarse quantizer (B x 256 x 128), the PQ tables (B x 256 x 16, 8
+subspaces), topk_l2's sample bound (B x 16384 x 128, and at the oracle's
+512 and c_f's 256 queries; 1, 8, 512 and 64 x 16384 x 1024), AÇAI's exact
+candidate scan (8 x 1M x 128), the semantic tier's exact scan (1 and 8 x
+1M x 1024), k-means' assignment (1M x 256 x 128, build time); for ivf_scan the IVF probe (B x
 16 lists of the 1M x 128 catalog, k 64) and the IVF-PQ exact re-rank of
 the index's ADC shortlist (B x 256, k 64; a random 256 of the probed ids
 where the tree's IVFPQIndex has no `shortlist`), at B 8 and 64; l2_topk
 at the flat index's B x 1M x 128 (k 64) and the semantic tier's flat
-index, 1 and 8 x 1M x 1024 (k 16); the IVF-PQ shortlist (B x 16 lists,
+index, 1 and 8 x 1M x 1024 (k 16), the baselines' server oracle (512 x
+1M x 128 at k 128, precomputing a trace; 8 x 1M x 128 at k 20, online),
+and c_f's calibration (256 x 1M x 128 and 512 x 1M x 1024, k 51); the IVF-PQ shortlist (B x 16 lists,
 kk 256) by `pq_adc_lists` and, off the main path now, by the per-query
 `pq_adc` over the probed table (alone, and with the sort and gather that
 followed it: the parent's shortlist, its call beside the new one's); the
@@ -71,6 +75,11 @@ IVFPQ = {"nlist": 256, "nprobe": 16, "m": 8, "refine": 4}  # chip_smoke.py's IVF
 CAP, K_REMOTE, REFINE = 2 * 400 + 64, 64, 4
 SEM_N, SEM_D, SAMPLE = 1_000_000, 1024, 16384
 SEM_K = 16  # the semantic tier's c_remote: max(4 k, 16) at k 4
+# the baselines' server oracle (chip_smoke.py's policies phase): the trace
+# precomputed in blocks of 512 queries at kmax 128, the online oracle at
+# k max(k', 16) = 20 a batch of 8; c_f calibrated from 256 catalog rows at
+# kth 50 (k 51); the semantic tier calibrates from 512 (k 51)
+ORACLE_Q, ORACLE_K, ONLINE_K, CF_SAMPLE, CF_K, SEM_CF_SAMPLE = 512, 128, 20, 256, 51, 512
 # flash: qwen1.5-0.5b's heads into an 8192-token cache, the prompt lengths
 # timed (a semantic-tier prompt; the engine's, 2048-8000, at 4096)
 FLASH_H, FLASH_D, FLASH_T, FLASH_S = 16, 64, 8192, (512, 4096)
@@ -373,13 +382,31 @@ def cases(torch, ops, ref, catalog, reqs, ivf_index, pq_index, dev, wide=True):
                      3.0 * nvalid * d))
         topk(f"flat index B {b}", q, catalog, K_REMOTE)
         pq_cases(b, q)
+    # the baselines' server oracle and c_f's calibration (queries: requests,
+    # and catalog rows for the calibration, as calibrate_fetch_cost takes)
+    cal = catalog[torch.randperm(n, device=dev, generator=gen)[:CF_SAMPLE]].contiguous()
+    topk(f"server oracle precompute Q {ORACLE_Q}", reqs[:ORACLE_Q].contiguous(), catalog,
+         ORACLE_K)
+    topk("server oracle online B 8", reqs[:8].contiguous(), catalog, ONLINE_K)
+    topk(f"c_f calibration Q {CF_SAMPLE}", cal, catalog, CF_K)
+    l2("AÇAI exact candidates B 8", reqs[:8].contiguous(), catalog, iters=20)
+    l2(f"topk_l2 sample bound Q {ORACLE_Q}", reqs[:ORACLE_Q].contiguous(), catalog[:SAMPLE])
+    l2(f"topk_l2 sample bound Q {CF_SAMPLE}", cal, catalog[:SAMPLE])
     if wide:
         sem = torch.randn(SEM_N, SEM_D, device=dev, generator=gen)
         qs = torch.randn(64, SEM_D, device=dev, generator=gen)
         l2("topk_l2 sample bound 64 x D 1024", qs, sem[:SAMPLE], main=False)
+        sem_cal = sem[torch.randperm(SEM_N, device=dev, generator=gen)[:SEM_CF_SAMPLE]]
+        sem_rows = sem[torch.randperm(SEM_N, device=dev, generator=gen)[:CAP]].contiguous()
         for b in (1, 8):
             l2(f"semantic exact scan B {b}", qs[:b].contiguous(), sem, iters=10)
             topk(f"semantic flat index B {b}", qs[:b].contiguous(), sem, SEM_K, iters=10)
+            l2(f"semantic topk_l2 sample bound B {b}", qs[:b].contiguous(), sem[:SAMPLE])
+            l2(f"semantic cached-row scan B {b}", qs[:b].contiguous(), sem_rows)
+        topk(f"semantic c_f calibration Q {SEM_CF_SAMPLE}", sem_cal.contiguous(), sem, CF_K,
+             iters=5)
+        l2(f"semantic topk_l2 sample bound Q {SEM_CF_SAMPLE}", sem_cal.contiguous(),
+           sem[:SAMPLE], iters=10)
     l2("k-means assignment (build)", catalog, ivf_index.centroids, main=False, iters=3)
     for s_len in FLASH_S:
         flash_case(s_len)

@@ -36,6 +36,26 @@ class StepMetrics(NamedTuple):
     served_local: torch.Tensor  # answers served from the cache
     fetched: torch.Tensor       # cache-update traffic (objects fetched)
     occupancy: torch.Tensor     # sum x_{t+1}
+    # the reference's debug counter (cached rows past the candidate
+    # generator's gather) and its resilient-serving and answer-tier
+    # counters: 0 on every path ported so far (the AÇAI step leaves the
+    # int default; the baselines fill them with zero arrays)
+    local_overflow: torch.Tensor | int = 0
+    degraded: torch.Tensor | int = 0
+    shed: torch.Tensor | int = 0
+    remote_failures: torch.Tensor | int = 0
+    retries: torch.Tensor | int = 0
+    deadline_misses: torch.Tensor | int = 0
+    answer_hits: torch.Tensor | int = 0
+    answer_misses: torch.Tensor | int = 0
+    answer_invalidations: torch.Tensor | int = 0
+
+
+def first_row(m: StepMetrics) -> StepMetrics:
+    """The B = 1 view of batched metrics: row 0 of every per-request field;
+    a plain int default passes through."""
+    return StepMetrics(*(f[0] if isinstance(f, torch.Tensor) and f.dim() else f
+                         for f in m))
 
 
 class CacheState(NamedTuple):
@@ -193,7 +213,10 @@ def make_step_batched(cfg: AcaiConfig, candidate_fn_batched: Callable, batch: in
 
 
 def _concat_metrics(ms) -> StepMetrics:
-    return StepMetrics(*(torch.cat(f) for f in zip(*ms)))
+    """Per-step metrics joined along the request axis; an int default
+    field stays an int."""
+    return StepMetrics(*(torch.cat(f) if isinstance(f[0], torch.Tensor) else f[0]
+                         for f in zip(*ms)))
 
 
 def make_replay_batched(cfg: AcaiConfig, candidate_fn_batched: Callable, batch: int,
@@ -224,7 +247,7 @@ def make_step(cfg: AcaiConfig, candidate_fn_batched: Callable) -> Callable:
 
     def step1(state: CacheState, r: torch.Tensor, u=None):
         state, m = step(state, r[None, :], u)
-        return state, StepMetrics(*(f[0] for f in m))
+        return state, first_row(m)
 
     return step1
 
@@ -262,21 +285,39 @@ def copy_state(state: CacheState, seed: int = 0) -> CacheState:
 _NOT_PORTED = "not ported yet (ROADMAP A{item}: {what})"
 
 
+def batched_view(candidate_fn: Callable) -> Callable:
+    """A per-request generator fn(r (d,), x) -> (ids (C,), d (C,), valid
+    (C,)) as a batched one: the requests one after another, the outputs
+    stacked (the reference vmaps it)."""
+
+    def fn(rs: torch.Tensor, x: torch.Tensor):
+        outs = [candidate_fn(r, x) for r in rs]
+        return tuple(torch.stack(t) for t in zip(*outs))
+
+    return fn
+
+
 class AcaiCache:
     """Object API over the batched step, for a serving tier: requests
     arrive one by one (`serve_update`) or in batches (`serve_update_batch`).
 
-    The remote-catalog index comes from `cfg.index`: an IndexSpec builds
-    it through the registry and wires it in with
-    `index_candidate_fn_batched`; None gives exact candidates.  Static
-    catalog only: the mesh, remote-backend, answer-cache and mutation
-    surfaces of the reference raise NotImplementedError naming the
-    ROADMAP item that ports them.  `state` starts the cache from a given
-    CacheState (it must lie on `device`) instead of running `init_state`."""
+    `cfg` is an AcaiConfig, or the reference's serialized forms of the
+    'acai' policy: a PolicySpec, its flat dict or the name (a spec
+    without `c_f` takes the `c_f` kwarg).  The remote-catalog index comes
+    from `cfg.index`: an IndexSpec builds it through the registry and
+    wires it in with `index_candidate_fn_batched`; None gives exact
+    candidates.  The escape hatches `candidate_fn` (per request) and
+    `candidate_fn_batched` override the spec-built generator (passing one
+    beside `cfg.index` warns, as in the reference).  Static catalog only:
+    the mesh, remote-backend, answer-cache and mutation surfaces of the
+    reference raise NotImplementedError naming the ROADMAP item that ports
+    them.  `state` starts the cache from a given CacheState (it must lie
+    on `device`) instead of running `init_state`."""
 
-    def __init__(self, catalog, cfg: AcaiConfig, seed: int = 0, device=None,
+    def __init__(self, catalog, cfg, seed: int = 0, device=None,
                  state: CacheState | None = None, mesh=None, remote=None,
-                 resilience=None, answer_cache=None):
+                 resilience=None, answer_cache=None, candidate_fn=None,
+                 candidate_fn_batched=None, c_f: float | None = None):
         if mesh is not None:
             raise NotImplementedError(_NOT_PORTED.format(
                 item=11, what="the sharded step over a mesh"))
@@ -287,8 +328,20 @@ class AcaiCache:
             raise NotImplementedError(_NOT_PORTED.format(
                 item=9, what="the answer-cache tier"))
         if not isinstance(cfg, AcaiConfig):
-            raise TypeError(f"AcaiCache takes an AcaiConfig, got {type(cfg)} "
-                            f"({_NOT_PORTED.format(item=6, what='PolicySpec forms')})")
+            from repro_torch.core.costs import CostModel
+            from repro_torch.core.policy_api import (acai_config_from_spec,
+                                                     resolve_policy_spec)
+
+            spec = resolve_policy_spec(cfg)
+            if spec is None or spec.name != "acai":
+                raise ValueError(
+                    f"AcaiCache builds the 'acai' policy; got "
+                    f"{getattr(spec, 'name', spec)!r} — use "
+                    f"repro_torch.core.policy_api.build_policy for baselines")
+            cfg = acai_config_from_spec(spec, None if c_f is None else CostModel(c_f=c_f))
+        elif c_f is not None:
+            raise ValueError("c_f= only applies to the PolicySpec form "
+                             "(AcaiConfig already carries its c_f)")
         resolved = resolve_spec(cfg.index)
         if resolved is not cfg.index:
             cfg = dataclasses.replace(cfg, index=resolved)
@@ -297,14 +350,25 @@ class AcaiCache:
         self.catalog = torch.as_tensor(catalog, dtype=torch.float32).to(
             self.device).contiguous()
         n = self.catalog.shape[0]
-        if cfg.index is not None:
+        self.index = None  # the spec-built index (None: exact or escape hatch)
+        explicit = candidate_fn is not None or candidate_fn_batched is not None
+        if explicit and cfg.index is not None:
+            import warnings
+
+            warnings.warn("AcaiCache: cfg.index is set but explicit candidate_fn/"
+                          "candidate_fn_batched overrides it — drop the kwargs or "
+                          "the spec", DeprecationWarning, stacklevel=2)
+        if candidate_fn_batched is not None:
+            self._fn_batched = candidate_fn_batched
+        elif candidate_fn is not None:
+            self._fn_batched = batched_view(candidate_fn)
+        elif cfg.index is not None:
             from repro_torch.index.candidates import index_candidate_fn_batched
 
             self.index = build_index(cfg.index, self.catalog, device=self.device)
             self._fn_batched = index_candidate_fn_batched(
                 self.index, self.catalog, cfg.c_remote, cfg.c_local, h=cfg.h)
         else:
-            self.index = None
             self._fn_batched = exact_candidate_fn_batched(
                 self.catalog, cfg.c_remote, cfg.c_local)
         self._bsteps: dict[int, Callable] = {}
@@ -317,8 +381,8 @@ class AcaiCache:
 
     def serve_update(self, r: torch.Tensor, u=None) -> StepMetrics:
         """Serve one request (d,) and update: the B = 1 batched step."""
-        m = self.serve_update_batch(r[None, :], u)
-        return StepMetrics(*(f[0] for f in m))
+        m = self.serve_update_batch(torch.as_tensor(r)[None, :], u)
+        return first_row(m)
 
     def serve_update_batch(self, rs: torch.Tensor, u=None) -> StepMetrics:
         """Serve a request mini-batch (B, d): one OMA + rounding update for

@@ -392,6 +392,18 @@ def topk_l2(q: torch.Tensor, x: torch.Tensor, k: int, *, valid=None):
     return _merge_partials(pd, pi, k)
 
 
+def topk_l2_fused(q: torch.Tensor, x: torch.Tensor, k: int, *, chunk: int,
+                  valid=None):
+    """`topk_l2` that never forms the (Q, N) matrix on either device (port
+    of the reference's `topk_l2_fused` / `topk_l2_chunked`): on CUDA the
+    `l2_topk` kernel (counted under `l2_topk`), on the CPU the plain
+    version scanning `chunk` catalog rows at a time.  Same outputs and
+    tail conventions as `topk_l2`."""
+    if not _on_cuda(q, x, *([] if valid is None else [valid])):
+        return ref.l2_topk_chunked_ref(q, x, k, chunk, valid)
+    return topk_l2(q, x, k, valid=valid)
+
+
 def _fold_tombstones(cand: torch.Tensor, valid: torch.Tensor, n: int):
     """Candidate ids whose row is tombstoned become -1 slots, so a removed
     object never surfaces from a stale list (one gather + where)."""

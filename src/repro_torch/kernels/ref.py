@@ -62,6 +62,30 @@ def l2_topk_ref(q: torch.Tensor, x: torch.Tensor, k: int, valid=None):
     return _underflow(*smallest_k(d, k), k)
 
 
+def l2_topk_chunked_ref(q: torch.Tensor, x: torch.Tensor, k: int, chunk: int,
+                        valid=None):
+    """`l2_topk_ref` without the (Q, N) matrix: `chunk` catalog rows at a
+    time, each chunk's distances merged into a running (Q, k) best by a
+    stable sort of [best, chunk] (port of the reference's
+    `topk_l2_chunked`).  The best holds only lower ids than the chunk, so
+    ties go to the lowest id as in one sort of the whole row: the result
+    is bitwise `l2_topk_ref`'s, tail conventions included."""
+    nq, n = q.shape[0], x.shape[0]
+    if chunk < 1:
+        raise ValueError(f"l2_topk_chunked_ref: chunk must be >= 1, got {chunk}")
+    best_d = torch.full((nq, k), float("inf"), dtype=torch.float32, device=q.device)
+    best_i = torch.full((nq, k), -1, dtype=torch.int64, device=q.device)
+    for s in range(0, n, chunk):
+        d = pairwise_l2_ref(q, x[s:s + chunk])
+        if valid is not None:
+            d = torch.where(valid[None, s:s + chunk], d, torch.full_like(d, float("inf")))
+        ids = torch.arange(s, s + d.shape[1], device=q.device).expand(nq, -1)
+        vals, pos = smallest_k(torch.cat([best_d, d], dim=1), k)
+        best_i = torch.gather(torch.cat([best_i, ids], dim=1), 1, pos)
+        best_d = vals
+    return _underflow(best_d, best_i, k)
+
+
 def ivf_scan_ref(q: torch.Tensor, x: torch.Tensor, cand: torch.Tensor, k: int,
                  valid=None):
     """Gathered-candidate top-k: q (B, D), x (N, D), cand (B, P) int with

@@ -20,6 +20,11 @@ reference's LM path:
   --catalog 0         skips the semantic tier
   --device cpu        run on the CPU (the card is the default)
 
+`--policy` selects the semantic tier's cache policy through the policy
+registry (AÇAI by default, or a baseline, e.g. `--policy sim_lru
+--policy-opt k_prime=8 --policy-opt augmented=true`); a baseline serves
+from the exact server oracle, so it takes no `--remote-index`.
+
 The semantic tier's traffic is the paper's (Sec. V-A, `core/trace.py`):
 the catalog holds the results of --catalog earlier prompts (row i is
 `embed_prompt` of prompt i), and each request repeats the prompt of a
@@ -29,10 +34,9 @@ draws a random catalog and fresh random prompts instead: no prompt lies
 near any object there, so every request is served from the store and
 nothing generates.
 
-The reference's other flags (policy registry, churn, answer cache,
-resilient remote tier, online arrivals, mesh) are ROADMAP A6, A8, A9 and
-A11.  `main(argv)` prints one line a tier and returns the figures as a
-dict.
+The reference's other flags (churn, answer cache, resilient remote
+tier, online arrivals, mesh) are ROADMAP A8, A9 and A11.  `main(argv)`
+prints one line a tier and returns the figures as a dict.
 """
 
 from __future__ import annotations
@@ -46,6 +50,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs import ARCHS, NOT_PORTED, get_config
+from repro_torch.core.policy_api import PolicySpec, parse_policy_opts, registered_policies
 from repro_torch.index.base import IndexSpec, parse_index_opts, registered_backends
 from repro_torch.models import init_params
 from repro_torch.serve import SemanticCachedLM, ServeEngine, embed_prompt, generate
@@ -168,7 +173,7 @@ def semantic_traffic(params, cfg, n: int, prompt_len: int, n_req: int, rng,
     return catalog, [tokens[i].long() for i in ids], ids
 
 
-def run_semantic(params, cfg, args, rng, device, index_spec) -> dict:
+def run_semantic(params, cfg, args, rng, device, index_spec, policy_spec) -> dict:
     """The semantic tier over a --catalog x d_model catalog of earlier
     prompts' embeddings (`semantic_traffic`): --requests single queries,
     then --query-batches batches of --batch."""
@@ -190,7 +195,8 @@ def run_semantic(params, cfg, args, rng, device, index_spec) -> dict:
     gen_timer = _Timer(gen_fn, device)
     t0 = time.perf_counter()
     lm = SemanticCachedLM(params, cfg, catalog, payloads, gen_timer,
-                          h=args.cache_size, k=4, index_spec=index_spec)
+                          h=args.cache_size, k=4, index_spec=index_spec,
+                          policy_spec=policy_spec)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     build_s = time.perf_counter() - t0
@@ -205,16 +211,20 @@ def run_semantic(params, cfg, args, rng, device, index_spec) -> dict:
         torch.cuda.synchronize(device)
     dt = time.perf_counter() - t0
     s = lm.stats
-    out = {"index": index_spec.to_dict() if index_spec else "exact",
+    out = {"policy": lm.policy_spec.to_dict(),
+           "index": index_spec.to_dict() if index_spec else "exact",
            "requests": s.requests, "distinct_objects": len(set(ids.tolist())),
            "served_local": s.served_local, "objects": s.requests * lm.k,
            "generations": s.generated, "generate_share": s.generated / s.requests,
-           "nag": lm.nag, "c_f": lm.cache.cfg.c_f, "traffic_s": traffic_s,
+           "nag": lm.nag, "c_f": lm.policy.c_f, "traffic_s": traffic_s,
            "build_s": build_s, "seconds": dt, "generate_seconds": gen_timer.seconds,
            "us_per_request": dt / s.requests * 1e6,
            "us_per_request_without_generation":
                (dt - gen_timer.seconds) / s.requests * 1e6}
-    print(f"semantic cache (index={out['index']}, h={args.cache_size}, "
+    tier = f"policy={out['policy']}"
+    if lm.policy_spec.name == "acai":
+        tier += f", index={out['index']}"
+    print(f"semantic cache ({tier}, h={args.cache_size}, "
           f"catalog {args.catalog} x {cfg.d_model}): {s.requests} requests for "
           f"{out['distinct_objects']} objects, {s.served_local}/{out['objects']} "
           f"objects local, {s.generated} generations "
@@ -242,11 +252,23 @@ def main(argv=None) -> dict:
                          "cache ('exact' = perfect-recall candidates)")
     ap.add_argument("--index-opt", action="append", default=[], metavar="KEY=VALUE",
                     help="index builder kwarg (repeatable), e.g. nlist=256")
+    ap.add_argument("--policy", default="acai", choices=registered_policies(),
+                    help="semantic-cache policy (the policy registry)")
+    ap.add_argument("--policy-opt", action="append", default=[], metavar="KEY=VALUE",
+                    help="policy spec param (repeatable), e.g. k_prime=8 "
+                         "augmented=true")
     ap.add_argument("--query-batches", type=int, default=0)
     ap.add_argument("--s-max", type=int, default=0)
     ap.add_argument("--device", default=None)
     args = ap.parse_args(argv)
 
+    try:
+        policy_spec = PolicySpec(args.policy, parse_policy_opts(args.policy_opt))
+    except ValueError as e:
+        raise SystemExit(str(e))
+    if args.policy != "acai" and args.remote_index != "exact":
+        raise SystemExit(f"--policy {args.policy} serves from the exact server "
+                         f"oracle; --remote-index only applies to acai")
     index_spec = None
     if args.remote_index != "exact":
         try:
@@ -267,7 +289,8 @@ def main(argv=None) -> dict:
     figures = {"arch": cfg.name, "device": str(device),
                "engine": run_engine(params, cfg, args, rng, device)}
     if args.catalog > 0:
-        figures["semantic"] = run_semantic(params, cfg, args, rng, device, index_spec)
+        figures["semantic"] = run_semantic(params, cfg, args, rng, device, index_spec,
+                                           policy_spec)
     return figures
 
 

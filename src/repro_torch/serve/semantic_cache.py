@@ -12,11 +12,13 @@ served wholly from the store runs generation.
 embedding table (mean pooled and normalised), so no extra encoder is
 needed.
 
-The port builds its `AcaiCache` directly, with the AcaiConfig that the
-reference's `acai_config_from_spec` gives for PolicySpec("acai"): the
-policy registry (ROADMAP A6), the baselines, the mesh (A11), the remote
-and resilience tiers and the answer cache (A9) and catalog mutation (A8)
-are not ported and raise NotImplementedError naming their item.
+The policy is one config knob (`policy_spec`): AÇAI by default, or any
+registered baseline (`sim_lru`, `qcache`, ...), which serves through an
+online `ServerOracle` (exact kNN a mini-batch, on the `l2_topk` kernel on
+the card).  Every policy speaks the `CachePolicy` step contract.  The mesh
+(ROADMAP A11), the remote and resilience tiers and the answer cache (A9)
+and catalog mutation (A8) are not ported and raise NotImplementedError
+naming their item.
 """
 
 from __future__ import annotations
@@ -26,9 +28,8 @@ from typing import Callable, Optional
 
 import torch
 
-from repro_torch.core import oma as oma_lib
-from repro_torch.core.costs import calibrate_fetch_cost
-from repro_torch.core.policy import AcaiCache, AcaiConfig
+from repro_torch.core import policy_api
+from repro_torch.core.costs import CostModel, calibrate_fetch_cost
 from repro_torch.index.base import resolve_spec
 from repro_torch.models.config import ModelConfig
 
@@ -52,8 +53,8 @@ class ServeStats:
 
 
 class SemanticCachedLM:
-    """An AÇAI similarity cache wrapping a generate() callable.  It runs on
-    the device of `params` (the model)."""
+    """A similarity cache wrapping a generate() callable.  It runs on the
+    device of `params` (the model)."""
 
     def __init__(self, params, cfg: ModelConfig, catalog_embs,
                  catalog_payloads: list, generate_fn: Callable,
@@ -61,10 +62,6 @@ class SemanticCachedLM:
                  eta: Optional[float] = None, seed: int = 0, mesh=None,
                  index_spec=None, policy_spec=None, remote=None,
                  resilience=None, answer_cache=None):
-        if policy_spec not in (None, "acai"):
-            raise NotImplementedError(_NOT_PORTED.format(
-                what=f"policy {policy_spec!r} (the policy registry and the "
-                     f"baselines)", item=6))
         if mesh is not None:
             raise NotImplementedError(_NOT_PORTED.format(
                 what="the sharded semantic tier (mesh)", item=11))
@@ -83,25 +80,49 @@ class SemanticCachedLM:
         if c_f is None:
             c_f = calibrate_fetch_cost(catalog, kth=min(50, len(self.payloads) - 1),
                                        device=self.device)
-        c_f = float(c_f)
-        acai = AcaiConfig(
-            h=int(h), k=int(k), c_f=c_f, c_remote=max(4 * k, 16),
-            c_local=max(k, 8),
-            oma=oma_lib.OMAConfig(eta=float(eta) if eta is not None else 0.05 / c_f),
-            index=resolve_spec(index_spec))
-        self.cache = AcaiCache(catalog, acai, seed=seed, device=self.device)
+        index_spec = resolve_spec(index_spec)
+        # policy_spec: a PolicySpec, its flat dict or a name; None = AÇAI.
+        # The h / k / eta arguments are defaults, spec params win
+        spec = policy_api.resolve_policy_spec(policy_spec)
+        if spec is None:
+            spec = policy_api.PolicySpec("acai")
+        base = {"h": h, "k": k}
+        if spec.name == "acai":
+            # candidate widths follow the effective k (a spec k wins)
+            k_eff = int(spec.params.get("k", k))
+            base.update(c_remote=max(4 * k_eff, 16), c_local=max(k_eff, 8))
+            if eta is not None:
+                base["eta"] = eta
+        elif eta is not None:
+            raise ValueError(f"eta only applies to the 'acai' policy, not "
+                             f"{spec.name!r}")
+        spec = policy_api.PolicySpec(spec.name, {**base, **spec.params})
+        if spec.name != "acai" and index_spec is not None:
+            raise ValueError(
+                f"policy {spec.name!r} serves from the exact server oracle; "
+                f"index_spec/mesh/answer_cache only apply to 'acai'")
+        self.policy = policy_api.build_policy(
+            spec, catalog, CostModel(c_f=float(c_f)), index_spec=index_spec,
+            seed=seed, device=self.device)
+        # the underlying AcaiCache (None for baselines)
+        self.cache = getattr(self.policy, "cache", None)
         self.stats = ServeStats()
 
     @property
     def k(self) -> int:
-        return self.cache.cfg.k
+        return self.policy.k
+
+    @property
+    def policy_spec(self):
+        return self.policy.spec
 
     def query(self, prompt_tokens: torch.Tensor, u=None):
         """Serve one prompt (S,): the k most similar cached results, each
         local or remote; a request not served wholly from the store runs
-        generation.  `u` optionally injects the step's rounding uniforms."""
+        generation.  `u` optionally injects the step's rounding uniforms
+        (AÇAI only)."""
         r = embed_prompt(self.params, prompt_tokens.to(self.device))
-        m = self.cache.serve_update(r, u)
+        m = self.policy.serve_update(r) if u is None else self.policy.serve_update(r, u=u)
         served = int(m.served_local)
         self.stats.requests += 1
         self.stats.served_local += served
@@ -120,7 +141,8 @@ class SemanticCachedLM:
         else:
             rs = torch.stack([embed_prompt(self.params, p.to(self.device))
                               for p in prompts])
-        m = self.cache.serve_update_batch(rs, u)
+        m = (self.policy.serve_update_batch(rs) if u is None
+             else self.policy.serve_update_batch(rs, u=u))
         served = m.served_local.tolist()
         self.stats.requests += len(prompts)
         self.stats.served_local += int(sum(served))
@@ -139,4 +161,4 @@ class SemanticCachedLM:
 
     @property
     def nag(self) -> float:
-        return self.cache.normalized_gain(self.stats.total_gain, self.stats.requests)
+        return self.policy.normalized_gain(self.stats.total_gain, self.stats.requests)

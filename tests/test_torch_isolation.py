@@ -52,9 +52,11 @@ def test_no_jax_or_repro_import_statement():
 
 
 def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
-    from repro_torch import resolve_device
+    from repro_torch import experiments, resolve_device
     from repro_torch.core import policy
-    from repro_torch.core.costs import calibrate_fetch_cost
+    from repro_torch.core.baselines import ServerOracle
+    from repro_torch.core.costs import CostModel, calibrate_fetch_cost
+    from repro_torch.core.policy_api import PolicySpec, build_policy
     from repro_torch.index.exact import FlatIndex
     from repro_torch.index.ivf import IVFFlatIndex
     from repro_torch.index.lsh import LSHIndex
@@ -72,7 +74,11 @@ def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
                  lambda: NSWIndex(cat, degree=4, beam=4),
                  lambda: calibrate_fetch_cost(cat, kth=3),
                  lambda: policy.init_state(40, cfg),
-                 lambda: policy.AcaiCache(cat, cfg)):
+                 lambda: policy.AcaiCache(cat, cfg),
+                 lambda: ServerOracle(cat, kmax=4),
+                 lambda: build_policy(PolicySpec("acai", {"h": 4}), cat, CostModel(1.0)),
+                 lambda: build_policy(PolicySpec("sim_lru", {"h": 4}), cat, CostModel(1.0)),
+                 lambda: experiments.main(["--from-bench", "BENCH_experiments.json"])):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
     assert resolve_device("cpu") == torch.device("cpu")

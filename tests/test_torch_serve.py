@@ -170,11 +170,60 @@ def test_semantic_cached_lm_matches_reference(lm, index):
     assert tlm.stats.served_local > 0
 
 
+@pytest.mark.parametrize("policy_spec", ["sim_lru", {"policy": "qcache", "h": 24},
+                                         {"policy": "cls_lru", "k_prime": 8,
+                                          "augmented": True}])
+def test_semantic_cached_lm_baseline_matches_reference(lm, policy_spec):
+    """A baseline as the semantic tier (its online oracle answering each
+    step): served_local per request and the generations equal the
+    reference's on the same weights, NAG to 1e-5.  The catalog holds the
+    embeddings of a pool of prompts that the requests repeat."""
+    jcfg, jparams, tcfg, port = lm
+    rng = np.random.default_rng(11)
+    pool = [rng.integers(0, jcfg.vocab, 10).astype(np.int32) for _ in range(60)]
+    extra = rng.normal(size=(140, jcfg.d_model)).astype(np.float32)
+    extra /= np.linalg.norm(extra, axis=1, keepdims=True)
+    cat = np.concatenate([np.stack([np.asarray(j_embed_prompt(jparams, jnp.array(p)))
+                                    for p in pool]), extra])
+    n, c_f = cat.shape[0], 0.05
+    picks = rng.integers(0, 20, 28)
+    singles = [pool[i] for i in picks[:12]]
+    batches = [[pool[i] for i in picks[j:j + 4]] for j in range(12, 28, 4)]
+    gens = {"ref": 0, "port": 0}
+
+    def counter(side):
+        def fn(_prompt):
+            gens[side] += 1
+        return fn
+
+    jlm = JSemantic(jparams, jcfg, jnp.array(cat), list(range(n)), counter("ref"),
+                    h=16, k=4, c_f=c_f, policy_spec=policy_spec)
+    tlm = TSemantic(port, tcfg, cat, list(range(n)), counter("port"), h=16, k=4,
+                    c_f=c_f, policy_spec=policy_spec)
+    assert tlm.policy_spec == tlm.policy.spec and tlm.cache is None
+    assert tlm.policy_spec.to_dict() == jlm.policy_spec.to_dict()
+    for p in singles:
+        assert int(tlm.query(_t(p)).served_local) == int(jlm.query(jnp.array(p)).served_local)
+    for ps in batches:
+        tm = tlm.query_batch([_t(p) for p in ps])
+        jm = jlm.query_batch([jnp.array(p) for p in ps])
+        np.testing.assert_array_equal(tm.served_local.numpy(), np.asarray(jm.served_local))
+    assert tlm.stats.served_local == jlm.stats.served_local > 0
+    assert gens["port"] == gens["ref"] == tlm.stats.generated
+    assert abs(tlm.nag - jlm.nag) < 1e-5
+    with pytest.raises(ValueError, match="index_spec"):
+        TSemantic(port, tcfg, cat, list(range(n)), lambda p: None, h=16, k=4, c_f=c_f,
+                  policy_spec=policy_spec, index_spec="flat")
+    with pytest.raises(ValueError, match="eta only applies"):
+        TSemantic(port, tcfg, cat, list(range(n)), lambda p: None, h=16, k=4, c_f=c_f,
+                  policy_spec=policy_spec, eta=0.1)
+
+
 def test_semantic_cached_lm_refuses_what_is_not_ported(lm):
     _, _, tcfg, port = lm
     cat = np.eye(8, tcfg.d_model, dtype=np.float32)
     kw = dict(h=2, k=1, c_f=1.0)
-    for extra, item in (({"policy_spec": "sim_lru"}, "A6"), ({"mesh": object()}, "A11"),
+    for extra, item in (({"mesh": object()}, "A11"),
                         ({"remote": object()}, "A9"), ({"answer_cache": 8}, "A9")):
         with pytest.raises(NotImplementedError, match=item):
             TSemantic(port, tcfg, cat, list(range(8)), lambda p: None, **kw, **extra)
@@ -224,3 +273,27 @@ def test_launcher_serves_both_tiers_on_the_cpu(index):
     assert 0 <= sem["served_local"] <= sem["objects"] == 64
     assert sem["us_per_request"] >= sem["us_per_request_without_generation"] > 0
     assert 0.0 <= sem["nag"] <= 1.0
+
+
+@pytest.mark.parametrize("policy", ["acai", "lru", "sim_lru", "cls_lru", "rnd_lru", "qcache"])
+def test_launcher_serves_every_registered_policy_on_the_cpu(policy):
+    """`--policy` / `--policy-opt` at SMOKE size, for every registered
+    policy; a baseline refuses `--remote-index`."""
+    from repro_torch.core.policy_api import registered_policies
+    from repro_torch.launch import serve
+
+    assert policy in registered_policies()
+    opts = ["--policy-opt", "k_prime=8"] if policy in ("sim_lru", "cls_lru", "rnd_lru") else []
+    fig = serve.main(["--smoke", "--device", "cpu", "--requests", "4", "--batch", "4",
+                      "--query-batches", "1", "--catalog", "128", "--policy", policy, *opts])
+    sem = fig["semantic"]
+    assert sem["policy"]["policy"] == policy and sem["requests"] == 8
+    if opts:
+        assert sem["policy"]["k_prime"] == 8
+    assert 0.0 <= sem["nag"] <= 1.0 and sem["c_f"] > 0
+    if policy != "acai":
+        with pytest.raises(SystemExit, match="only applies to acai"):
+            serve.main(["--smoke", "--device", "cpu", "--policy", policy,
+                        "--remote-index", "flat"])
+    with pytest.raises(SystemExit, match="--policy-opt"):
+        serve.main(["--smoke", "--device", "cpu", "--policy", policy, "--policy-opt", "x"])
