@@ -43,7 +43,24 @@ Phases, each of which raises on failure (the script then exits non-zero):
              the precompute, none inside any replay; occupancy <= h; NAG
              finite) and SIM-LRU again with an online oracle (one `l2_topk`
              launch a batch of 8, NAG within 1e-3 of the precomputed run);
-6. flash   — `flash_attention` against its plain version on the card: f32
+6. churn   — the mutable catalog (benchmarks/churn_bench.py --full's
+             configuration): a rolling_catalog trace of 1M x 128 (half live,
+             churn 0.1: 205 insert + expire events over 2048 requests), AÇAI
+             through `build_policy` and `replay_with_churn` on the card, exact
+             and over the flat, IVF and IVF-PQ indexes, IVF also with refresh
+             every 1024 requests, exact and IVF with compaction every 512;
+             the exact rows' NAG within 0.02 of BENCH_churn_full.json's
+             (0.6858; 0.6852 compacted; the port draws its own uniforms), the
+             IVF rows' differences printed; the exact replay run twice gives
+             the same NAG to the last digit; the n 2000 x 16 trace
+             (BENCH_churn.json's size) for all five backends with refresh and
+             compaction on the card and on the CPU with the same uniforms and
+             initial rows (NAG to 1e-3); the masked kernels against their
+             plain versions where the sample region of `l2_topk`'s bound is
+             all tombstoned, and after an append that doubles an IVF and an
+             IVF-PQ table's columns, with tombstones inside lists; and no
+             mutation at a fixed capacity reallocating a slab, mask or table;
+7. flash   — `flash_attention` against its plain version on the card: f32
              at tests/test_kernels.py's five shapes (<= 1e-4, the float32
              FMA kernel) and bf16 (within 2^-8 of the output, the wgmma
              kernel) at the LM path's prefill shapes, ragged edge cases and
@@ -53,11 +70,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
              the same boolean mask, and with is_causal where the mask is
              plain causal); and `l2_topk` at 64 x 1M x 1024 (the semantic
              tier's width) and 64 x 1M x 4096 (yi-6b's);
-7. lm parity — qwen1.5-0.5b SMOKE in float32 with the flash path forced
+8. lm parity — qwen1.5-0.5b SMOKE in float32 with the flash path forced
              (flash_threshold 32, flash_chunk 16), card against the CPU
              port on the same weights and uniforms: generate tokens and
              ServeEngine outputs equal, SemanticCachedLM NAG to 1e-3;
-8. lm slice — qwen1.5-0.5b at full width through
+9. lm slice — qwen1.5-0.5b at full width through
              `repro_torch.launch.serve.main`: continuous batching of 8
              prompts of 2048-8000 tokens over an 8192-token cache, then the
              semantic tier over a 1M x 1024 catalog of earlier prompts'
@@ -66,6 +83,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
              prefill, the engine's and each generation's on a miss, must
              launch the wgmma flash kernel once a layer, and the FMA one
              never.
+
+The churn path's kernel rows (masked `l2_topk` over the slab, AÇAI's exact
+scan over it, the add-time assignment, the masked IVF probe and IVF-PQ
+shortlist on appended lists) count the churn phase's launches; the other
+rows the slice's, policies' and LM slice's.
 
 The last lines are the kernels JSON (one row a main-path shape of every
 kernel, with that shape's launches on the main path; the per-query pq_adc's
@@ -218,8 +240,27 @@ FLASH_BF16_EDGE = [("engine prefill S 2049", 1, 2049, 8192, 16, 16, 64, True, 0,
                    ("not causal, written_upto 700", 1, 300, 1024, 8, 8, 128, False, 0,
                     0, 700)]
 # launches by (kernel, shape) over the main path's runs (the slice and the
-# LM slice), read from ops.SHAPE_LAUNCHES after each run
+# LM slice), read from ops.SHAPE_LAUNCHES after each run; the churn phase's
+# apart (its rows' shapes repeat the slice's keys)
 MAIN_SHAPES: Counter = Counter()
+CHURN_SHAPES: Counter = Counter()
+
+# the churn phase: benchmarks/churn_bench.py --full's rolling_catalog (seed
+# 17, warm 0.5, churn 0.1, h 400, k 10, B 8) and the reference's NAG there
+# (BENCH_churn_full.json), by (index, refresh_every, compact_every)
+CHURN_FULL = {"n": N_FULL, "d": D_FULL, "t": T_FULL, "churn_rate": 0.1, "warm": 0.5,
+              "seed": 17}
+CHURN_CELLS = [("exact", 0, 0), ("flat", 0, 0), ("ivf", 0, 0), ("ivfpq", 0, 0),
+               ("ivf", 1024, 0), ("exact", 0, 512), ("ivf", 0, 512)]
+CHURN_REF_NAG = {("exact", 0, 0): 0.6858, ("exact", 0, 512): 0.6852, ("ivf", 0, 0): 0.715,
+                 ("ivf", 1024, 0): 0.7142, ("ivf", 0, 512): 0.715}
+CHURN_NAG_TOL = 0.02
+# the n 2000 x 16 card-against-CPU replay (BENCH_churn.json's size, its
+# IVF; the other backends at the parity phase's settings)
+CHURN_SMALL = {"n": 2000, "d": 16, "t": 2048, "churn_rate": 0.1, "warm": 0.5, "seed": 17}
+CHURN_SMALL_SPECS = {"flat": {}, "ivf": {"nlist": 48, "nprobe": 10},
+                     "ivfpq": PARITY_SPECS["ivfpq"], "lsh": PARITY_SPECS["lsh"],
+                     "nsw": PARITY_SPECS["nsw"]}
 
 # bf16 output against the float32 plain version: the kernel's float32
 # result rounded once to bf16 is within 2^-8 of it, relative; the floor
@@ -442,12 +483,13 @@ def lists_checks(torch, ops, ref, dev, g) -> float:
     return err
 
 
-def shapes_phase(torch, ops, ref, catalog, reqs, ivf_index, pq_index, dev):
+def shapes_phase(torch, ops, ref, catalog, reqs, ivf_index, pq_index, dev, churn_cases=()):
     """Every kernel at each main-path shape (scripts/kernel_shapes.py's
-    cases): held against the plain version, then timed (device and call)
-    with bound, plain version and library call.  Returns the JSON rows,
-    launches still 0, each with its launch key and whether the main path
-    must launch it."""
+    cases, then the churn path's): held against the plain version, then
+    timed (device and call) with bound, plain version and library call.
+    Returns the JSON rows, launches still 0, each with its launch key,
+    whether the main path must launch it and whether it is the churn
+    path's."""
     import kernel_shapes
     from repro_torch.kernels import _build
 
@@ -469,6 +511,8 @@ def shapes_phase(torch, ops, ref, catalog, reqs, ivf_index, pq_index, dev):
                                      f"{lib.pq_adc_lists_smem_bytes(gmax, m, c, run, kp)}")
     log("shapes: pq_adc_lists' smem formula, host copy equal to the library's")
     cases = kernel_shapes.cases(torch, ops, ref, catalog, reqs, ivf_index, pq_index, dev)
+    n_main = len(cases)
+    cases = cases + list(churn_cases)
     errs = []
     for c in cases:
         got, want = c["fn"](), c["plain"]()
@@ -486,7 +530,8 @@ def shapes_phase(torch, ops, ref, catalog, reqs, ivf_index, pq_index, dev):
             errs.append(compare(torch, what, got, want))
         del got, want
     rows = []
-    for c, err, r in zip(cases, errs, kernel_shapes.time_cases(torch, ops, cases)):
+    for i, (c, err, r) in enumerate(zip(cases, errs, kernel_shapes.time_cases(torch, ops,
+                                                                              cases))):
         bms, by = c["bound"]
         log(f"  time {c['kernel']} {c['label']} [{c['shape']}]: device_ms={r['device_ms']} "
             f"device_all_kernels_ms={r['device_all_ms']} call_ms={r['call_ms']} "
@@ -502,7 +547,7 @@ def shapes_phase(torch, ops, ref, catalog, reqs, ivf_index, pq_index, dev):
                          "plain_ms": r["plain_ms"], "bound_ms": bms, "bound_by": by,
                          "library_ms": r["library_ms"], "library": LIBRARY[name],
                          "shape": f"{c['label']}: {c['shape']}", "key": [counter, list(dims)],
-                         "main": c["main"]})
+                         "main": c["main"], "churn": i >= n_main})
     torch.cuda.empty_cache()
     return rows
 
@@ -974,6 +1019,235 @@ def policies_phase(torch, ops, catalog_np, reqs_np, dev):
     return dict(ops.LAUNCHES)
 
 
+def churn_small_phase(torch, ops, dev) -> None:
+    """n 2000 x 16 under churn 0.1 with refresh and compaction, every
+    backend, on the CPU and on the card: the same initial state, rounding
+    uniforms (one draw a step over the state's rows) and initial k-means
+    rows (the indexes' default CPU generators); NAG to CARD_CPU_TOL."""
+    import numpy as np
+
+    from repro_torch import convert
+    from repro_torch.core import churn, trace
+    from repro_torch.core import policy_api as PA
+    from repro_torch.core.costs import CostModel, calibrate_fetch_cost
+    from repro_torch.index.base import IndexSpec
+
+    cat, reqs, _ = trace.rolling_catalog(**CHURN_SMALL)
+    events = trace.rolling_catalog_events(**CHURN_SMALL)
+    n0 = churn.warm_size(CHURN_SMALL["n"], CHURN_SMALL["warm"])
+    c_f = calibrate_fetch_cost(cat[:n0], kth=50, sample=256, device="cpu")
+    spec = PA.PolicySpec("acai", {"h": 64, "k": 8})
+    gen_seed = 7
+
+    def uniforms_fn(i, n):
+        return torch.rand(n, generator=torch.Generator().manual_seed(gen_seed * 100003 + i))
+
+    state0 = None
+    for backend, kw in CHURN_SMALL_SPECS.items():
+        nags = {}
+        for where in ("cpu", dev):
+            pol = PA.build_policy(spec, cat[:n0], CostModel(c_f=c_f),
+                                  index_spec=IndexSpec(backend, kw), seed=0, device=where)
+            if state0 is None:
+                state0 = (pol.cache.state.y.cpu().numpy(), pol.cache.state.x.cpu().numpy())
+            pol.cache.state = convert.cache_state_from_numpy(*state0, 0, device=where)
+            ops.reset_launches()
+            res = churn.replay_with_churn(pol, cat, reqs, events, batch=8, refresh_every=1024,
+                                          compact_every=512, uniforms_fn=uniforms_fn)
+            nags[where] = pol.normalized_gain(res["gain"].sum(), res["requests"])
+            counts = {k: v for k, v in ops.LAUNCHES.items() if v}  # the card's, last
+        diff = abs(nags["cpu"] - nags[dev])
+        log(f"churn n=2000 {backend} (refresh 1024, compact 512, {res['events_applied']} "
+            f"events, {res['compactions']} compactions): NAG cpu={nags['cpu']} "
+            f"cuda={nags[dev]} |diff|={diff} (<= {CARD_CPU_TOL}); launches on the card "
+            f"{counts}")
+        if not diff <= CARD_CPU_TOL:
+            raise AssertionError(f"churn n=2000 {backend}: card and CPU NAG differ")
+        if not np.isfinite(nags[dev]):
+            raise AssertionError(f"churn n=2000 {backend}: NAG not finite")
+
+
+def churn_kernel_checks(torch, ops, ref, dev) -> dict:
+    """The masked kernels where the churn path takes them and the earlier
+    checks did not: `l2_topk` with the sample rows of its bound all (or all
+    but a few) tombstoned, and `ivf_scan_lists` / `pq_adc_lists` after an
+    append that doubles the table's columns, with tombstones inside lists
+    and `lens` past the last live id; then the no-reallocation guard on the
+    card.  Returns the max abs errors."""
+    import numpy as np
+
+    from repro_torch.index.base import IndexSpec, build_index
+
+    g = torch.Generator(device=dev).manual_seed(9)
+    errs = {"l2_topk": 0.0, "ivf_scan_lists": 0.0, "pq_adc_lists": 0.0}
+    x = torch.rand(N_FULL, D_FULL, device=dev, generator=g)
+    q = torch.rand(8, D_FULL, device=dev, generator=g)
+    for label, few in (("all dead", 0), ("10 live", 10)):
+        valid = torch.rand(N_FULL, device=dev, generator=g) < 0.5
+        valid[:ops.TOPK_SAMPLE] = False
+        valid[torch.randperm(ops.TOPK_SAMPLE, device=dev, generator=g)[:few]] = True
+        bound = ops.topk_l2_bound(q, torch.sum(q * q, 1), x, C_REMOTE, valid)
+        if not bool(torch.isinf(bound).all()):
+            raise AssertionError(f"l2_topk bound with the sample {label}: not +inf")
+        gd, gi = ops.topk_l2(q, x, C_REMOTE, valid=valid)
+        wd, wi = ref.l2_topk_ref(q, x, C_REMOTE + 1, valid)
+        errs["l2_topk"] = max(errs["l2_topk"], compare(
+            torch, f"l2_topk 8 x {N_FULL} x {D_FULL} k={C_REMOTE}, the first "
+                   f"{ops.TOPK_SAMPLE} rows {label}", gd, wd, (gi, wi)))
+    # some sample rows live: the bound holds over the live rows only
+    valid[:ops.TOPK_SAMPLE] = torch.rand(ops.TOPK_SAMPLE, device=dev, generator=g) < 0.01
+    gd, gi = ops.topk_l2(q, x, C_REMOTE, valid=valid)
+    wd, wi = ref.l2_topk_ref(q, x, C_REMOTE + 1, valid)
+    errs["l2_topk"] = max(errs["l2_topk"], compare(
+        torch, f"l2_topk the sample rows 1% live", gd, wd, (gi, wi)))
+    del x
+
+    n0, d = 20000, D_FULL
+    base = torch.rand(n0, d, device=dev, generator=g)
+    for spec in (IndexSpec("ivf", {"nlist": 32, "nprobe": 8, "train_iters": 4}),
+                 IndexSpec("ivfpq", {"nlist": 32, "nprobe": 8, "m": 8, "refine": 4})):
+        idx = build_index(spec, base, device=dev)
+        cols = idx.invlists.shape[1]
+        # rows next to list 0's centroid, enough to overflow it
+        near = idx.centroids[:1] + 0.01 * torch.rand(cols + 5, d, device=dev, generator=g)
+        idx.add(near)
+        if idx.invlists.shape[1] <= cols:
+            raise AssertionError(f"churn {spec.backend}: the append did not double the columns")
+        idx.remove(np.arange(0, idx.n_slots, 13))  # tombstones inside lists
+        lens = ops.invlist_lengths(idx.invlists)
+        if not torch.equal(lens, idx.lens):
+            raise AssertionError(f"churn {spec.backend}: lens differ from the lists' lengths")
+        qs = torch.cat([near[:4], torch.rand(4, d, device=dev, generator=g)])
+        probe = idx.probe_lists(qs)
+        what = (f"churn {spec.backend}: {cols} -> {idx.invlists.shape[1]} columns, "
+                f"{idx.n_slots - idx.n} tombstones")
+        if spec.backend == "ivf":
+            table = ops.probed_table(idx.invlists, probe)
+            gd, gi = ops.ivf_scan_lists(qs, idx.embeddings, idx.invlists, probe, C_REMOTE,
+                                        valid=idx.valid, lens=idx.lens)
+            wd, wi = ref.ivf_scan_ref(qs, idx.embeddings, table, C_REMOTE + 1, idx.valid)
+            errs["ivf_scan_lists"] = compare(torch, "ivf_scan_lists " + what, gd, wd, (gi, wi))
+        else:
+            lut = idx.codec.adc_lut(qs)
+            kk = IVFPQ_FULL["refine"] * C_REMOTE
+            check_exact(torch, "pq_adc_lists " + what,
+                        ops.pq_shortlist_lists(lut, idx.codes_lists, idx.invlists, probe, kk,
+                                               valid=idx.valid, lens=idx.lens),
+                        ref.pq_shortlist_ref(lut, idx.codes_lists, idx.invlists, probe, kk,
+                                             idx.valid))
+            if not torch.equal(idx.codes_lists, ops.codes_by_list(idx.codes, idx.invlists)):
+                raise AssertionError("churn ivfpq: the list-major codes differ from "
+                                     "codes_by_list after the appends")
+        # no reallocation at a fixed capacity
+        names = [n for n in ("embeddings", "valid", "invlists", "lens", "codes",
+                             "codes_lists") if hasattr(idx, n)]
+        ptrs = {n: getattr(idx, n).data_ptr() for n in names}
+        for j in range(8):
+            idx.add(torch.rand(1, d, device=dev, generator=g))
+            idx.remove([idx.n_slots - 1])
+        moved = [n for n in names if getattr(idx, n).data_ptr() != ptrs[n]]
+        if moved:
+            raise AssertionError(f"churn {spec.backend}: {moved} reallocated at a fixed "
+                                 f"capacity")
+        log(f"  churn {spec.backend}: 8 adds and removes at capacity {idx.capacity}: "
+            f"{names} kept their storage")
+    return errs
+
+
+def churn_phase(torch, ops, ref, dev):
+    """The mutable catalog at 1M x 128 on the card (CHURN_CELLS), then the
+    n 2000 card-against-CPU replay and the kernel checks.  Returns the
+    churn path's kernel cases (kernel_shapes.churn_cases, over this run's
+    mutated indexes) and the phase's launches."""
+    import numpy as np
+
+    import kernel_shapes
+    from repro_torch import convert
+    from repro_torch.core import churn, trace
+    from repro_torch.core import policy_api as PA
+    from repro_torch.core.costs import CostModel, calibrate_fetch_cost
+    from repro_torch.index.base import IndexSpec
+
+    t_phase = time.perf_counter()
+    cat, reqs, _ = trace.rolling_catalog(**CHURN_FULL)
+    events = trace.rolling_catalog_events(**CHURN_FULL)
+    n0 = churn.warm_size(N_FULL, CHURN_FULL["warm"])
+    log(f"churn: rolling_catalog {N_FULL} x {D_FULL}, {len(events)} events, warm {n0} "
+        f"({time.perf_counter() - t_phase} s)")
+    c_f = calibrate_fetch_cost(cat[:n0], kth=50, sample=256, device=dev)
+    spec = PA.PolicySpec("acai", {"h": H_FULL, "k": K_FULL})
+    specs = {"exact": None, "flat": IndexSpec("flat"), "ivf": IndexSpec("ivf", IVF_FULL),
+             "ivfpq": IndexSpec("ivfpq", IVFPQ_FULL)}
+    state0, kept, nag_exact = None, {}, []
+    total = {name: 0 for name in ops.LAUNCHES}
+    for cell in CHURN_CELLS + [("exact", 0, 0)]:
+        index, refresh_every, compact_every = cell
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pol = PA.build_policy(spec, cat[:n0], CostModel(c_f=c_f), index_spec=specs[index],
+                              seed=0, device=dev)
+        if state0 is None:
+            state0 = pol.cache.state
+        pol.cache.state = convert.cache_state_from_numpy(
+            state0.y.cpu().numpy(), state0.x.cpu().numpy(), 0, seed=0, device=dev)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        res = churn.replay_with_churn(pol, cat, reqs, events, batch=8,
+                                      refresh_every=refresh_every, compact_every=compact_every)
+        dt = time.perf_counter() - t0
+        counts = {k: v for k, v in ops.LAUNCHES.items() if v}
+        for k in total:
+            total[k] += ops.LAUNCHES[k]
+        CHURN_SHAPES.update(ops.SHAPE_LAUNCHES)
+        nag = pol.normalized_gain(res["gain"].sum(), res["requests"])
+        want = CHURN_REF_NAG.get(cell)
+        log(f"churn 1M {index} refresh={refresh_every} compact={compact_every}: "
+            f"requests/s={res['requests'] / dt} us/request={dt / res['requests'] * 1e6} "
+            f"p50_step_us={res['p50_step_s'] * 1e6} NAG={nag} reference={want} "
+            f"|diff|={None if want is None else abs(nag - want)} "
+            f"hit_ratio={float(res['hit'].mean())} events={res['events_applied']} "
+            f"mutation_ms={res['mutation_s'] * 1e3} "
+            f"mutation_device_ms={res['mutation_device_s'] * 1e3} "
+            f"mutation_host_ms={res['mutation_host_s'] * 1e3} "
+            f"refresh_ms={res['refresh_s'] * 1e3} refresh_stall_ms={res['refresh_stall_s'] * 1e3} "
+            f"compact_ms={res['compact_s'] * 1e3} compactions={res['compactions']} "
+            f"capacity={pol.cache.catalog.shape[0]} live={pol.live_count} build_s={build_s} "
+            f"c_f={c_f} launches={counts} by shape={dict(ops.SHAPE_LAUNCHES)}")
+        if res["events_applied"] != len(events) or pol.live_count != n0:
+            raise AssertionError(f"churn 1M {cell}: {res['events_applied']} events applied, "
+                                 f"{pol.live_count} live")
+        if not (np.isfinite(res["gain"]).all() and 0.0 <= nag <= 1.0):
+            raise AssertionError(f"churn 1M {cell}: gains not finite or NAG {nag}")
+        needs = {"exact": ("pairwise_l2",), "flat": ("l2_topk",),
+                 "ivf": ("ivf_scan_lists", "pairwise_l2"),
+                 "ivfpq": ("pq_adc_lists", "ivf_scan", "pairwise_l2")}[index]
+        for name in needs:
+            if not counts.get(name):
+                raise AssertionError(f"churn 1M {cell}: {name} never launched")
+        if index == "exact" and cell[1:] == (0, 0):
+            nag_exact.append(nag)
+        if want is not None and index == "exact" and abs(nag - want) > CHURN_NAG_TOL:
+            raise AssertionError(f"churn 1M {cell}: NAG {nag} against the reference's {want}")
+        if cell[1:] == (0, 0) and index != "exact":
+            kept[index] = pol.cache.index  # the lists after the replay's appends
+        del pol
+    log(f"churn 1M: the exact replay twice, NAG {nag_exact[0]} and {nag_exact[1]} "
+        f"(equal: {nag_exact[0] == nag_exact[1]})")
+    if nag_exact[0] != nag_exact[1]:
+        raise AssertionError("churn 1M: two runs of one replay gave different NAG")
+    cases = kernel_shapes.churn_cases(torch, ops, ref, torch.from_numpy(reqs).to(dev),
+                                      kept["flat"], kept["ivf"], kept["ivfpq"], dev)
+    log(f"churn: 1M cells {time.perf_counter() - t_phase} s")
+    t0 = time.perf_counter()
+    churn_small_phase(torch, ops, dev)
+    log(f"churn: n=2000 card against CPU {time.perf_counter() - t0} s")
+    errs = churn_kernel_checks(torch, ops, ref, dev)
+    log(f"churn: kernel checks, max abs errors {errs}; phase {time.perf_counter() - t_phase} s")
+    return cases, total
+
+
 def flash_phase(torch, ops, ref, dev):
     """flash_attention against its plain version, f32 (the FMA kernel) and
     bf16 (the wgmma kernel), with FLASH_BF16's shapes timed in the log (the
@@ -1308,6 +1582,7 @@ def main() -> int:
     pol_launches = policies_phase(torch, ops, cat_np, reqs_np, dev)
     del cat_np, reqs_np
     torch.cuda.empty_cache()
+    churn_cases, churn_launches = churn_phase(torch, ops, ref, dev)
 
     flash_phase(torch, ops, ref, dev)
     topk_wide_phase(torch, ops, ref, dev)
@@ -1316,15 +1591,21 @@ def main() -> int:
     lm_launches = lm_slice_phase(torch, ops, card)
     # last: once torch.profiler has traced the card, every later launch in
     # this process pays its callbacks, so no host-clock figure comes after
-    rows = shapes_phase(torch, ops, ref, catalog, reqs, ivf_index, pq_index, dev)
-    del ivf_index, pq_index, catalog, reqs
+    rows = shapes_phase(torch, ops, ref, catalog, reqs, ivf_index, pq_index, dev,
+                        churn_cases)
+    del ivf_index, pq_index, catalog, reqs, churn_cases
     for name in sorted({k for k, _ in MAIN_SHAPES}):
         total = launches[name] + pol_launches[name] + lm_launches[name]
         log(f"main path {name}: {total} launches; by shape: "
             + ", ".join(f"{dims} x {n}" for (k, dims), n in sorted(MAIN_SHAPES.items())
                         if k == name))
+    for name in sorted({k for k, _ in CHURN_SHAPES}):
+        log(f"churn path {name}: {churn_launches[name]} launches; by shape: "
+            + ", ".join(f"{dims} x {n}" for (k, dims), n in sorted(CHURN_SHAPES.items())
+                        if k == name))
     for row in rows:
-        row["launches"] = shape_launches(MAIN_SHAPES, *row.pop("key"))
+        row["launches"] = shape_launches(CHURN_SHAPES if row.pop("churn") else MAIN_SHAPES,
+                                         *row.pop("key"))
         if row.pop("main") and row["launches"] == 0:
             raise AssertionError(f"{row['name']} [{row['shape']}] was never launched "
                                  f"on the main path")

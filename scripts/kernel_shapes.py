@@ -40,6 +40,14 @@ kk 256) by `pq_adc_lists` and, off the main path now, by the per-query
 followed it: the parent's shortlist, its call beside the new one's); the
 bf16 flash kernel at a 512-token prefill into an 8192-token cache (the
 semantic tier's prompts) and at 4096 tokens (the engine's 2048-8000).
+The churn path's shapes (`churn_cases`, over `churn_state`: the flat, IVF
+and IVF-PQ indexes of the first half of the catalog after 205 one-row
+inserts and the expiry of the 205 oldest rows, the state a rolling window
+at churn 0.1 leaves after 2048 requests): `l2_topk` masked over the 1M-row
+slab (8 x capacity x 128, k 64, `valid` holding the tombstones and the
+unused rows), `pairwise_l2` of AÇAI's exact mutable scan (8 x capacity)
+and of the add-time list assignment (1 x 256 x 128), and the IVF probe
+and the IVF-PQ shortlist, masked, over the lists the inserts appended to.
 `--src` imports another checkout's `repro_torch` (its kernels are built
 from its own sources), so two trees can be timed in one call; features a
 tree lacks (the batched PQ tables, the list-major probe, the list-major
@@ -413,6 +421,112 @@ def cases(torch, ops, ref, catalog, reqs, ivf_index, pq_index, dev, wide=True):
     return out
 
 
+CHURN_EVENTS = 205  # rolling_catalog's events at churn 0.1 over 2048 requests
+
+
+def churn_state(torch, catalog, dev, events: int = CHURN_EVENTS):
+    """(flat, ivf, ivfpq) indexes over the first half of `catalog` after
+    `events` one-row inserts of the next rows and as many expiries of the
+    oldest ones, through the indexes' own add / remove."""
+    from repro_torch.index.base import IndexSpec, build_index
+
+    n0 = catalog.shape[0] // 2
+    out = []
+    for spec in (IndexSpec("flat"), IndexSpec("ivf", IVF), IndexSpec("ivfpq", IVFPQ)):
+        idx = build_index(spec, catalog[:n0], device=dev)
+        for i in range(events):
+            idx.add(catalog[n0 + i:n0 + i + 1])
+            idx.remove([i])
+        out.append(idx)
+    return tuple(out)
+
+
+def churn_cases(torch, ops, ref, reqs, flat, ivf, pq, dev, b: int = 8):
+    """The churn path's main-path shapes as `cases` dicts (same keys), over
+    mutated indexes: the masked flat scan, AÇAI's exact scan over the
+    slab, the add-time assignment, and the masked IVF probe and IVF-PQ
+    shortlist on appended lists.  The bounds count the live rows where the
+    kernel skips the dead ones (a row `valid` masks is never read)."""
+    out = []
+    q = reqs[:b].contiguous()
+    cap, d = flat.embeddings.shape
+    n_live = flat.n
+
+    def add(kernel, label, shape, key, fn, plain, library, bnd, check="close", iters=20,
+            all_kernels=False):
+        out.append({"kernel": kernel, "label": label, "shape": shape, "key": key, "fn": fn,
+                    "plain": plain, "library": library, "bound": bnd, "main": True,
+                    "row": True, "check": check, "all_kernels": all_kernels,
+                    "iters": iters})
+
+    slab, valid = flat.embeddings, flat.valid
+    add("l2_topk", f"churn: flat index masked B {b}",
+        f"Q={b} N={cap} live={n_live} D={d} k={K_REMOTE}", ("l2_topk", (b, cap, d, K_REMOTE)),
+        lambda: ops.topk_l2(q, slab, K_REMOTE, valid=valid),
+        lambda: ref.l2_topk_ref(q, slab, K_REMOTE, valid),
+        lambda: torch.topk(torch.cdist(q, slab).masked_fill(~valid, float("inf")), K_REMOTE,
+                           largest=False),
+        bound_ms(4.0 * (n_live * d + b * d) + cap + 8.0 * b * K_REMOTE,
+                 2.0 * b * n_live * d, TF32_FLOPS))
+    add("pairwise_l2", f"churn: AÇAI exact candidates B {b}", f"Q={b} N={cap} D={d}",
+        ("pairwise_l2", (b, cap, d)), lambda: ops.pairwise_l2(q, slab),
+        lambda: ref.pairwise_l2_ref(q, slab), lambda: torch.cdist(q, slab),
+        bound_ms(4.0 * (b * d + cap * d + b * cap), 2.0 * b * cap * d))
+    row = reqs[:1].contiguous()
+    nl = ivf.centroids.shape[0]
+    add("pairwise_l2", "churn: add-time list assignment", f"Q=1 N={nl} D={d}",
+        ("pairwise_l2", (1, nl, d)), lambda: ops.pairwise_l2(row, ivf.centroids),
+        lambda: ref.pairwise_l2_ref(row, ivf.centroids), lambda: torch.cdist(row, ivf.centroids),
+        bound_ms(4.0 * (d + nl * d + nl), 2.0 * nl * d), iters=50)
+
+    probe = ivf.probe_lists(q)
+    table = ops.probed_table(ivf.invlists, probe)
+    live = (table >= 0) & ivf.valid[table.clamp_min(0).long()]
+    nvalid = int(live.sum())
+    ndistinct = int(torch.unique(table[live]).numel())
+    lists = torch.unique(probe).long()
+    cols = ivf.invlists.shape[1]
+    add("ivf_scan", f"churn: IVF probe masked B {b}",
+        f"B={b} P={table.shape[1]} valid={nvalid} distinct={ndistinct} D={d} k={K_REMOTE} "
+        f"appended lists cap={cols}",
+        ("ivf_scan_lists", (b, probe.shape[1], cols, d, K_REMOTE)),
+        lambda probe=probe: ops.ivf_scan_lists(q, ivf.embeddings, ivf.invlists, probe,
+                                               K_REMOTE, valid=ivf.valid, lens=ivf.lens),
+        lambda table=table: ref.ivf_scan_ref(q, ivf.embeddings, table, K_REMOTE, ivf.valid),
+        lambda table=table, live=live: torch.topk(
+            torch.cdist(q[:, None, :], ivf.embeddings[table.clamp_min(0).long()])[:, 0]
+            .masked_fill(~live, float("inf")), K_REMOTE, largest=False),
+        bound_ms(4.0 * (ndistinct * (d + 1) + probe.numel() + nl + b * d)
+                 + int(ivf.lens[lists].sum()) + 8.0 * b * K_REMOTE, 3.0 * nvalid * d))
+
+    kk = REFINE * K_REMOTE
+    probe = pq.probe_lists(q)
+    lut = pq.codec.adc_lut(q)
+    m, c = lut.shape[1:]
+    table = ops.probed_table(pq.invlists, probe)
+    live = (table >= 0) & pq.valid[table.clamp_min(0).long()]
+    lists = torch.unique(probe).long()
+    slots = int(pq.lens[lists].sum())
+    cols = pq.invlists.shape[1]
+    nruns, run = ops.pq_lists_plan(pq.nlist, cols, probe.shape[1], kk, m, c, b)[:2]
+    width = probe.shape[1] * nruns * min(kk, run)
+    add("pq_adc_lists", f"churn: IVF-PQ shortlist masked B {b}",
+        f"B={b} nprobe={probe.shape[1]} lists={lists.numel()} slots={slots} "
+        f"live={int(live.sum())} M={m} C={c} kk={kk} appended lists cap={cols}",
+        ("pq_adc_lists", (b, probe.shape[1], cols, m, kk)),
+        lambda: ops.pq_shortlist_lists(lut, pq.codes_lists, pq.invlists, probe, kk,
+                                       valid=pq.valid, lens=pq.lens),
+        lambda: ref.pq_shortlist_ref(lut, pq.codes_lists, pq.invlists, probe, kk, pq.valid),
+        lambda: torch.topk(pq_adc_library(torch, lut, pq.codes, table).masked_fill(
+            ~live, float("inf")), kk, largest=False),
+        # each probed slot's code row, id and liveness once, the probe
+        # table, the lengths, the LUTs, the partials written
+        bound_ms(slots * (m + 5.0) + 4.0 * (probe.numel() + pq.nlist + b * m * c)
+                 + 8.0 * b * width, float(int(live.sum()) * m)),
+        check="exact", all_kernels=True)
+    return out
+
+
 def _forced_probe(ops, nruns):
     """A context in which `ivf_scan_lists` takes the list-major kernel at
     any shape, at `nruns` runs a list (None: as planned)."""
@@ -555,6 +669,8 @@ def main() -> int:
         return 0
     cs = cases(torch, ops, ref, catalog, reqs, ivf_index, pq_index, dev,
                wide=not args.skip_wide)
+    if hasattr(ivf_index, "add"):  # a tree with the mutable catalog
+        cs += churn_cases(torch, ops, ref, reqs, *churn_state(torch, catalog, dev), dev)
     for c, r in zip(cs, time_cases(torch, ops, cs)):
         print(f"{c['kernel']} | {c['label']} | {c['shape']} | device_ms={r['device_ms']} "
               f"device_all_kernels_ms={r['device_all_ms']} call_ms={r['call_ms']} "

@@ -1,10 +1,17 @@
 """Carry state, index structures and LM weights into the port as numpy
 arrays.
 
-A cache state, an index (IVF, IVF-PQ, LSH, NSW) or an LM's parameters
-built elsewhere, for instance by the JAX reference, are handed over as
-plain arrays, so the port never reads a framework-specific object such as
-a JAX key.
+A cache state, an index (flat, IVF, IVF-PQ, LSH, NSW) or an LM's
+parameters built elsewhere, for instance by the JAX reference, are handed
+over as plain arrays, so the port never reads a framework-specific object
+such as a JAX key.
+
+An index whose catalog has mutated loads the same way: `catalog` is the
+slab at its capacity, `valid` its (capacity,) liveness mask and `n_slots`
+its high-water mark, beside the structures as they stand (`invlists`,
+`codes` (capacity, m), `buckets`, `graph` (capacity, degree)).  The lists'
+append cursors are their counts of ids (lists fill from column 0 and
+tombstones stay in them), so they come with the tables.
 """
 
 from __future__ import annotations
@@ -14,6 +21,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core.policy import CacheState
+from repro_torch.index.exact import FlatIndex
 from repro_torch.index.ivf import IVFFlatIndex
 from repro_torch.index.lsh import LSHIndex
 from repro_torch.index.nsw import NSWIndex
@@ -32,40 +40,68 @@ def cache_state_from_numpy(y, x, t: int = 0, seed: int = 0, device=None) -> Cach
                       gen=torch.Generator(device=device).manual_seed(seed))
 
 
-def ivf_from_numpy(catalog, centroids, invlists, nprobe: int,
-                   device=None) -> IVFFlatIndex:
+def _mutated(index, valid, n_slots):
+    """The index with a mutated slab's mask and high-water mark (valid None:
+    every row of the catalog live)."""
+    if valid is not None:
+        index._load_rows(valid, int(n_slots))
+    return index
+
+
+def flat_from_numpy(catalog, valid=None, n_slots=None, device=None) -> FlatIndex:
+    """FlatIndex over `catalog` (the slab), `valid` / `n_slots` as above."""
+    return _mutated(FlatIndex(np.array(catalog, np.float32), device=device), valid,
+                    n_slots)
+
+
+def ivf_from_numpy(catalog, centroids, invlists, nprobe: int, valid=None,
+                   n_slots=None, init_fn=None, device=None) -> IVFFlatIndex:
     """IVFFlatIndex over `catalog` (N, d) with prebuilt `centroids`
-    (nlist, d) and padded inverted lists `invlists` (nlist, cap; -1 pads)."""
-    return IVFFlatIndex(np.array(catalog, np.float32), nprobe=nprobe,
-                        centroids=np.array(centroids, np.float32),
-                        invlists=np.array(invlists, np.int32), device=device)
+    (nlist, d) and padded inverted lists `invlists` (nlist, cap; -1 pads);
+    `init_fn` gives later rebuilds' initial rows."""
+    return _mutated(IVFFlatIndex(np.array(catalog, np.float32), len(centroids), nprobe,
+                                 centroids=np.array(centroids, np.float32),
+                                 invlists=np.array(invlists, np.int32), init_fn=init_fn,
+                                 device=device), valid, n_slots)
 
 
 def ivfpq_from_numpy(catalog, centroids, invlists, codebooks, codes,
-                     nprobe: int, refine: int, device=None) -> IVFPQIndex:
+                     nprobe: int, refine: int, valid=None, n_slots=None, init_fn=None,
+                     pq_init_fn=None, device=None) -> IVFPQIndex:
     """IVFPQIndex over `catalog` (N, d) with the prebuilt coarse layer,
     `codebooks` (m, ksub, d // m) and `codes` (N, m) in [0, ksub)."""
-    return IVFPQIndex(np.array(catalog, np.float32), nprobe=nprobe, refine=refine,
-                      centroids=np.array(centroids, np.float32),
-                      invlists=np.array(invlists, np.int32),
-                      codebooks=np.array(codebooks, np.float32),
-                      codes=np.array(codes), device=device)
+    codebooks = np.array(codebooks, np.float32)
+    return _mutated(IVFPQIndex(np.array(catalog, np.float32), len(centroids), nprobe,
+                               m=codebooks.shape[0], refine=refine,
+                               centroids=np.array(centroids, np.float32),
+                               invlists=np.array(invlists, np.int32), codebooks=codebooks,
+                               codes=np.array(codes), init_fn=init_fn,
+                               pq_init_fn=pq_init_fn, device=device), valid, n_slots)
 
 
-def lsh_from_numpy(catalog, planes, buckets, device=None) -> LSHIndex:
+def lsh_from_numpy(catalog, planes, buckets, valid=None, n_slots=None, cap=None,
+                   device=None) -> LSHIndex:
     """LSHIndex over `catalog` with hyperplanes `planes` (tables, bits, d)
-    and the bucket table `buckets` (tables, 2**bits, cap; -1 pads)."""
-    return LSHIndex(np.array(catalog, np.float32), planes=np.array(planes, np.float32),
-                    buckets=np.array(buckets, np.int32), device=device)
+    and the bucket table `buckets` (tables, 2**bits, cap; -1 pads); `cap`
+    a fixed bucket width (truncation on add)."""
+    return _mutated(LSHIndex(np.array(catalog, np.float32), cap=cap,
+                             planes=np.array(planes, np.float32),
+                             buckets=np.array(buckets, np.int32), device=device),
+                    valid, n_slots)
 
 
 def nsw_from_numpy(catalog, graph, entry_points, beam: int, steps: int,
-                   expand: int, device=None) -> NSWIndex:
+                   expand: int, valid=None, n_slots=None, seed: int = 0, init_fn=None,
+                   device=None) -> NSWIndex:
     """NSWIndex over `catalog` with the neighbour table `graph` (N, degree)
-    and the beam's `entry_points`, searched with (beam, steps, expand)."""
-    return NSWIndex(np.array(catalog, np.float32), beam=beam, steps=steps,
-                    expand=expand, graph=np.array(graph, np.int32),
-                    entry_points=np.array(entry_points, np.int32), device=device)
+    and the beam's `entry_points`, searched with (beam, steps, expand).
+    `seed` is the build's (insertions draw from `default_rng(seed + 1)`,
+    rebuilds from `seed`); a loaded index's insertion generator starts
+    fresh."""
+    return _mutated(NSWIndex(np.array(catalog, np.float32), beam=beam, steps=steps,
+                             expand=expand, seed=seed, graph=np.array(graph, np.int32),
+                             entry_points=np.array(entry_points, np.int32),
+                             init_fn=init_fn, device=device), valid, n_slots)
 
 
 def lm_params_from_numpy(params, cfg: ModelConfig, device=None) -> LM:

@@ -1,11 +1,18 @@
 """AÇAI policy: request serving + OMA cache updates (paper Sec. IV).
 
-Port of `repro.core.policy`, static catalog.  The batched step serves a
-mini-batch of requests against the same cache state: candidate generation
-from the remote index plus a scan of the cached rows, serving by Eq. (2),
-gain and subgradient by Eq. (55), one averaged OMA step with the
+Port of `repro.core.policy`.  The batched step serves a mini-batch of
+requests against the same cache state: candidate generation from the
+remote index plus a scan of the cached rows, serving by Eq. (2), gain
+and subgradient by Eq. (55), one averaged OMA step with the
 capped-simplex projection, then rounding.  A replay is a Python loop of
 steps where the reference scans.
+
+Mutable catalog: `AcaiCache.add_objects / remove_objects / refresh* /
+compact` change the catalog online.  After the first mutation the cache
+serves through `make_mutable_step`: the candidate slab comes from the
+live structures (`exact_mutable_candidates` or the index's
+`mutable_index_candidate_fn`), and the tail keeps y = x = 0 on dead rows.
+The state's length is the slab's capacity, so are the rounding uniforms.
 
 Randomness: the reference splits a `jax.random` key per step for the
 rounding.  Here the state carries a `torch.Generator`, and every step also
@@ -18,6 +25,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch import resolve_device
@@ -25,7 +33,9 @@ from repro_torch.core import gain as gain_lib
 from repro_torch.core import oma as oma_lib
 from repro_torch.core import rounding as rounding_lib
 from repro_torch.core.costs import BIG_COST, pairwise_dissimilarity
-from repro_torch.index.base import build_index, check_finite_queries, resolve_spec
+from repro_torch.index.base import (build_index, check_finite_queries, check_removable,
+                                    compact_rows, grow_rows, live_remap, resolve_spec,
+                                    run_device, slab_append)
 from repro_torch.kernels.ref import smallest_k
 
 
@@ -80,31 +90,47 @@ def dedup_mask(ids: torch.Tensor, n: int) -> torch.Tensor:
     return dedup_mask_batched(ids[None], n)[0]
 
 
+def exact_mutable_candidates(rs: torch.Tensor, x: torch.Tensor, catalog: torch.Tensor,
+                             alive, c_remote: int, c_local: int,
+                             metric: str = "sqeuclidean"):
+    """(ids, d, valid), each (B, C): exact search on both sides from one
+    (B, N) distance matrix (the `pairwise_l2` kernel).  `alive` (N,) bool,
+    the catalog slab's liveness, sets tombstoned and unused rows to +inf:
+    a dead row is picked only when fewer than c_remote rows live, and then
+    resolves to the invalid id N.  With alive None the catalog is static."""
+    n = catalog.shape[0]
+    b = rs.shape[0]
+    d_full = pairwise_dissimilarity(rs.contiguous(), catalog, metric)   # (B, N)
+    inf = torch.full((), float("inf"), device=d_full.device)
+    if alive is not None:
+        d_full = torch.where(alive[None, :], d_full, inf)
+    d_remote, ids_remote = smallest_k(d_full, c_remote)
+    if alive is not None:
+        ids_remote = torch.where(torch.isfinite(d_remote), ids_remote,
+                                 torch.full_like(ids_remote, n))
+    d_cached = torch.where(x[None, :] > 0.5, d_full, inf)
+    ids_local = smallest_k(d_cached, c_local)[1]
+    ids = torch.cat([ids_remote, ids_local], dim=1)
+    valid = dedup_mask_batched(ids, n)
+    # a "local" candidate slot is only valid if that object is cached (the
+    # y = x = 0 invariant on dead rows keeps removed objects out here too)
+    cached_ok = torch.cat([torch.ones((b, c_remote), dtype=torch.bool, device=x.device),
+                           x[ids_local] > 0.5], dim=1)
+    valid = valid & cached_ok
+    d = torch.where(valid, torch.gather(d_full, 1, torch.clamp(ids, 0, n - 1)),
+                    torch.full(ids.shape, BIG_COST, device=x.device))
+    return ids, d, valid
+
+
 def exact_candidate_fn_batched(catalog: torch.Tensor, c_remote: int,
                                c_local: int, metric: str = "sqeuclidean") -> Callable:
     """Batched candidate generator backed by exact search on both sides:
     fn(rs (B, d), x (N,)) -> (ids, d, valid), each (B, C).  One (B, N)
     distance matrix from the `pairwise_l2` kernel feeds both the remote
     top-k and the cached-row top-k."""
-    n = catalog.shape[0]
 
     def fn(rs: torch.Tensor, x: torch.Tensor):
-        b = rs.shape[0]
-        d_full = pairwise_dissimilarity(rs.contiguous(), catalog, metric)  # (B, N)
-        ids_remote = smallest_k(d_full, c_remote)[1]
-        cached = x[None, :] > 0.5
-        d_cached = torch.where(cached, d_full, torch.full_like(d_full, float("inf")))
-        ids_local = smallest_k(d_cached, c_local)[1]
-        ids = torch.cat([ids_remote, ids_local], dim=1)
-        valid = dedup_mask_batched(ids, n)
-        # a "local" candidate slot is only valid if that object is cached
-        cached_ok = torch.cat([torch.ones((b, c_remote), dtype=torch.bool,
-                                          device=x.device),
-                               x[ids_local] > 0.5], dim=1)
-        valid = valid & cached_ok
-        d = torch.where(valid, torch.gather(d_full, 1, torch.clamp(ids, 0, n - 1)),
-                        torch.full(ids.shape, BIG_COST, device=x.device))
-        return ids, d, valid
+        return exact_mutable_candidates(rs, x, catalog, None, c_remote, c_local, metric)
 
     return fn
 
@@ -168,11 +194,47 @@ def finish_step_batched(cfg_up: AcaiConfig, state: CacheState, u, batch: int,
     return CacheState(y_new, x_new, state.t + batch, state.gen), metrics
 
 
+def scatter_rows_sum(n: int, ids: torch.Tensor, vals: torch.Tensor,
+                     valid: torch.Tensor) -> torch.Tensor:
+    """(n,) float: for each id, the sum of `vals` over the valid slots of
+    (B, C) `ids` that name it (the reference's `.at[ids].add`), in an order
+    fixed by the data alone, so two runs on the card agree to the last bit
+    (atomics, as `index_add_` uses on CUDA, add duplicates in a different
+    order each run).
+
+    A stable sort of the B * C slots by id puts each id's slots together,
+    in row order; a row names a valid id at most once (the candidate slab
+    is deduplicated), so a run holds at most B values.  They are laid out
+    in a (B * C, B) table at (run start, rank in run) and summed along the
+    rank, and each run's head writes its sum.  Invalid slots go to a spare
+    id n, dropped at the end.  No step reads the device back."""
+    b = ids.shape[0]
+    dev = vals.device
+    flat = torch.where(valid, ids, torch.full_like(ids, n)).reshape(-1)
+    v = torch.where(valid, vals, torch.zeros_like(vals)).reshape(-1)
+    sid, order = torch.sort(flat, stable=True)
+    sv = v[order]
+    pos = torch.arange(sid.shape[0], device=dev)
+    head = torch.ones_like(sid, dtype=torch.bool)
+    head[1:] = sid[1:] != sid[:-1]
+    start = torch.cummax(torch.where(head, pos, torch.zeros_like(pos)), 0).values
+    # only the spare id's run can exceed b slots; its values are all 0
+    rank = torch.clamp_max(pos - start, b - 1)
+    table = torch.zeros((sid.shape[0], b), dtype=vals.dtype, device=dev)
+    table[start, rank] = sv
+    out = torch.zeros(n + 1, dtype=vals.dtype, device=dev)
+    out[torch.where(head, sid, torch.full_like(sid, n))] = table.sum(dim=1)
+    return out[:n]
+
+
 def apply_candidates_batched(cfg: AcaiConfig, cfg_up: AcaiConfig,
-                             state: CacheState, batch: int, ids, d, valid, u=None):
+                             state: CacheState, batch: int, ids, d, valid, u=None,
+                             alive=None):
     """Serve + update tail of a mini-batch step on a candidate slab
     (ids, d, valid) of shape (B, C).  `u` holds the step's N rounding
-    uniforms (drawn from the state's generator when None)."""
+    uniforms (drawn from the state's generator when None).  `alive` (N,)
+    bool, on a mutable catalog, keeps y = 0 on dead rows after the OMA
+    step (the projection's floor would give them mass again)."""
     n = state.y.shape[0]
     ids_c = torch.clamp_max(ids, n - 1)
     zero = torch.zeros((), dtype=state.y.dtype, device=state.y.device)
@@ -182,12 +244,11 @@ def apply_candidates_batched(cfg: AcaiConfig, cfg_up: AcaiConfig,
     served = gain_lib.serve_batch(d, x_cand, cfg.k, cfg.c_f)
     gain_frac, g_cand = gain_lib.gain_and_subgradient_batch(d, y_cand, cfg.k, cfg.c_f)
 
-    # the reference's .at[].add scatter; on CUDA index_add_ sums the
-    # duplicates of a batch with atomics, in an order that changes from
-    # run to run, so g_full (and y) agree to float tolerance only
-    g_full = torch.zeros_like(state.y).index_add_(
-        0, ids_c.reshape(-1), torch.where(valid, g_cand, zero).reshape(-1) / batch)
+    # the reference's .at[].add scatter, in a fixed order (scatter_rows_sum)
+    g_full = scatter_rows_sum(n, ids_c, g_cand / batch, valid)
     y_new = oma_lib.oma_update(state.y, g_full, cfg.h, cfg_up.oma)
+    if alive is not None:
+        y_new = torch.where(alive, y_new, zero)
     if u is None:
         u = draw_uniforms(state)
     return finish_step_batched(
@@ -219,12 +280,26 @@ def _concat_metrics(ms) -> StepMetrics:
                          for f in zip(*ms)))
 
 
-def make_replay_batched(cfg: AcaiConfig, candidate_fn_batched: Callable, batch: int,
-                        eta_scale: float | None = None) -> Callable:
-    """Whole-trace replay: (state, requests (T, d), uniforms=None) ->
-    (state', StepMetrics (T,)).  T must divide by `batch`; `uniforms`, when
-    given, holds one row of rounding uniforms per step, (T / batch, N)."""
-    step = make_step_batched(cfg, candidate_fn_batched, batch, eta_scale)
+def make_mutable_step(cfg: AcaiConfig, batch: int,
+                      eta_scale: float | None = None) -> Callable:
+    """The mutable catalog's tail: (state, ids, d, valid, alive, u=None) ->
+    (state', StepMetrics (B,)).  The candidate slab is built by the caller
+    against the live structures; `alive` is the slab's liveness.  With
+    every row alive the state advances as `make_step_batched`'s."""
+    cfg_up = scaled_config(cfg, batch, eta_scale)
+
+    def step(state: CacheState, ids, d, valid, alive, u=None):
+        return apply_candidates_batched(cfg, cfg_up, state, batch, ids, d, valid, u=u,
+                                        alive=alive)
+
+    return step
+
+
+def make_replay_from_step(step: Callable, batch: int) -> Callable:
+    """A mini-batch step ((state, rs (B, d), u) -> (state', metrics (B,)))
+    as a whole-trace replay: (state, requests (T, d), uniforms=None) ->
+    (state', StepMetrics (T,)).  T must divide by `batch`; `uniforms`,
+    when given, holds one row of rounding uniforms per step."""
 
     def replay(state: CacheState, requests: torch.Tensor, uniforms=None):
         t = requests.shape[0]
@@ -238,6 +313,15 @@ def make_replay_batched(cfg: AcaiConfig, candidate_fn_batched: Callable, batch: 
         return state, _concat_metrics(ms)
 
     return replay
+
+
+def make_replay_batched(cfg: AcaiConfig, candidate_fn_batched: Callable, batch: int,
+                        eta_scale: float | None = None) -> Callable:
+    """Whole-trace replay: (state, requests (T, d), uniforms=None) ->
+    (state', StepMetrics (T,)).  T must divide by `batch`; `uniforms`, when
+    given, holds one row of rounding uniforms per step, (T / batch, N)."""
+    return make_replay_from_step(
+        make_step_batched(cfg, candidate_fn_batched, batch, eta_scale), batch)
 
 
 def make_step(cfg: AcaiConfig, candidate_fn_batched: Callable) -> Callable:
@@ -308,11 +392,12 @@ class AcaiCache:
     wires it in with `index_candidate_fn_batched`; None gives exact
     candidates.  The escape hatches `candidate_fn` (per request) and
     `candidate_fn_batched` override the spec-built generator (passing one
-    beside `cfg.index` warns, as in the reference).  Static catalog only:
-    the mesh, remote-backend, answer-cache and mutation surfaces of the
-    reference raise NotImplementedError naming the ROADMAP item that ports
-    them.  `state` starts the cache from a given CacheState (it must lie
-    on `device`) instead of running `init_state`."""
+    beside `cfg.index` warns, as in the reference).  The catalog mutates
+    online (`add_objects`, `remove_objects`, `refresh*`, `compact`); the
+    mesh, remote-backend and answer-cache surfaces of the reference raise
+    NotImplementedError naming the ROADMAP item that ports them.  `state`
+    starts the cache from a given CacheState (it must lie on `device`)
+    instead of running `init_state`."""
 
     def __init__(self, catalog, cfg, seed: int = 0, device=None,
                  state: CacheState | None = None, mesh=None, remote=None,
@@ -351,7 +436,15 @@ class AcaiCache:
             self.device).contiguous()
         n = self.catalog.shape[0]
         self.index = None  # the spec-built index (None: exact or escape hatch)
+        # mutable-catalog bookkeeping: the cache serves the static step
+        # until the first mutation, then the mutable one (make_mutable_step)
+        self.valid = torch.ones(n, dtype=torch.bool, device=self.device)
+        self._live = self._n_slots = n
+        self._mutated = False
+        self._mut_fn: Callable | None = None
+        self._mut_steps: dict[int, Callable] = {}
         explicit = candidate_fn is not None or candidate_fn_batched is not None
+        self._custom_fn = explicit
         if explicit and cfg.index is not None:
             import warnings
 
@@ -388,22 +481,146 @@ class AcaiCache:
         """Serve a request mini-batch (B, d): one OMA + rounding update for
         the whole batch, per-request StepMetrics (B,).  `u` optionally
         injects the step's N rounding uniforms."""
-        rs = torch.atleast_2d(torch.as_tensor(rs, dtype=torch.float32)).to(self.device)
+        rs = torch.atleast_2d(torch.as_tensor(rs, dtype=torch.float32)).to(
+            self.device).contiguous()
         check_finite_queries(rs, "AcaiCache.serve_update_batch")
         b = rs.shape[0]
+        if self._mutated:
+            ids, d, valid = self._mut_fn(rs, self.state.x)
+            step = self._mut_steps.get(b)
+            if step is None:
+                step = self._mut_steps[b] = make_mutable_step(self.cfg, b)
+            self.state, metrics = step(self.state, ids, d, valid, self.valid, u)
+            return metrics
         step = self._bsteps.get(b)
         if step is None:
             step = make_step_batched(self.cfg, self._fn_batched, b)
             self._bsteps[b] = step
-        self.state, metrics = step(self.state, rs.contiguous(), u)
+        self.state, metrics = step(self.state, rs, u)
         return metrics
 
-    def _mutation(self, *_args, **_kw):
-        raise NotImplementedError(_NOT_PORTED.format(
-            item=8, what="online catalog mutation"))
+    # -- online catalog mutation ----------------------------------------------
 
-    add_objects = remove_objects = refresh = refresh_start = refresh_swap = \
-        compact = _mutation
+    def _check_mutable_supported(self) -> None:
+        """Reject mutation where the cache cannot serve it, before anything
+        changes (a mesh never gets this far: the constructor raises, A11)."""
+        if not self._mutated and self._custom_fn:
+            raise ValueError(
+                "AcaiCache was built with an explicit candidate_fn*: the cache "
+                "cannot rebuild a custom generator after catalog mutation — drop "
+                "the escape hatch or rebuild the cache")
+
+    def _enter_mutable(self) -> None:
+        """Switch to the mutable serving step after the first mutation."""
+        if self._mutated:
+            return
+        if self.index is not None:
+            from repro_torch.index.candidates import mutable_index_candidate_fn
+
+            self._mut_fn = mutable_index_candidate_fn(
+                self.index, self.cfg.c_remote, self.cfg.c_local, h=self.cfg.h)
+        else:
+            def exact(rs, x):
+                return exact_mutable_candidates(rs, x, self.catalog, self.valid,
+                                                self.cfg.c_remote, self.cfg.c_local)
+
+            self._mut_fn = exact
+        self._mutated = True
+
+    def _sync_capacity(self, new_ids: np.ndarray) -> None:
+        """Grow y and x to the slab's (possibly doubled) capacity and admit
+        the new rows at the uniform prior min(1, h / live) (Alg. 1's y_1 for
+        the object; the next projection renormalises)."""
+        cap = self.catalog.shape[0]
+        y, x = self.state.y, self.state.x
+        if y.shape[0] != cap:
+            y, x = grow_rows(y, cap), grow_rows(x, cap)
+        prior = min(1.0, self.cfg.h / max(self._live, 1))
+        idx = torch.from_numpy(new_ids.astype(np.int64)).to(self.device)
+        run_device(lambda t, i: t.index_fill_(0, i, prior), y, idx)
+        self.state = CacheState(y, x, self.state.t, self.state.gen)
+
+    def add_objects(self, vectors) -> np.ndarray:
+        """Admit new catalog objects online: append them to the slab (and to
+        the index's structures), grow the state, seed the new rows with the
+        uniform prior.  Returns their ids (monotonic, never recycled)."""
+        self._check_mutable_supported()
+        vectors = torch.atleast_2d(torch.as_tensor(vectors, dtype=torch.float32)).to(
+            self.device)
+        if self.index is not None:
+            ids = self.index.add(vectors)
+            self.catalog, self.valid = self.index.embeddings, self.index.valid
+        else:
+            self.catalog, self.valid, ids = slab_append(self.catalog, self.valid,
+                                                        self._n_slots, vectors)
+        self._n_slots += len(ids)
+        self._live += len(ids)
+        self._sync_capacity(ids)
+        self._enter_mutable()
+        return ids
+
+    def remove_objects(self, ids) -> None:
+        """Drop catalog objects online: tombstone them and zero their y and
+        x (a removed object is never served nor fetched, and frees its
+        slot at once; the mutable step keeps the rows at zero)."""
+        self._check_mutable_supported()
+        if self.index is not None:
+            self.index.remove(ids)
+            ids = np.atleast_1d(np.asarray(ids, np.int32))
+            self.valid = self.index.valid
+        else:
+            ids = check_removable(ids, self._n_slots, self.valid, "remove_objects")
+            if len(ids):
+                idx = torch.from_numpy(ids.astype(np.int64)).to(self.device)
+                run_device(lambda v, i: v.index_fill_(0, i, False), self.valid, idx)
+        self._live -= len(ids)
+        self._enter_mutable()
+        idx = torch.from_numpy(ids.astype(np.int64)).to(self.device)
+        run_device(lambda y, x, i: (y.index_fill_(0, i, 0.0), x.index_fill_(0, i, 0.0)),
+                   self.state.y, self.state.x, idx)
+
+    def refresh(self) -> None:
+        """Rebuild the index's structures over the live rows (a no-op for
+        exact candidates, whose masked scan never drifts)."""
+        if self.index is not None and self._mutated:
+            self.index.refresh()
+
+    def refresh_start(self) -> None:
+        """Phase 1 of the two-phase refresh: the shadow rebuild."""
+        if self.index is not None and self._mutated:
+            self.index.refresh_start()
+
+    def refresh_swap(self) -> None:
+        """Phase 2: install the shadow (the only serving-visible stall)."""
+        if self.index is not None and self._mutated:
+            self.index.refresh_swap()
+
+    def compact(self) -> np.ndarray:
+        """Epoch compaction: drop the tombstoned rows, shrink the slab to the
+        live rows (`compact_rows`' capacity), renumber them in ascending
+        order; y and x move with their rows.  Returns the (old capacity,)
+        int32 remap (new id, -1 for dead rows) for every other id holder."""
+        self._check_mutable_supported()
+        live, remap = live_remap(self.valid)
+        if self.index is not None:
+            remap = self.index.compact()
+            self.catalog, self.valid = self.index.embeddings, self.index.valid
+        else:
+            self.catalog, self.valid = compact_rows(self.catalog, live)
+        self._n_slots = self._live
+        cap, n_live = self.catalog.shape[0], live.shape[0]
+        # the remap keeps the order, so the live rows move to [0, n_live)
+        y = torch.zeros(cap, dtype=self.state.y.dtype, device=self.device)
+        x = torch.zeros(cap, dtype=self.state.x.dtype, device=self.device)
+        y[:n_live], x[:n_live] = self.state.y[live], self.state.x[live]
+        self.state = CacheState(y, x, self.state.t, self.state.gen)
+        self._enter_mutable()
+        return remap
+
+    @property
+    def live_count(self) -> int:
+        """Live (non-tombstoned) catalog objects."""
+        return self._live
 
     def attach_remote(self, *_args, **_kw):
         raise NotImplementedError(_NOT_PORTED.format(

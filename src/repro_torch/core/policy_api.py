@@ -29,8 +29,9 @@ down:
   (`repro_torch.core.baselines.KeyValueCache.step_batch`).
 
 Not ported yet, each raising NotImplementedError naming its ROADMAP item:
-`mesh=` (A11), `answer_cache=` and `replay_trace_online` (A9), and AÇAI's
-catalog mutation (A8; the baselines' mutation surface is ported).
+`mesh=` (A11), `answer_cache=` and `replay_trace_online` (A9).  Every
+policy's catalog mutates online (`add_objects`, `remove_objects`,
+`refresh`, `compact`; the churn replay is `repro_torch.core.churn`).
 """
 
 from __future__ import annotations
@@ -68,7 +69,8 @@ class CachePolicy(Protocol):
     * `k`, `c_f`, `h` — the cost-model / capacity knobs.
     * `normalized_gain(total_gain, t) -> float` — NAG, Eq. (11).
     * `add_objects` / `remove_objects` / `refresh` — online catalog
-      mutation (the baselines'; AÇAI's raises, ROADMAP A8).
+      mutation (monotonic ids, never recycled; a removed object is never
+      served again; `refresh` rebuilds approximate structures).
 
     Optional: `replay(reqs (T, d), ts) -> dict` — whole-trace replay
     (`replay_trace` dispatches to it)."""
@@ -315,7 +317,12 @@ class AcaiPolicy:
     def serve_update(self, r, t=None, u=None) -> StepMetrics:
         return self.cache.serve_update(r, u)
 
-    # -- online catalog mutation: AcaiCache raises (ROADMAP A8) ----------
+    # -- online catalog mutation (delegates to AcaiCache) -----------------
+
+    @property
+    def live_count(self) -> int:
+        """Live (non-tombstoned) catalog objects."""
+        return self.cache.live_count
 
     def add_objects(self, vectors):
         return self.cache.add_objects(vectors)
@@ -339,6 +346,12 @@ class AcaiPolicy:
         return self.cache.normalized_gain(total_gain, t)
 
     def replay(self, reqs, ts=None, time_reps: int = 5, uniforms=None) -> dict:
+        if self.cache._mutated:
+            # the batched replay closes over the static structures; a
+            # mutated cache replays through its own steps
+            if uniforms is not None:
+                raise TypeError("a mutated AcaiPolicy replays without injected uniforms")
+            return replay_trace_steps(self, reqs, ts, batch=self.batch)
         dev = self.cache.device
         reqs = torch.as_tensor(reqs, dtype=torch.float32).to(dev).contiguous()
         t, b = reqs.shape[0], self.batch

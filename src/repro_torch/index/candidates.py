@@ -1,11 +1,15 @@
-"""Candidate-set builder wiring an ANN index into the AÇAI policy (port of
-`repro.index.candidates`, static catalog).
+"""Candidate-set generators wiring an ANN index into the AÇAI policy (port of
+`repro.index.candidates`).
 
 Remote candidates come from the remote-catalog index (with one exact
 re-rank through the fused `ivf_scan` kernel for indexes whose distances
 are approximate).  Local candidates are a top-k over only the cached rows:
 x becomes an id list, those rows are gathered once for the whole batch,
 and a (B, cap) `pairwise_l2` scan picks the candidates.
+
+On a mutable catalog (`mutable_index_candidate_fn`) the generator reads
+the index's slab, mask and capacity at every call, the re-rank folds
+tombstones to -1 slots, and the local side skips dead cached rows.
 """
 
 from __future__ import annotations
@@ -28,6 +32,62 @@ def _local_cap(n: int, c_local: int, h: int | None) -> int:
     return min(n, max(8 * c_local, 512))
 
 
+def _remote_slab(rs, catalog, d_remote, ids_remote, c_remote: int, rerank: bool,
+                 alive=None):
+    """The remote candidates as (ids (B, c_remote) int64, d): one exact
+    re-rank through the fused `ivf_scan` kernel for approximate indexes
+    (tombstones folded to -1 there), dead ids dropped otherwise; a miss
+    becomes id n, BIG_COST."""
+    n = catalog.shape[0]
+    if rerank:
+        d_remote, ids_remote = ops.ivf_scan_topk(
+            rs, catalog, ids_remote.to(torch.int32).contiguous(), c_remote, valid=alive)
+    elif alive is not None:
+        # the index masks tombstones itself; kept for indexes that do not
+        safe = torch.clamp(ids_remote.long(), 0, n - 1)
+        dead = (ids_remote >= 0) & ~alive[safe]
+        ids_remote = torch.where(dead, torch.full_like(ids_remote, -1), ids_remote)
+        d_remote = torch.where(dead, torch.full_like(d_remote, float("inf")), d_remote)
+    ids_remote = ids_remote.long()
+    rmiss = ids_remote < 0
+    ids_remote = torch.where(rmiss, torch.full_like(ids_remote, n), ids_remote)
+    d_remote = torch.where(rmiss, torch.full_like(d_remote, BIG_COST), d_remote)
+    return ids_remote, d_remote
+
+
+def _local_slab(rs, x, catalog, cap: int, c_local: int, alive=None):
+    """The cached rows' candidates (ids (B, c_local) int64, d): the rows x
+    holds gathered once for the whole batch (at most `cap`, the lowest ids
+    first) and scanned by one (B, cap) `pairwise_l2` launch; with `alive`,
+    dead rows are skipped.  A miss becomes id n, BIG_COST.  torch.nonzero
+    has a data-dependent size, so it reads the count back to the host (one
+    sync a step, where the reference pads inside the trace)."""
+    n = catalog.shape[0]
+    cached = torch.nonzero(x > 0.5).flatten()[:cap]
+    cached = torch.cat([cached, cached.new_full((cap - cached.shape[0],), -1)])
+    safe = torch.clamp_min(cached, 0)
+    cached_embs = catalog[safe].contiguous()                           # (cap, d)
+    d_loc = ops.pairwise_l2(rs, cached_embs)                          # (B, cap)
+    ok = cached >= 0
+    if alive is not None:
+        ok = ok & alive[safe]
+    d_loc = torch.where(ok[None, :], d_loc, torch.full_like(d_loc, float("inf")))
+    d_local, pos = smallest_k(d_loc, c_local)
+    ids_local = torch.where(torch.isfinite(d_local), cached[pos], torch.full_like(pos, -1))
+    lmiss = ids_local < 0
+    ids_local = torch.where(lmiss, torch.full_like(ids_local, n), ids_local)
+    d_local = torch.where(lmiss, torch.full_like(d_local, BIG_COST), d_local)
+    return ids_local, d_local
+
+
+def _assemble(ids_remote, d_remote, ids_local, d_local, n: int):
+    ids = torch.cat([ids_remote, ids_local], dim=1)
+    d = torch.cat([d_remote, d_local], dim=1)
+    valid = dedup_mask_batched(ids, n)
+    d = torch.where(valid, d, torch.full_like(d, BIG_COST))
+    return ids, d, valid
+
+
 def index_candidate_fn_batched(index, catalog: torch.Tensor, c_remote: int,
                                c_local: int, h: int | None = None):
     """Build fn(rs (B, d), x (N,)) -> (ids (B, C), dists (B, C), valid (B, C))
@@ -41,36 +101,28 @@ def index_candidate_fn_batched(index, catalog: torch.Tensor, c_remote: int,
     def fn(rs: torch.Tensor, x: torch.Tensor):
         rs = rs.contiguous()
         d_remote, ids_remote = index.query(rs, c_remote)       # (B, c_remote)
-        if rerank:
-            # single exact re-rank of the retrieved ids; -1 misses stay -1
-            d_remote, ids_remote = ops.ivf_scan_topk(
-                rs, catalog, ids_remote.to(torch.int32).contiguous(), c_remote)
-        ids_remote = ids_remote.long()
-        rmiss = ids_remote < 0
-        ids_remote = torch.where(rmiss, torch.full_like(ids_remote, n), ids_remote)
-        d_remote = torch.where(rmiss, torch.full_like(d_remote, BIG_COST), d_remote)
+        remote = _remote_slab(rs, catalog, d_remote, ids_remote, c_remote, rerank)
+        return _assemble(*remote, *_local_slab(rs, x, catalog, cap, c_local), n)
 
-        # local side: the cached rows gathered once for the whole batch.
-        # torch.nonzero has a data-dependent size, so it reads the count
-        # back to the host (one sync per step, where the reference pads
-        # inside the trace with nonzero(size=cap, fill_value=-1))
-        cached = torch.nonzero(x > 0.5).flatten()[:cap]
-        cached = torch.cat([cached, cached.new_full((cap - cached.shape[0],), -1)])
-        cached_embs = catalog[torch.clamp_min(cached, 0)].contiguous()   # (cap, d)
-        d_loc = ops.pairwise_l2(rs, cached_embs)                          # (B, cap)
-        d_loc = torch.where((cached >= 0)[None, :], d_loc,
-                            torch.full_like(d_loc, float("inf")))
-        d_local, pos = smallest_k(d_loc, c_local)
-        ids_local = torch.where(torch.isfinite(d_local), cached[pos],
-                                torch.full_like(pos, -1))
-        lmiss = ids_local < 0
-        ids_local = torch.where(lmiss, torch.full_like(ids_local, n), ids_local)
-        d_local = torch.where(lmiss, torch.full_like(d_local, BIG_COST), d_local)
+    return fn
 
-        ids = torch.cat([ids_remote, ids_local], dim=1)
-        d = torch.cat([d_remote, d_local], dim=1)
-        valid = dedup_mask_batched(ids, n)
-        d = torch.where(valid, d, torch.full_like(d, BIG_COST))
-        return ids, d, valid
+
+def mutable_index_candidate_fn(index, c_remote: int, c_local: int,
+                               h: int | None = None):
+    """The candidate generator over a mutable index: the same slab as
+    `index_candidate_fn_batched`, with the index's current slab
+    (`embeddings`, N = its capacity) and mask (`valid`) read at every call,
+    so it follows adds, removes, refreshes, growth and compaction.
+    Tombstoned rows resolve to invalid slots on both sides."""
+    rerank = not getattr(index, "exact_distances", False)
+
+    def fn(rs: torch.Tensor, x: torch.Tensor):
+        rs = rs.contiguous()
+        d_remote, ids_remote = index.query(rs, c_remote)
+        catalog, alive = index.embeddings, index.valid
+        remote = _remote_slab(rs, catalog, d_remote, ids_remote, c_remote, rerank, alive)
+        cap = _local_cap(index.capacity, c_local, h)
+        return _assemble(*remote, *_local_slab(rs, x, catalog, cap, c_local, alive),
+                         catalog.shape[0])
 
     return fn

@@ -1,6 +1,5 @@
 """NSW graph index: a fixed-width, fixed-step batched beam search over a
-dense (N, degree) neighbour table (port of `repro.index.nsw`, static
-catalog).
+dense (N, degree) neighbour table (port of `repro.index.nsw`).
 
 The graph is built in numpy exactly as the reference builds it (exact kNN
 plus random long-range shortcuts), so it is bitwise the reference's.  The
@@ -10,6 +9,14 @@ search is plain PyTorch with no kernel of its own: every step expands the
 neighbours by difference, drops repeated ids and keeps the best `beam`.
 Every selection is a stable sort, so ties go to the lowest position as
 `lax.top_k` sends them.
+
+Mutable catalog: `add` is the classic incremental NSW insertion (the new
+node's out-edges are its beam-search kNN over the graph as it stands plus
+random shortcuts to live nodes; `_REV_LINKS` of its neighbours each give
+one edge slot back), with the reference's numpy generator
+(`default_rng(seed + 1)`), so the graph equals the reference's edge for
+edge.  `remove` tombstones: dead nodes keep routing the beam but score
++inf; `refresh` rebuilds the graph and entry points over the live rows.
 """
 
 from __future__ import annotations
@@ -18,7 +25,8 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.index.base import arrays_bytes, check_finite_queries
+from repro_torch.index.base import (MutableRows, arrays_bytes, check_finite_queries,
+                                    default_init_fn, grow_rows, run_device)
 from repro_torch.index.kmeans import kmeans
 from repro_torch.index.lsh import dedup_to_minus_one
 from repro_torch.kernels import ops
@@ -51,8 +59,10 @@ def _sq_dist(emb: torch.Tensor, ids: torch.Tensor, q: torch.Tensor) -> torch.Ten
 
 
 def _nsw_query(q, emb, graph, entry_points, k: int, beam: int, steps: int,
-               expand: int):
-    """(B, d) -> (dists (B, k), ids (B, k) int32); ids = -1 on underflow."""
+               expand: int, valid=None):
+    """(B, d) -> (dists (B, k), ids (B, k) int32); ids = -1 on underflow.
+    With `valid`, dead nodes keep routing (their edges stay) but score
+    +inf, so they are expanded last and never surface."""
     b = q.shape[0]
     deg = graph.shape[1]
     inf = float("inf")
@@ -61,14 +71,20 @@ def _nsw_query(q, emb, graph, entry_points, k: int, beam: int, steps: int,
     ids = seeds[None, :].expand(b, beam)
     # seeds past the entry points repeat them: never expand them
     dup0 = torch.arange(beam, device=q.device) >= nentry
-    dist = torch.where(dup0[None, :], inf, _sq_dist(emb, ids, q))
+    dist = _sq_dist(emb, ids, q)
+    if valid is not None:
+        dist = torch.where(valid[seeds][None, :], dist, inf)
+    dist = torch.where(dup0[None, :], inf, dist)
     exp = dup0[None, :].expand(b, beam)
     for _ in range(steps):
         sel = smallest_k(torch.where(exp, inf, dist), expand)[1]   # (B, e)
         exp = exp.scatter(1, sel, True)
         nbrs = graph[torch.gather(ids, 1, sel)].reshape(b, expand * deg).long()
         all_ids = torch.cat([ids, nbrs], dim=1)
-        all_d = torch.cat([dist, _sq_dist(emb, nbrs, q)], dim=1)
+        nd = _sq_dist(emb, nbrs, q)
+        if valid is not None:
+            nd = torch.where(valid[nbrs], nd, inf)
+        all_d = torch.cat([dist, nd], dim=1)
         all_exp = torch.cat([exp, torch.zeros_like(nbrs, dtype=torch.bool)], dim=1)
         # a repeated id keeps its first occurrence; the rest go to +inf
         all_d = torch.where(dedup_to_minus_one(all_ids) < 0, inf, all_d)
@@ -86,50 +102,110 @@ def _nsw_query(q, emb, graph, entry_points, k: int, beam: int, steps: int,
     return out_d, out_ids.to(torch.int32)
 
 
-class NSWIndex:
+class NSWIndex(MutableRows):
     exact_distances = True  # candidates scored with exact L2
+    # answer-cache capability flags, as the reference sets them: insertion
+    # rewires existing nodes' edges and the first tombstone switches the
+    # beam's masking on (the answer-cache tier is ROADMAP A9)
+    answer_unstable_add = True
+    answer_unstable_remove = True
+    # how many of a new node's neighbours give one edge slot back to it
+    _REV_LINKS = 2
 
     def __init__(self, embeddings, degree: int = 16, beam: int = 32,
                  steps: int = 12, expand: int = 2, seed: int = 0, *,
-                 graph=None, entry_points=None, init_idx=None, device=None):
+                 graph=None, entry_points=None, init_idx=None, init_fn=None,
+                 device=None):
         """Build the graph (numpy, seeded with `seed`) and the entry
         points: the catalog rows nearest to the min(beam, n) centroids of
-        a 12-iteration k-means whose initial rows are `init_idx` (the
-        reference draws them with `jax.random.choice(PRNGKey(seed))`) or
-        come from a CPU generator seeded with `seed`.  Or take a prebuilt
-        `graph` (n, degree) and `entry_points` — how a reference-built
-        index is loaded."""
+        a 12-iteration k-means whose initial rows are `init_idx` (first
+        build) or `init_fn(n, k)` (every build; the reference draws them
+        with `jax.random.choice(PRNGKey(seed))`), by default from a CPU
+        generator seeded with `seed`.  Or take a prebuilt `graph`
+        (capacity, degree) and `entry_points` — how a reference-built index
+        is loaded."""
         if (graph is None) != (entry_points is None):
             raise ValueError("pass both graph and entry_points, or neither")
         self.device = resolve_device(device)
-        self.embeddings = torch.atleast_2d(torch.as_tensor(
-            embeddings, dtype=torch.float32)).to(self.device).contiguous()
-        self.beam, self.steps = beam, steps
+        self._init_rows(embeddings, self.device)
+        self.beam, self.steps, self.degree = beam, steps, degree
         self.expand = max(1, min(expand, beam))
+        self.seed = seed
+        self.init_fn = init_fn if init_fn is not None else default_init_fn(seed)
+        self._rng = np.random.default_rng(seed + 1)  # insertion randomness
         if graph is None:
-            n = self.embeddings.shape[0]
-            graph = build_nsw_graph(self.embeddings.cpu().numpy(), degree, seed=seed)
-            nentry = min(beam, n)
-            if init_idx is None:
-                gen = torch.Generator().manual_seed(seed)
-                init_idx = torch.randperm(n, generator=gen)[:nentry]
-            cents, _ = kmeans(self.embeddings, nentry, init_idx=init_idx)
-            entry_points = torch.argmin(ops.pairwise_l2(cents, self.embeddings), dim=1)
-        self.graph = torch.as_tensor(np.asarray(graph, np.int32)).to(
-            self.device).contiguous()
-        self.entry_points = torch.as_tensor(entry_points).to(
-            device=self.device, dtype=torch.int32)
+            self._install_structures(self._compute_structures(init_idx))
+        else:
+            self._install_structures((np.asarray(graph, np.int32),
+                                      torch.as_tensor(np.asarray(entry_points))))
+
+    def _compute_structures(self, init_idx=None):
+        """Graph and entry points over the live rows, ids remapped to slab
+        rows (unused and dead rows get zero rows: unreachable).  Pure."""
+        live = self.live_rows()
+        emb_live = self._live_embeddings(live)
+        graph_live = build_nsw_graph(emb_live.cpu().numpy(), self.degree, seed=self.seed)
+        graph = np.zeros((self.capacity, self.degree), np.int32)
+        graph[live] = live[graph_live]
+        nentry = min(self.beam, len(live))
+        if init_idx is None:
+            init_idx = self.init_fn(len(live), nentry)
+        cents, _ = kmeans(emb_live, nentry, init_idx=init_idx)
+        near = torch.argmin(ops.pairwise_l2(cents, emb_live), dim=1).cpu().numpy()
+        return graph, torch.from_numpy(live[near])
+
+    def _install_structures(self, structures) -> None:
+        graph, entry_points = structures
+        self.graph = torch.from_numpy(np.ascontiguousarray(graph, np.int32)).to(self.device)
+        self.entry_points = entry_points.to(device=self.device, dtype=torch.int32)
         self.degree = int(self.graph.shape[1])
 
-    @property
-    def n(self) -> int:
-        return int(self.embeddings.shape[0])
+    def add(self, vectors) -> np.ndarray:
+        """Incremental insertion, one batch against the graph as it stands
+        (the batch's nodes are not linked to each other): out-edges are the
+        beam-search kNN plus random live shortcuts, and `_REV_LINKS`
+        neighbours each give one slot back.  Rows are written in place."""
+        vectors = torch.atleast_2d(torch.as_tensor(vectors, dtype=torch.float32)).to(
+            self.device)
+        live_before = self.live_rows()
+        knn = min(self.degree - 2, max(len(live_before) - 1, 1))
+        nbr = self.query(vectors, knn)[1].cpu().numpy()                 # (B, knn)
+        ids = self._append_rows(vectors)
+        if self.graph.shape[0] < self.capacity:  # the slab grew
+            self.graph = grow_rows(self.graph, self.capacity)
+        rows = np.zeros((len(ids), self.degree), np.int32)
+        rev = {}  # reverse links, flat slot -> new node; a later write wins
+        for row, (i, nb) in enumerate(zip(ids, nbr)):
+            nb = nb[nb >= 0]
+            if len(nb) == 0:  # the first node ever: self-loops
+                rows[row] = i
+                continue
+            out = np.full((self.degree,), i, np.int32)
+            out[:len(nb)] = nb
+            n_short = self.degree - len(nb)
+            if n_short > 0 and len(live_before):
+                out[len(nb):] = self._rng.choice(live_before, size=n_short)
+            rows[row] = out
+            for j in nb[:self._REV_LINKS]:
+                slot = int(self._rng.integers(self.degree))
+                rev[int(j) * self.degree + slot] = int(i)
+        start = int(ids[0])
+        run_device(lambda g, r: g[start:start + r.shape[0]].copy_(r), self.graph,
+                   torch.from_numpy(rows).to(self.device))
+        if rev:
+            flat = torch.tensor(list(rev), dtype=torch.long, device=self.device)
+            vals = torch.tensor(list(rev.values()), dtype=torch.int32, device=self.device)
+            run_device(lambda g, f, v: g.view(-1).index_copy_(0, f, v), self.graph, flat, vals)
+        return ids
 
     def memory_bytes(self) -> int:
-        return arrays_bytes(self.embeddings, self.graph, self.entry_points)
+        return arrays_bytes(self.embeddings, self.graph, self.entry_points, self.valid)
 
     def query(self, q: torch.Tensor, k: int):
         q = torch.atleast_2d(q).contiguous()
         check_finite_queries(q, "NSWIndex.query")
+        # dead nodes keep routing until a refresh, so the mask is on from
+        # the first tombstone; rows past n_slots have no in-edges
         return _nsw_query(q, self.embeddings, self.graph, self.entry_points, k,
-                          self.beam, self.steps, self.expand)
+                          self.beam, self.steps, self.expand,
+                          self.valid if self.masked else None)

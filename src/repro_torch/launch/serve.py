@@ -20,6 +20,12 @@ reference's LM path:
   --catalog 0         skips the semantic tier
   --device cpu        run on the CPU (the card is the default)
 
+`--churn-rate R` mutates the semantic tier's catalog online, as the
+reference does: the tier starts on the first `--churn-warm` share of the
+catalog, and R insert + expire events a request (a rolling window) add the
+next row and drop the oldest one before the requests they precede
+(`SemanticCachedLM.add_documents` / `remove_documents`).
+
 `--policy` selects the semantic tier's cache policy through the policy
 registry (AÇAI by default, or a baseline, e.g. `--policy sim_lru
 --policy-opt k_prime=8 --policy-opt augmented=true`); a baseline serves
@@ -34,8 +40,8 @@ draws a random catalog and fresh random prompts instead: no prompt lies
 near any object there, so every request is served from the store and
 nothing generates.
 
-The reference's other flags (churn, answer cache, resilient remote
-tier, online arrivals, mesh) are ROADMAP A8, A9 and A11.  `main(argv)`
+The reference's other flags (answer cache, resilient remote tier, online
+arrivals) are ROADMAP A9; `--mesh-shards` above 1 raises naming A11.  `main(argv)`
 prints one line a tier and returns the figures as a dict.
 """
 
@@ -193,19 +199,43 @@ def run_semantic(params, cfg, args, rng, device, index_spec, policy_spec) -> dic
                         s_max=s_max)
 
     gen_timer = _Timer(gen_fn, device)
+    # under churn the tier starts on the warm prefix and the rest streams in
+    n_warm = (max(int(round(args.churn_warm * args.catalog)), 1) if args.churn_rate > 0
+              else args.catalog)
     t0 = time.perf_counter()
-    lm = SemanticCachedLM(params, cfg, catalog, payloads, gen_timer,
+    lm = SemanticCachedLM(params, cfg, catalog[:n_warm], payloads[:n_warm], gen_timer,
                           h=args.cache_size, k=4, index_spec=index_spec,
                           policy_spec=policy_spec)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     build_s = time.perf_counter() - t0
-    del catalog
+    churn = {"insert": n_warm, "expire": 0, "acc": 0.0, "events": 0, "seconds": 0.0}
+
+    def churn_before(n_requests: int) -> None:
+        """The rolling window's events due before the next n_requests:
+        each adds the next catalog row and expires the oldest live one."""
+        t_m = time.perf_counter()
+        for _ in range(n_requests):
+            churn["acc"] += args.churn_rate
+            while churn["acc"] >= 1.0 and churn["insert"] < args.catalog:
+                i = churn["insert"]
+                lm.add_documents(catalog[i][None], [payloads[i]])
+                lm.remove_documents([churn["expire"]])
+                churn["insert"] += 1
+                churn["expire"] += 1
+                churn["events"] += 1
+                churn["acc"] -= 1.0
+        churn["seconds"] += time.perf_counter() - t_m
+
+    if args.churn_rate == 0:
+        del catalog
     t0 = time.perf_counter()
     for p in prompts[:args.requests]:
+        churn_before(1)
         lm.query(p)
     for j in range(args.query_batches):
         i0 = args.requests + j * args.batch
+        churn_before(args.batch)
         lm.query_batch(prompts[i0:i0 + args.batch])
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -220,10 +250,15 @@ def run_semantic(params, cfg, args, rng, device, index_spec, policy_spec) -> dic
            "build_s": build_s, "seconds": dt, "generate_seconds": gen_timer.seconds,
            "us_per_request": dt / s.requests * 1e6,
            "us_per_request_without_generation":
-               (dt - gen_timer.seconds) / s.requests * 1e6}
+               (dt - gen_timer.seconds) / s.requests * 1e6,
+           "churn_rate": args.churn_rate, "churn_events": churn["events"],
+           "mutation_s": churn["seconds"], "warm": n_warm}
     tier = f"policy={out['policy']}"
     if lm.policy_spec.name == "acai":
         tier += f", index={out['index']}"
+    if args.churn_rate > 0:
+        tier += (f", churn={args.churn_rate:g} ({churn['events']} insert/expire events, "
+                 f"{churn['seconds']:.3f} s)")
     print(f"semantic cache ({tier}, h={args.cache_size}, "
           f"catalog {args.catalog} x {cfg.d_model}): {s.requests} requests for "
           f"{out['distinct_objects']} objects, {s.served_local}/{out['objects']} "
@@ -257,11 +292,24 @@ def main(argv=None) -> dict:
     ap.add_argument("--policy-opt", action="append", default=[], metavar="KEY=VALUE",
                     help="policy spec param (repeatable), e.g. k_prime=8 "
                          "augmented=true")
+    ap.add_argument("--churn-rate", type=float, default=0.0,
+                    help="catalog churn: insert + expire events a request (a "
+                         "rolling window over the catalog; 0 = frozen catalog)")
+    ap.add_argument("--churn-warm", type=float, default=0.5,
+                    help="share of --catalog live at the start under churn (the "
+                         "rest is inserted over the run)")
+    ap.add_argument("--mesh-shards", type=int, default=1,
+                    help="model shards of the semantic tier (above 1: not ported)")
     ap.add_argument("--query-batches", type=int, default=0)
     ap.add_argument("--s-max", type=int, default=0)
     ap.add_argument("--device", default=None)
     args = ap.parse_args(argv)
 
+    if args.churn_rate < 0 or not 0.0 < args.churn_warm <= 1.0:
+        raise SystemExit("--churn-rate must be >= 0 and --churn-warm in (0, 1]")
+    if args.mesh_shards > 1:
+        raise SystemExit("--mesh-shards: the sharded semantic tier (and its mutable "
+                         "catalog) is not ported yet (ROADMAP A11)")
     try:
         policy_spec = PolicySpec(args.policy, parse_policy_opts(args.policy_opt))
     except ValueError as e:

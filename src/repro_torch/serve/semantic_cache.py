@@ -15,10 +15,10 @@ needed.
 The policy is one config knob (`policy_spec`): AÇAI by default, or any
 registered baseline (`sim_lru`, `qcache`, ...), which serves through an
 online `ServerOracle` (exact kNN a mini-batch, on the `l2_topk` kernel on
-the card).  Every policy speaks the `CachePolicy` step contract.  The mesh
-(ROADMAP A11), the remote and resilience tiers and the answer cache (A9)
-and catalog mutation (A8) are not ported and raise NotImplementedError
-naming their item.
+the card).  Every policy speaks the `CachePolicy` step contract, catalog
+mutation included (`add_documents`, `remove_documents`, `compact`).  The
+mesh (ROADMAP A11), the remote and resilience tiers and the answer cache
+(A9) are not ported and raise NotImplementedError naming their item.
 """
 
 from __future__ import annotations
@@ -153,11 +153,42 @@ class SemanticCachedLM:
                 _ = self.generate_fn(p)
         return m
 
-    def _mutation(self, *_args, **_kw):
-        raise NotImplementedError(_NOT_PORTED.format(
-            what="online catalog mutation", item=8))
+    # -- online catalog mutation ----------------------------------------------
 
-    add_documents = remove_documents = compact = _mutation
+    def add_documents(self, embeddings, payloads) -> list:
+        """Admit freshly computed results online: the policy's catalog (and
+        its index) learns the embeddings, the payload table grows with
+        them.  Returns the documents' ids (stable until a `compact`)."""
+        embeddings = torch.atleast_2d(torch.as_tensor(embeddings, dtype=torch.float32))
+        payloads = list(payloads)
+        if len(payloads) != embeddings.shape[0]:
+            raise ValueError(f"add_documents: {embeddings.shape[0]} embeddings but "
+                             f"{len(payloads)} payloads")
+        ids = [int(i) for i in self.policy.add_objects(embeddings.to(self.device))]
+        # ids are never recycled: pad the table up to the high-water mark
+        self.payloads.extend([None] * (max(ids) + 1 - len(self.payloads)))
+        for i, p in zip(ids, payloads):
+            self.payloads[i] = p
+        return ids
+
+    def remove_documents(self, ids) -> None:
+        """Expire documents online: tombstoned in the policy (never served
+        again, any cached copy dropped at once); their payload slots are
+        cleared, not reused, until a `compact` renumbers the table."""
+        self.policy.remove_objects(ids)
+        for i in ids:
+            self.payloads[int(i)] = None
+
+    def compact(self) -> None:
+        """Epoch compaction: the policy drops its tombstoned rows and
+        renumbers the rest; the payload table follows the same remap (ids
+        handed out before are invalidated)."""
+        remap = self.policy.compact()
+        new = [None] * int((remap >= 0).sum())
+        for old_id, new_id in enumerate(remap):
+            if new_id >= 0 and old_id < len(self.payloads):
+                new[int(new_id)] = self.payloads[old_id]
+        self.payloads = new
 
     @property
     def nag(self) -> float:

@@ -73,7 +73,7 @@ def test_lsh_planes_and_buckets_are_the_references(clustered, tables, bits, cap,
     np.testing.assert_array_equal(port.planes.numpy(), ref.planes)
     np.testing.assert_array_equal(port.buckets.numpy(), np.asarray(ref.buckets))
     assert port.memory_bytes() == int(port.embeddings.nbytes + port.buckets.nbytes
-                                      + port.planes.nbytes)
+                                      + port.planes.nbytes + port.valid.nbytes)
 
 
 @pytest.mark.parametrize("degree,beam,steps,seed", [(8, 16, 8, 0), (16, 48, 16, 1)])

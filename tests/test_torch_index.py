@@ -87,7 +87,7 @@ def test_kmeans_and_ivf_build_match_reference(clustered):
     port = TIVF(cat, nlist=12, nprobe=3, train_iters=4, init_idx=idx, device="cpu")
     np.testing.assert_array_equal(port.invlists.numpy(), np.asarray(ref.invlists))
     assert port.memory_bytes() == int(port.embeddings.nbytes + port.centroids.nbytes
-                                      + port.invlists.nbytes)
+                                      + port.invlists.nbytes + port.valid.nbytes)
 
 
 @pytest.mark.parametrize("seed,nlist,cap", [(0, 7, None), (1, 16, None), (2, 5, 30)])

@@ -171,8 +171,9 @@ def test_acai_cache_static_api():
     assert cache.cached_ids.numel() == int(cache.state.x.sum())
     assert 0.0 <= cache.normalized_gain(total, 16) <= 1.0
     assert cache.index is not None and cache.index.n == 400
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        cache.add_objects(np.zeros((1, 8), np.float32))
+    # the catalog mutates online (the parity tests: tests/test_torch_mutable.py)
+    assert cache.add_objects(np.zeros((1, 8), np.float32)).tolist() == [400]
+    assert cache.live_count == 401
     with pytest.raises(NotImplementedError, match="ROADMAP A11"):
         tpol.AcaiCache(cat, cfg, device="cpu", mesh=object())
     with pytest.raises(NotImplementedError, match="ROADMAP A9"):

@@ -282,8 +282,9 @@ def test_spec_errors(setup):
         build_policy(PolicySpec("acai", {"h": 8}), catalog, cm, answer_cache=8,
                      device="cpu")
     pol = build_policy(PolicySpec("acai", {"h": 8}), catalog, cm, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        pol.add_objects(catalog[:1])
+    # AÇAI's catalog mutates online (tests/test_torch_mutable.py)
+    assert pol.add_objects(catalog[:1]).tolist() == [catalog.shape[0]]
+    assert pol.live_count == catalog.shape[0] + 1
     with pytest.raises(NotImplementedError, match="ROADMAP A9"):
         PA.replay_trace_online(pol, catalog[:8], None)
 

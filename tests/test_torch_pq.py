@@ -174,7 +174,7 @@ def test_ivfpq_structures_and_bytes(clustered):
     cap = idx.invlists.shape[1]
     assert idx.codes_lists.shape == (8, cap + cap % 2, 4)
     assert idx.memory_bytes() == (idx.embeddings.nbytes + pq + coarse
-                                  + idx.codes_lists.nbytes)
+                                  + idx.codes_lists.nbytes + idx.valid.nbytes)
     with pytest.raises(ValueError, match="together"):
         IVFPQIndex(cat, codes=np.zeros((cat.shape[0], 4), np.int32), device="cpu")
 
