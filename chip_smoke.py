@@ -60,6 +60,35 @@ Phases, each of which raises on failure (the script then exits non-zero):
              all tombstoned, and after an append that doubles an IVF and an
              IVF-PQ table's columns, with tombstones inside lists; and no
              mutation at a fixed capacity reallocating a slab, mask or table;
+6b. serving — the serving tier at 1M x 128, h 400, k 10, B 8, 2048
+             requests: (a) AÇAI with the answer cache (capacity 4096) and in
+             pass-through (capacity 0) over flat, IVF and IVF-PQ on
+             benchmarks/answer_cache_bench.py's Zipf 1.1 trace, and over
+             flat and IVF on its flash_crowd trace: gains, y, x and served
+             ids equal bit for bit, no index kernel launched on an all-hit
+             batch (the cached-row `pairwise_l2` scan only), a memoized
+             batch >= 5x faster than a flat scan of it (30 repetitions;
+             IVF's ratio logged); the IVF
+             index unloaded (bytes freed read from the allocator, a scan
+             of it refusing the host), reloaded unchanged, and the engine
+             with idle_unload_ms against pass-through; its rolling catalog
+             (churn 0.05) over flat: no removed id served, invalidations by
+             reason; (b) AÇAI over flat through the resilient tier on the
+             slice's sift_like: fault free equal to the plain replay bit for
+             bit, error 0.2 and an outage over a tenth of the trace, the
+             schedule's counters equal to a CPU session's; (c) the online
+             engine (poisson and flash_crowd at 0.5 / 0.8 / 1.2 of capacity,
+             closed loop) under the reference's service model and one fitted
+             to the card's B 8 / B 64 steps, and the fixed-window engine
+             equal to `AcaiPolicy.replay` bit for bit; then the n 2000 x 16
+             settings of BENCH_serving.json, BENCH_resilience.json and
+             BENCH_answer_cache.json for every registered policy on the card
+             and through the CPU port (same uniforms): every virtual-clock
+             field equal, NAG within 1e-3, and against the files AÇAI within
+             0.03 and the baselines within 1e-3.  Its launches count by
+             shape with the main path's (the rolling run's with the churn
+             path's); `--only serving` runs the build and this phase alone
+             and prints no result;
 7. flash   — `flash_attention` against its plain version on the card: f32
              at tests/test_kernels.py's five shapes (<= 1e-4, the float32
              FMA kernel) and bf16 (within 2^-8 of the output, the wgmma
@@ -823,7 +852,8 @@ def parity_phase(torch, ops, dev):
 
 
 def slice_phase(torch, ops, catalog_np, reqs_np, dev):
-    """The 1M x 128 serving runs; returns the summed launch counts."""
+    """The 1M x 128 serving runs (launches counted by shape into
+    MAIN_SHAPES)."""
     from repro_torch.core import oma, policy
     from repro_torch.core.costs import calibrate_fetch_cost
     from repro_torch.index.base import IndexSpec
@@ -839,7 +869,6 @@ def slice_phase(torch, ops, catalog_np, reqs_np, dev):
     log(f"slice: init_state (host DepRound over 1M) {time.perf_counter() - t0} s, "
         f"occupancy {float(state0.x.sum())}")
     reqs = torch.from_numpy(reqs_np).to(dev)
-    total = {name: 0 for name in ops.LAUNCHES}
     for spec in (IndexSpec("flat"), IndexSpec("ivf", IVF_FULL),
                  IndexSpec("ivfpq", IVFPQ_FULL)):
         for b in (8, 64):
@@ -877,22 +906,19 @@ def slice_phase(torch, ops, catalog_np, reqs_np, dev):
                     raise AssertionError(f"slice {spec.backend} B={b}: {name} launched "
                                          f"{counts[name]} times in {steps} steps, expected "
                                          f"{per_step} a step")
-            for name in total:
-                total[name] += counts[name]
             MAIN_SHAPES.update(ops.SHAPE_LAUNCHES)
             log(f"slice {spec.backend} B={b}: requests/s={T_FULL / dt} "
                 f"us/request={dt / T_FULL * 1e6} NAG={nag} "
                 f"served_local/request={float(torch.cat(served).float().mean())} "
                 f"occupancy={float(occ[-1])} build_s={build_s} serve_s={dt} "
                 f"launches={counts}")
-    return total
 
 
 def policies_phase(torch, ops, catalog_np, reqs_np, dev):
     """The policy registry, the baselines and the experiments harness on the
     card: BENCH_experiments.json's grid, the sift_like AÇAI row card
     against CPU, then the six policies at 1M x 128 (launches counted by
-    shape into MAIN_SHAPES); returns the full-width run's launch counts."""
+    shape into MAIN_SHAPES)."""
     import numpy as np
 
     from repro_torch import convert
@@ -1016,7 +1042,6 @@ def policies_phase(torch, ops, catalog_np, reqs_np, dev):
     log(f"policies: phase {time.perf_counter() - t_phase} s")
     del oracle, pol
     torch.cuda.empty_cache()
-    return dict(ops.LAUNCHES)
 
 
 def churn_small_phase(torch, ops, dev) -> None:
@@ -1158,7 +1183,7 @@ def churn_phase(torch, ops, ref, dev):
     """The mutable catalog at 1M x 128 on the card (CHURN_CELLS), then the
     n 2000 card-against-CPU replay and the kernel checks.  Returns the
     churn path's kernel cases (kernel_shapes.churn_cases, over this run's
-    mutated indexes) and the phase's launches."""
+    mutated indexes); launches are counted by shape into CHURN_SHAPES."""
     import numpy as np
 
     import kernel_shapes
@@ -1179,7 +1204,6 @@ def churn_phase(torch, ops, ref, dev):
     specs = {"exact": None, "flat": IndexSpec("flat"), "ivf": IndexSpec("ivf", IVF_FULL),
              "ivfpq": IndexSpec("ivfpq", IVFPQ_FULL)}
     state0, kept, nag_exact = None, {}, []
-    total = {name: 0 for name in ops.LAUNCHES}
     for cell in CHURN_CELLS + [("exact", 0, 0)]:
         index, refresh_every, compact_every = cell
         torch.cuda.synchronize()
@@ -1198,8 +1222,6 @@ def churn_phase(torch, ops, ref, dev):
                                       refresh_every=refresh_every, compact_every=compact_every)
         dt = time.perf_counter() - t0
         counts = {k: v for k, v in ops.LAUNCHES.items() if v}
-        for k in total:
-            total[k] += ops.LAUNCHES[k]
         CHURN_SHAPES.update(ops.SHAPE_LAUNCHES)
         nag = pol.normalized_gain(res["gain"].sum(), res["requests"])
         want = CHURN_REF_NAG.get(cell)
@@ -1245,7 +1267,841 @@ def churn_phase(torch, ops, ref, dev):
     log(f"churn: n=2000 card against CPU {time.perf_counter() - t0} s")
     errs = churn_kernel_checks(torch, ops, ref, dev)
     log(f"churn: kernel checks, max abs errors {errs}; phase {time.perf_counter() - t_phase} s")
-    return cases, total
+    return cases
+
+
+# ---------------------------------------------------------------------------
+# the serving phase (the answer cache, the resilient remote tier, the online
+# engine)
+# ---------------------------------------------------------------------------
+
+# benchmarks/answer_cache_bench.py's Zipf trace (seed 17, Zipf 1.1, jitter
+# 0: repeats are exact catalog rows) and rolling catalog (churn 0.05, warm
+# 0.5) at the slice's 1M x 128; its capacity, hot-path repetitions and
+# speedup floor
+SERVE_ZIPF = {"n": N_FULL, "d": D_FULL, "t": T_FULL, "zipf_a": 1.1, "jitter": 0.0,
+              "seed": 17}
+SERVE_ROLLING = {"n": N_FULL, "d": D_FULL, "t": T_FULL, "churn_rate": 0.05, "warm": 0.5,
+                 "seed": 17}
+# its flash_crowd trace (seed 7: four windows of 8 % of the trace send 80 %
+# of the requests to 20 objects): at 1M x 128 the Zipf trace's barycentric
+# popularity is nearly flat, so the repeats, and the all-hit batches, are
+# the crowds'
+SERVE_CROWD = {"n": N_FULL, "d": D_FULL, "t": T_FULL, "seed": 7}
+SERVE_CAP, SERVE_HOT_REPS, SERVE_MIN_SPEEDUP = 4096, 30, 5.0
+SERVE_BATCH = 8
+# the virtual-clock idle threshold of the unload run, and its offered load
+SERVE_IDLE_MS, SERVE_IDLE_LOAD = 10.0, 0.2
+# the online engine's grid: loads as fractions of capacity_rps(8), the
+# batch window, SLO and queue cap of benchmarks/serving_bench.py
+SERVE_LOADS, SERVE_WINDOW_MS, SERVE_SLO_MS, SERVE_QUEUE_CAP = (0.5, 0.8, 1.2), 5.0, 25.0, 64
+# the resilience cells at 1M: error rate 0.2 with the default 2 retries
+# and a 250 ms deadline; an outage over the middle tenth of the trace
+SERVE_FAULTS = {"fault_free": {},
+                "error 0.2": {"error_rate": 0.2},
+                "outage tenth": {"outages": ((int(0.45 * T_FULL), int(0.55 * T_FULL)),)}}
+# the parity size: the reference's bench files (n 2000 x 16, 2048
+# requests, h 64, k 8, B 8, their c_f)
+BENCH_SERVING = ROOT / "BENCH_serving.json"
+BENCH_RESILIENCE = ROOT / "BENCH_resilience.json"
+BENCH_ANSWER = ROOT / "BENCH_answer_cache.json"
+# launches by (kernel, shape) in the serving phase (the rolling-catalog
+# run's are the churn path's shapes)
+SERVING_SHAPES: Counter = Counter()
+SERVING_CHURN_SHAPES: Counter = Counter()
+
+
+class InjectedUniforms:
+    """An AÇAI policy whose every step takes its rounding uniforms from a
+    CPU generator seeded by the step's index (`step_uniforms`): the same
+    numbers on the card and on the CPU, whichever driver calls the step."""
+
+    def __init__(self, pol, seed: int):
+        self.pol, self.seed, self.steps = pol, seed, 0
+
+    def __getattr__(self, name):
+        return getattr(self.pol, name)
+
+    def serve_update_batch(self, rs, ts=None):
+        u = step_uniforms(self.seed, self.steps, self.pol.cache.state.y.shape[0])
+        self.steps += 1
+        return self.pol.serve_update_batch(rs, ts, u=u.to(self.pol.cache.device))
+
+
+def step_uniforms(seed: int, i: int, n: int):
+    import torch
+
+    return torch.rand(n, generator=torch.Generator().manual_seed(seed * 100003 + i))
+
+
+def tap_served(pol, sink: list, clock: list | None = None) -> None:
+    """Record every index answer's ids (with the step they came in, when
+    `clock` is given) at the policy's index `query`."""
+    idx = pol.cache.index
+    orig = idx.query
+
+    def query(rs, k):
+        d, ids = orig(rs, k)
+        sink.append(ids if clock is None else (clock[0], ids))
+        return d, ids
+
+    idx.query = query
+
+
+def frozen_spec(torch, name: str, cat, dev):
+    """The IndexSpec of `name` at the slice's settings that loads one trained
+    index's structures: every policy built from it holds the same lists
+    and codebooks (k-means on the card sums its clusters with atomics, so
+    two trainings may differ in the last digit)."""
+    from repro_torch.index.base import IndexSpec, build_index
+
+    if name == "flat":
+        return IndexSpec("flat")
+    params = dict(IVF_FULL if name == "ivf" else IVFPQ_FULL)
+    idx = build_index(IndexSpec(name, params), cat, device=dev)
+    params.update(centroids=idx.centroids.cpu().numpy(), invlists=idx.invlists.cpu().numpy())
+    if name == "ivfpq":
+        params.update(codebooks=idx.codec.codebooks.cpu().numpy(),
+                      codes=idx.codes.cpu().numpy())
+    del idx
+    return IndexSpec(name, params)
+
+
+def serve_steps(torch, ops, pol, reqs_np, b: int = SERVE_BATCH) -> dict:
+    """`pol` over the trace in host batches of b; per step the gains, the
+    answer tier's hit mask and the launches of the all-hit steps; the
+    median step (the card synchronised after each)."""
+    import numpy as np
+
+    gains, hits, walls = [], [], []
+    allhit, n_allhit = Counter(), 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for s in range(0, reqs_np.shape[0] - b + 1, b):
+        before = Counter(ops.LAUNCHES)
+        t_step = time.perf_counter()
+        m = pol.serve_update_batch(reqs_np[s:s + b])
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t_step)
+        h = m.answer_hits if isinstance(m.answer_hits, torch.Tensor) else torch.zeros(b)
+        if int(h.sum()) == b:
+            allhit.update(Counter(ops.LAUNCHES) - before)
+            n_allhit += 1
+        gains.append(m.gain_int)
+        hits.append(h)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    g = torch.cat(gains)
+    return {"gain": g, "hits": torch.cat(hits), "seconds": dt, "allhit": allhit,
+            "n_allhit": n_allhit, "requests": g.shape[0],
+            "p50_step_us": float(np.median(walls)) * 1e6}
+
+
+def serving_answer_cache(torch, ops, dev, traces, state0) -> None:
+    """(a) AÇAI with the answer cache on and in pass-through, per trace of
+    `traces` ({name: (catalog, requests, c_f, backends)}): gains, y, x and
+    served ids equal bit for bit; the all-hit batches launch no index
+    kernel.  Then the hot-path latency and the idle unload, on the
+    flash-crowd trace's flat and IVF policies."""
+    from repro_torch.core import policy
+    from repro_torch.core import policy_api as PA
+    from repro_torch.core.costs import CostModel
+    from repro_torch.index.base import build_index
+    from repro_torch.serve.answer_cache import AnswerCacheSpec
+
+    spec = PA.PolicySpec("acai", {"h": H_FULL, "k": K_FULL, "batch": SERVE_BATCH})
+    kept, frozen = {}, {}
+    # a warm-up replay (the phase's first launches of the step's kernels),
+    # so the first arm timed does not pay it
+    cat, reqs, c_f, _ = traces["zipf"]
+    warm = PA.build_policy(spec, cat, CostModel(c_f=c_f), index_spec=frozen_spec(
+        torch, "flat", cat, dev), seed=0, answer_cache=AnswerCacheSpec(capacity=0), device=dev)
+    serve_steps(torch, ops, warm, reqs[:32 * SERVE_BATCH])
+    del warm
+    for trace_name, (cat, reqs, c_f, backends) in traces.items():
+        for name in backends:
+            t0 = time.perf_counter()
+            ispec = frozen_spec(torch, name, cat, dev)
+            index = build_index(ispec, cat, device=dev)
+            for s in range(0, 16 * SERVE_BATCH, SERVE_BATCH):  # the index's warm-up
+                index.query(torch.from_numpy(reqs[s:s + SERVE_BATCH]).to(dev), C_REMOTE)
+            del index
+            log(f"serving (a) {trace_name} {name}: structures trained once for both arms "
+                f"({time.perf_counter() - t0} s)")
+            arms = {}
+            for cap in (SERVE_CAP, 0):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                pol = PA.build_policy(spec, cat, CostModel(c_f=c_f), index_spec=ispec,
+                                      seed=0, answer_cache=AnswerCacheSpec(capacity=cap),
+                                      device=dev)
+                pol.cache.state = policy.copy_state(state0, seed=0)
+                torch.cuda.synchronize()
+                build_s = time.perf_counter() - t0
+                served = []
+                tap_served(pol, served)
+                ops.reset_launches()
+                r = serve_steps(torch, ops, pol, reqs)
+                SERVING_SHAPES.update(ops.SHAPE_LAUNCHES)
+                st = pol.answer_cache.stats()
+                nag = pol.normalized_gain(float(r["gain"].sum()), r["requests"])
+                log(f"serving (a) {trace_name} {name} cache="
+                    f"{'on' if cap else 'pass-through'}: NAG={nag} "
+                    f"answer_hit_rate={st['hit_rate']} scans={st['scans']} "
+                    f"scans_skipped={st['scans_skipped']} "
+                    f"key_readbacks={st['key_readbacks']} "
+                    f"us/request={r['seconds'] / r['requests'] * 1e6} "
+                    f"p50_step_us={r['p50_step_us']} build_s={build_s} "
+                    f"all-hit steps={r['n_allhit']} launches on them={dict(r['allhit'])} "
+                    f"launches={ {k: v for k, v in ops.LAUNCHES.items() if v} }")
+                arms[cap] = (r, pol, torch.cat([i.reshape(-1) for i in served]))
+            (on, pol_on, ids_on), (off, pol_off, ids_off) = arms[SERVE_CAP], arms[0]
+            parts = {"gain": torch.equal(on["gain"], off["gain"]),
+                     "y": torch.equal(pol_on.cache.state.y, pol_off.cache.state.y),
+                     "x": torch.equal(pol_on.cache.state.x, pol_off.cache.state.x),
+                     "served ids": torch.equal(ids_on, ids_off)}
+            same = all(parts.values())
+            log(f"serving (a) {trace_name} {name}: cache-on equals pass-through bit for "
+                f"bit {parts}; max |gain diff| "
+                f"{float((on['gain'] - off['gain']).abs().max())}; us/request on "
+                f"{on['seconds'] / on['requests'] * 1e6} off "
+                f"{off['seconds'] / off['requests'] * 1e6}; p50 step us on "
+                f"{on['p50_step_us']} off {off['p50_step_us']}")
+            if not same:
+                raise AssertionError(f"serving (a) {trace_name} {name}: the answer cache "
+                                     f"changed what is served")
+            # an all-hit batch launches no index kernel: its one launch is
+            # the cached-row scan (`pairwise_l2` at (B, local cap)), which
+            # reads x and so is never memoized
+            index_launches = {k: v for k, v in on["allhit"].items() if k != "pairwise_l2"}
+            if index_launches or on["allhit"]["pairwise_l2"] != on["n_allhit"]:
+                raise AssertionError(f"serving (a) {trace_name} {name}: all-hit batches "
+                                     f"launched {dict(on['allhit'])} over "
+                                     f"{on['n_allhit']} batches")
+            if pol_on.answer_cache.key_readbacks:
+                raise AssertionError(f"serving (a) {trace_name} {name}: keys read back "
+                                     f"from the card")
+            if trace_name == "flash_crowd":
+                if on["n_allhit"] == 0:
+                    raise AssertionError(f"serving (a) {trace_name} {name}: no batch was "
+                                         f"served all from the store")
+                kept[name], frozen[name] = pol_on, ispec
+            del arms, pol_off, pol
+    cat, reqs = traces["flash_crowd"][:2]
+    c_f = traces["flash_crowd"][2]
+    serving_hot_path(torch, dev, kept, reqs)
+    serving_unload(torch, ops, dev, kept["ivf"], cat, reqs, c_f, state0, frozen["ivf"])
+    del kept
+    torch.cuda.empty_cache()
+
+
+def serving_hot_path(torch, dev, pols, reqs) -> None:
+    """answer_cache_bench.py's hot latency: a memoized all-hit batch (the
+    trace's most repeated rows) against a scan of the same batch, 30 times
+    each, in turns, the card synchronised around each and Python's garbage
+    collector held off: over the flat index (the bench's cell) the p50
+    speedup must reach its min_speedup 5; over IVF it is logged."""
+    import gc
+
+    import numpy as np
+
+    for name in ("flat", "ivf"):
+        ci = pols[name].answer_cache
+        k = pols[name].cache.cfg.c_remote
+        uniq, counts = np.unique(reqs, axis=0, return_counts=True)
+        hot = np.ascontiguousarray(uniq[np.argsort(-counts)[:SERVE_BATCH]])
+        hot_dev = torch.from_numpy(hot).to(dev)
+        ci.stage(hot)
+        ci.query(hot_dev, k)  # stored
+        walls = {"hit": [], "scan": []}
+        skipped = ci.cache.scans_skipped
+        gc.collect()
+        gc.disable()
+        for _ in range(SERVE_HOT_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ci.stage(hot)
+            ci.query(hot_dev, k)
+            torch.cuda.synchronize()
+            walls["hit"].append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            ci.inner.query(hot_dev, k)
+            torch.cuda.synchronize()
+            walls["scan"].append(time.perf_counter() - t0)
+        gc.enable()
+        if ci.cache.scans_skipped - skipped != SERVE_HOT_REPS:
+            raise AssertionError(f"serving hot path {name}: batches not served from the "
+                                 f"store")
+        p_hit = float(np.percentile(walls["hit"], 50))
+        p_scan = float(np.percentile(walls["scan"], 50))
+        log(f"serving (a) hot path {name}: memoized all-hit batch p50 {p_hit * 1e6} us, "
+            f"scan of the same batch p50 {p_scan * 1e6} us, speedup {p_scan / p_hit}"
+            f"{f' (>= {SERVE_MIN_SPEEDUP})' if name == 'flat' else ''}; "
+            f"{SERVE_HOT_REPS} repetitions each")
+        if name == "flat" and p_scan / p_hit < SERVE_MIN_SPEEDUP:
+            raise AssertionError(f"serving hot path {name}: speedup below "
+                                 f"{SERVE_MIN_SPEEDUP}")
+
+
+def serving_unload(torch, ops, dev, pol, cat, reqs, c_f, state0, ivf_spec) -> None:
+    """The idle unload at 1M on the IVF index: unload frees the lists and
+    centroids on the card (read from the allocator), hits serve while
+    unloaded, an unloaded scan refuses the host, a miss reloads them
+    unchanged; then the online engine with idle_unload_ms against
+    pass-through, gains bit for bit."""
+    import numpy as np
+
+    from repro_torch.core import policy
+    from repro_torch.core import policy_api as PA
+    from repro_torch.core.costs import CostModel
+    from repro_torch.serve.answer_cache import AnswerCacheSpec
+    from repro_torch.serve.arrivals import ArrivalSpec
+    from repro_torch.serve.queue import BatchFormerConfig, OnlineServingEngine, ServiceModel
+
+    ci = pol.answer_cache
+    k = pol.cache.cfg.c_remote
+    cold = torch.from_numpy(cat[-SERVE_BATCH:]).to(dev)   # rows no request asked for
+    d0, i0 = ci.inner.query(cold, k)
+    torch.cuda.synchronize()
+    freed = ci.unload()
+    moved = sorted(f"{n}.{s}" if s else n for n, s, _ in ci._offloaded)
+    log(f"serving (a) unload ivf: moved {moved} to the host, {ci.last_unload_nbytes} "
+        f"tensor bytes, {freed} bytes freed on the card (torch.cuda.memory_allocated)")
+    if ci.loaded or freed <= 0 or ci.inner.invlists.device.type != "cpu":
+        raise AssertionError("serving unload: the IVF structures did not leave the card")
+    try:
+        ci.inner.query(cold, k)
+    except ValueError as e:
+        log(f"serving (a) unload ivf: a scan of the unloaded index refuses the host: {e}")
+    else:
+        raise AssertionError("serving unload: an unloaded index scanned on the host")
+    hot = np.ascontiguousarray(reqs[:SERVE_BATCH])
+    ci.stage(hot)
+    ci.query(torch.from_numpy(hot).to(dev), k)  # served from the store: stays unloaded
+    if ci.loaded:
+        raise AssertionError("serving unload: a hit reloaded the index")
+    ci.query(cold + 1e-3, k)    # a miss: reload, scan
+    d1, i1 = ci.inner.query(cold, k)
+    same = torch.equal(d0, d1) and torch.equal(i0, i1)
+    log(f"serving (a) unload ivf: reloaded to {ci.inner.invlists.device} "
+        f"(unloads {ci.unloads}, reloads {ci.reloads}); answers after the reload equal "
+        f"before it bit for bit: {same}")
+    if not (same and ci.loaded and ci.reloads == 1):
+        raise AssertionError("serving unload: the reload changed the answers")
+
+    service = ServiceModel()
+    arrival = ArrivalSpec(kind="poisson", rate_rps=SERVE_IDLE_LOAD * service.capacity_rps(
+        SERVE_BATCH), seed=11)
+    runs = {}
+    for cap in (SERVE_CAP, 0):
+        p = PA.build_policy(PA.PolicySpec("acai", {"h": H_FULL, "k": K_FULL,
+                                                   "batch": SERVE_BATCH}),
+                            cat, CostModel(c_f=c_f), index_spec=ivf_spec,
+                            seed=0, device=dev, answer_cache=AnswerCacheSpec(
+                                capacity=cap, idle_unload_ms=SERVE_IDLE_MS if cap else None))
+        p.cache.state = policy.copy_state(state0, seed=0)
+        ops.reset_launches()
+        # fixed batches of 8: a memoized answer equals a recomputed one bit
+        # for bit at one batch shape (a scan of another B may round its
+        # distances otherwise), so the dynamic window is not used here
+        res = OnlineServingEngine(p, former=BatchFormerConfig(SERVE_BATCH, None),
+                                  service=service).run(reqs, arrival)
+        SERVING_SHAPES.update(ops.SHAPE_LAUNCHES)
+        runs[cap] = (res, p.answer_cache.stats())
+    (on, st), (off, _) = runs[SERVE_CAP], runs[0]
+    log(f"serving (a) engine ivf idle_unload_ms={SERVE_IDLE_MS} at {SERVE_IDLE_LOAD} of "
+        f"capacity: unloads={st['unloads']} reloads={st['reloads']} "
+        f"freed on the last unload {st['last_unload_allocator_bytes']} bytes (allocator), "
+        f"answer_hit_rate={on['answer_hit_rate']} p50_user_ms={on['p50_user_ms']} "
+        f"p50_hit_ms={on['p50_hit_ms']} p50_miss_ms={on['p50_miss_ms']}; gains equal "
+        f"pass-through's: {bool((on['gain'] == off['gain']).all())}")
+    if st["unloads"] < 1 or st["reloads"] < 1 or st["last_unload_allocator_bytes"] <= 0:
+        raise AssertionError("serving unload: the engine never unloaded and reloaded")
+    if not (on["gain"] == off["gain"]).all():
+        raise AssertionError("serving unload: idle unloads changed the gains")
+
+
+def serving_churn(torch, ops, dev) -> None:
+    """The rolling catalog at 1M x 128, churn 0.05, AÇAI over flat with the
+    answer cache and in pass-through: equal gains, no removed id served
+    after its removal, the invalidations by reason."""
+    import numpy as np
+
+    from repro_torch.core import churn, trace
+    from repro_torch.core import policy_api as PA
+    from repro_torch.core.costs import CostModel, calibrate_fetch_cost
+    from repro_torch.index.base import IndexSpec
+    from repro_torch.serve.answer_cache import AnswerCacheSpec
+
+    t0 = time.perf_counter()
+    cat, reqs, _ = trace.rolling_catalog(**SERVE_ROLLING)
+    events = trace.rolling_catalog_events(**SERVE_ROLLING)
+    n0 = churn.warm_size(N_FULL, SERVE_ROLLING["warm"])
+    c_f = calibrate_fetch_cost(cat[:n0], kth=50, device=dev)
+    log(f"serving (a) rolling_catalog {N_FULL} x {D_FULL} churn "
+        f"{SERVE_ROLLING['churn_rate']}: {len(events)} events, c_f {c_f} "
+        f"({time.perf_counter() - t0} s)")
+    arms = {}
+    state0 = None
+    for cap in (SERVE_CAP, 0):
+        pol = PA.build_policy(PA.PolicySpec("acai", {"h": H_FULL, "k": K_FULL}),
+                              cat[:n0], CostModel(c_f=c_f), index_spec=IndexSpec("flat"),
+                              seed=0, device=dev, answer_cache=AnswerCacheSpec(capacity=cap))
+        from repro_torch.core import policy
+
+        if state0 is None:
+            state0 = pol.cache.state
+        pol.cache.state = policy.copy_state(state0, seed=0)
+        step, served, removed = [0], [], {}
+        tap_served(pol, served, step)
+        orig_remove, orig_serve = pol.remove_objects, pol.serve_update_batch
+
+        def remove(ids, orig_remove=orig_remove, step=step, removed=removed):
+            for i in np.atleast_1d(np.asarray(ids)).tolist():
+                removed[int(i)] = step[0]
+            orig_remove(ids)
+
+        def serve(rs, ts=None, orig_serve=orig_serve, step=step, **kw):
+            m = orig_serve(rs, ts, **kw)
+            step[0] += 1
+            return m
+
+        pol.remove_objects, pol.serve_update_batch = remove, serve
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        res = churn.replay_with_churn(pol, cat, reqs, events, batch=SERVE_BATCH)
+        dt = time.perf_counter() - t0
+        SERVING_CHURN_SHAPES.update(ops.SHAPE_LAUNCHES)
+        st = pol.answer_cache.stats()
+        # an id served at a step at or after its removal (no compaction
+        # runs, so ids stay slab ids)
+        late = 0
+        for s, ids in served:
+            for i in torch.unique(ids).tolist():
+                if i in removed and removed[i] <= s:
+                    late += 1
+        nag = pol.normalized_gain(res["gain"].sum(), res["requests"])
+        log(f"serving (a) rolling flat cache={'on' if cap else 'pass-through'}: NAG={nag} "
+            f"events={res['events_applied']} answer_hit_rate={st['hit_rate']} "
+            f"invalidations={st['invalidations']} (remove={st['inv_remove']} "
+            f"add={st['inv_add']} refresh={st['inv_refresh']}) scans_skipped="
+            f"{st['scans_skipped']} us/request={dt / res['requests'] * 1e6} "
+            f"removed ids served after their removal: {late}")
+        if late:
+            raise AssertionError("serving churn: a removed id was served")
+        arms[cap] = (res["gain"], st)
+    (g_on, st_on), (g_off, _) = arms[SERVE_CAP], arms[0]
+    if not np.array_equal(g_on, g_off):
+        raise AssertionError("serving churn: the answer cache changed the gains")
+    if st_on["inv_remove"] == 0 or st_on["hits"] == 0:
+        raise AssertionError("serving churn: no hit or no invalidation under churn")
+    log("serving (a) rolling flat: cache-on gains equal pass-through's bit for bit")
+
+
+def serving_resilience(torch, ops, dev, cat, reqs, c_f, state0) -> None:
+    """(b) AÇAI over flat through AcaiResilience at 1M: fault free equal to
+    the plain replay bit for bit; error 0.2 and an outage over a tenth of
+    the trace; the schedule's counters against a CPU session."""
+    from repro_torch.core import policy
+    from repro_torch.core import policy_api as PA
+    from repro_torch.core.costs import CostModel
+    from repro_torch.index.base import IndexSpec
+    from repro_torch.serve.remote import FaultSpec, FaultyRemote
+    from repro_torch.serve.resilience import (RemoteSession, ResilienceConfig,
+                                              ResilientPolicy, RetryConfig,
+                                              replay_resilient)
+
+    spec = PA.PolicySpec("acai", {"h": H_FULL, "k": K_FULL, "batch": SERVE_BATCH})
+
+    def build():
+        p = PA.build_policy(spec, cat, CostModel(c_f=c_f), index_spec=IndexSpec("flat"),
+                            seed=0, device=dev)
+        p.cache.state = policy.copy_state(state0, seed=0)
+        return p
+
+    plain = build()
+    ops.reset_launches()
+    ref = plain.replay(reqs)
+    SERVING_SHAPES.update(ops.SHAPE_LAUNCHES)
+    rcfg = ResilienceConfig(deadline_ms=250.0, retry=RetryConfig(max_retries=2))
+    nag_free = None
+    for name, fkw in SERVE_FAULTS.items():
+        fault = FaultSpec(seed=3, **fkw)
+        pol = ResilientPolicy(build(), remote=FaultyRemote(fault), resilience=rcfg)
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = replay_resilient(pol, reqs, batch=SERVE_BATCH)
+        dt = time.perf_counter() - t0
+        SERVING_SHAPES.update(ops.SHAPE_LAUNCHES)
+        nag = pol.normalized_gain(res["gain"].sum(), res["requests"])
+        c = res["counters"]
+        cpu = RemoteSession(FaultyRemote(fault), rcfg)
+        for _ in range(res["requests"] // SERVE_BATCH):
+            cpu.simulate_batch(SERVE_BATCH)
+        want = cpu.counters.to_dict()
+        schedule = [f for f in want if f not in ("degraded", "shed")]
+        log(f"serving (b) {name}: NAG={nag} ratio to fault free="
+            f"{None if nag_free is None else nag / nag_free} degraded_share="
+            f"{res['degraded_share']} shed_share={res['shed_share']} goodput="
+            f"{res['goodput']} virtual p50={res['p50_ms']} ms p99={res['p99_ms']} ms "
+            f"counters={c} breaker_transitions={res['breaker_transitions']} "
+            f"us/request={dt / res['requests'] * 1e6} p50_step_us={res['p50_step_s'] * 1e6}")
+        if name == "fault_free":
+            nag_free = nag
+            same = (bool((res["gain"] == ref["gain"]).all())
+                    and torch.equal(pol.inner.cache.state.y, plain.cache.state.y)
+                    and torch.equal(pol.inner.cache.state.x, plain.cache.state.x))
+            log(f"serving (b) fault_free equals the plain replay bit for bit "
+                f"(gain, y, x): {same}")
+            if not same:
+                raise AssertionError("serving resilience: the fault-free path differs "
+                                     "from the plain replay")
+        if any(c[f] != want[f] for f in schedule):
+            raise AssertionError(f"serving resilience {name}: counters {c} differ from "
+                                 f"the CPU session's {want}")
+        if c["degraded"] + c["shed"] != c["remote_failures"]:
+            raise AssertionError(f"serving resilience {name}: degraded + shed != failures")
+        if name != "fault_free" and not c["remote_failures"]:
+            raise AssertionError(f"serving resilience {name}: no remote failure")
+    log("serving (b): the schedule's counters equal a CPU session's with the same "
+        "FaultSpec")
+
+
+def serving_engine(torch, ops, dev, cat, reqs, c_f, state0) -> None:
+    """(c) the online engine at 1M: AÇAI over flat, poisson and flash_crowd
+    at SERVE_LOADS of capacity_rps(8) and the closed loop, under the
+    reference's service model and one fitted to the card's steps; the
+    fixed-window engine against AcaiPolicy.replay bit for bit."""
+    import numpy as np
+
+    from repro_torch.core import policy
+    from repro_torch.core import policy_api as PA
+    from repro_torch.core.costs import CostModel
+    from repro_torch.index.base import IndexSpec
+    from repro_torch.serve.arrivals import ArrivalSpec
+    from repro_torch.serve.queue import (AdmissionConfig, BatchFormerConfig,
+                                         OnlineServingEngine, ServiceModel,
+                                         fixed_window_engine)
+
+    spec = PA.PolicySpec("acai", {"h": H_FULL, "k": K_FULL, "batch": SERVE_BATCH})
+
+    def build(batch=SERVE_BATCH):
+        p = PA.build_policy(spec.with_params(batch=batch), cat, CostModel(c_f=c_f),
+                            index_spec=IndexSpec("flat"), seed=0, device=dev)
+        p.cache.state = policy.copy_state(state0, seed=0)
+        return p
+
+    # the fixed-window pin
+    a, b = build(), build()
+    ops.reset_launches()
+    res = fixed_window_engine(a, SERVE_BATCH).run(
+        reqs, ArrivalSpec(kind="poisson", rate_rps=1600.0, seed=11))
+    ref = b.replay(reqs)
+    SERVING_SHAPES.update(ops.SHAPE_LAUNCHES)
+    same = (bool((res["gain"] == ref["gain"]).all())
+            and torch.equal(a.cache.state.y, b.cache.state.y)
+            and torch.equal(a.cache.state.x, b.cache.state.x))
+    log(f"serving (c) fixed-window engine equals AcaiPolicy.replay bit for bit (gain, y, "
+        f"x): {same}")
+    if not same:
+        raise AssertionError("serving engine: the fixed-window engine differs from the "
+                             "replay")
+    # the card's step at B 8 and 64 (median of 16 steps on copies of one
+    # state, the card synchronised around each), fitted to base + per b
+    step_ms = {}
+    for bb in (8, 64):
+        p = build(bb)
+        rs = torch.from_numpy(reqs[:bb]).to(dev)
+        times = []
+        for i in range(18):
+            p.cache.state = policy.copy_state(state0, seed=i)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p.cache.serve_update_batch(rs)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        step_ms[bb] = float(np.median(times[2:])) * 1e3
+    fitted = ServiceModel.fit(step_ms)
+    log(f"serving (c) step on the card: B 8 {step_ms[8]} ms, B 64 {step_ms[64]} ms -> "
+        f"fitted service model base {fitted.base_ms} ms + {fitted.per_request_ms} ms a "
+        f"request (capacity {fitted.capacity_rps(SERVE_BATCH)} requests/s at B 8); the "
+        f"reference's: {ServiceModel().to_dict()} ({ServiceModel().capacity_rps(8)} "
+        f"requests/s)")
+    for label, service in (("reference", ServiceModel()), ("fitted", fitted)):
+        cap = service.capacity_rps(SERVE_BATCH)
+        cells = [(kind, load) for kind in ("poisson", "flash_crowd") for load in SERVE_LOADS]
+        cells.append(("closed_loop", None))
+        for kind, load in cells:
+            arrival = (ArrivalSpec(kind=kind, users=2 * SERVE_BATCH, think_ms=2.0, seed=11)
+                       if kind == "closed_loop"
+                       else ArrivalSpec(kind=kind, rate_rps=load * cap, seed=11))
+            p = build()
+            ops.reset_launches()
+            out = OnlineServingEngine(
+                p, former=BatchFormerConfig(SERVE_BATCH, SERVE_WINDOW_MS),
+                admission=AdmissionConfig(queue_cap=SERVE_QUEUE_CAP),
+                service=service).run(reqs, arrival, slo_ms=SERVE_SLO_MS)
+            SERVING_SHAPES.update(ops.SHAPE_LAUNCHES)
+            served = max(out["served"], 1)
+            nag = float(out["gain"].sum()) / (p.k * p.c_f * served)
+            log(f"serving (c) {label} service, {kind} load={load}: p50={out['p50_ms']} "
+                f"p99={out['p99_ms']} p99.9={out['p999_ms']} ms (virtual) "
+                f"goodput@{SERVE_SLO_MS}ms={out['goodput_slo']} "
+                f"shed_share={out['shed_share']} mean_batch={out['mean_batch']} "
+                f"batches={out['batches']} step wall p50={out['p50_step_s'] * 1e3} ms "
+                f"(synchronised) NAG(served)={nag}")
+            if not (np.isfinite(out["gain"]).all() and out["served"] + out["shed_total"]
+                    == out["requests"] == T_FULL):
+                raise AssertionError(f"serving engine {label} {kind} {load}: bad result")
+
+
+def serving_small(torch, ops, dev) -> None:
+    """The n 2000 x 16 settings of BENCH_serving.json, BENCH_resilience.json
+    and BENCH_answer_cache.json, every registered policy on the card and
+    through the CPU port (AÇAI's uniforms injected alike): every
+    virtual-clock field equal, NAG within CARD_CPU_TOL; the differences
+    from the reference's files logged (AÇAI within ACAI_TOL, the baselines
+    within BASELINE_TOL)."""
+    import numpy as np
+
+    from repro_torch.core import policy_api as PA
+    from repro_torch.core import trace
+    from repro_torch.core.costs import CostModel
+    from repro_torch.index.base import IndexSpec
+    from repro_torch.serve.answer_cache import AnswerCacheSpec
+    from repro_torch.serve.arrivals import ArrivalSpec
+    from repro_torch.serve.queue import (AdmissionConfig, BatchFormerConfig,
+                                         OnlineServingEngine, ServiceModel)
+    from repro_torch.serve.remote import FaultSpec, FaultyRemote
+    from repro_torch.serve.resilience import (BreakerConfig, ResilienceConfig,
+                                              ResilientPolicy, replay_resilient)
+
+    serving = json.loads(BENCH_SERVING.read_text())
+    resil = json.loads(BENCH_RESILIENCE.read_text())
+    answer = json.loads(BENCH_ANSWER.read_text())
+    n, d, t, h, k = (serving[f] for f in ("n", "d", "t", "h", "k"))
+    c_f = serving["c_f"]
+    cm = CostModel(c_f=c_f)
+    cat, reqs, _ = trace.sift_like(n=n, d=d, t=t, jitter=0.05, seed=17)
+    specs = {"acai": PA.PolicySpec("acai", {"h": h, "k": k, "batch": 8}),
+             "sim_lru": PA.PolicySpec("sim_lru", {"h": h, "k": k, "k_prime": 2 * k,
+                                                  "c_theta": 1.5 * c_f}),
+             "qcache": PA.PolicySpec("qcache", {"h": h, "k": k}),
+             "lru": PA.PolicySpec("lru", {"h": h, "k": k}),
+             "cls_lru": PA.PolicySpec("cls_lru", {"h": h, "k": k, "k_prime": 2 * k,
+                                                  "c_theta": 1.5 * c_f}),
+             "rnd_lru": PA.PolicySpec("rnd_lru", {"h": h, "k": k, "k_prime": 2 * k,
+                                                  "c_theta": 1.5 * c_f})}
+    in_files = ("acai", "sim_lru", "qcache")
+    worst = {"card_cpu": 0.0, "acai_file": 0.0, "baseline_file": 0.0}
+
+    def policy(label, where, answer_cache=None, index_spec=None, catalog=cat):
+        p = PA.build_policy(specs[label], catalog, cm, seed=0, device=where,
+                            answer_cache=answer_cache, index_spec=index_spec)
+        return InjectedUniforms(p, seed=5) if label == "acai" else p
+
+    def file_diff(label, nag, want, what):
+        if want is None:
+            return
+        diff = abs(nag - want)
+        kind = "acai_file" if label == "acai" else "baseline_file"
+        worst[kind] = max(worst[kind], diff)
+        log(f"  serving n=2000 {what}: NAG {nag} reference file {want} |diff|={diff}")
+        if diff > (ACAI_TOL if label == "acai" else BASELINE_TOL):
+            raise AssertionError(f"serving n=2000 {what}: NAG {nag} against the "
+                                 f"reference file's {want}")
+
+    def both(run, what, fields, label, want=None):
+        out = {where: run(where) for where in ("cpu", dev)}
+        for f in fields:
+            a, b = out["cpu"][f], out[dev][f]
+            same = (np.array_equal(a, b) if isinstance(a, np.ndarray) else a == b)
+            if not same:
+                raise AssertionError(f"serving n=2000 {what}: {f} differs card against CPU")
+        nags = {w: o["nag"] for w, o in out.items()}
+        diff = abs(nags["cpu"] - nags[dev])
+        worst["card_cpu"] = max(worst["card_cpu"], diff)
+        shown = {f: (f"{len(v)} entries" if isinstance(v, list) else v)
+                 for f, v in ((f, out[dev][f]) for f in fields)
+                 if not isinstance(v, np.ndarray)}
+        log(f"serving n=2000 {what}: NAG cpu={nags['cpu']} cuda={nags[dev]} |diff|={diff}; "
+            + ", ".join(f"{f}={v}" for f, v in shown.items()))
+        if diff > CARD_CPU_TOL:
+            raise AssertionError(f"serving n=2000 {what}: NAG card against CPU")
+        file_diff(label, nags[dev], want, what)
+
+    # BENCH_serving.json: every policy under poisson 0.8 and the closed
+    # loop, the file's three also under flash_crowd 1.2
+    service = ServiceModel(**serving["service"])
+    rows = {(r["label"], r["arrival"]["kind"], r["offered_load"]): r for r in serving["rows"]}
+    grid = [(label, "poisson", 0.8) for label in specs]
+    grid += [(label, "closed_loop", None) for label in specs]
+    grid += [(label, "flash_crowd", 1.2) for label in in_files]
+    eng_fields = ("arrival_ms", "form_ms", "done_ms", "latency_ms", "shed", "p50_ms",
+                  "p99_ms", "p999_ms", "batch_hist", "shed_share", "goodput_slo",
+                  "mean_batch", "max_queue_depth")
+    for label, kind, load in grid:
+        arrival = (ArrivalSpec(kind="closed_loop", users=16, think_ms=2.0,
+                               seed=serving["arrival_seed"]) if kind == "closed_loop"
+                   else ArrivalSpec(kind=kind, rate_rps=load * serving["capacity_rps"],
+                                    seed=serving["arrival_seed"]))
+
+        def run(where, label=label, arrival=arrival):
+            p = policy(label, where)
+            ops.reset_launches()
+            o = OnlineServingEngine(p, former=BatchFormerConfig(8, serving["window_ms"]),
+                                    admission=AdmissionConfig(queue_cap=serving["queue_cap"]),
+                                    service=service).run(reqs, arrival,
+                                                         slo_ms=serving["slo_ms"])
+            o["nag"] = float(o["gain"].sum()) / (p.k * p.c_f * max(o["served"], 1))
+            o["batch_hist"] = {str(a): b for a, b in o["batch_hist"].items()}
+            return o
+
+        row = rows.get((label, kind, load))
+        both(run, f"serving {label} {kind} {load}", eng_fields, label,
+             None if row is None else row["nag"])
+
+    # BENCH_resilience.json: every policy under the outage, the file's
+    # three also flaky and slow_spikes
+    base = dict(latency_ms=5.0, seed=3)
+    scen = {"flaky": (FaultSpec(error_rate=0.15, **base), ResilienceConfig(deadline_ms=250.0)),
+            "slow_spikes": (FaultSpec(latency_ms=40.0, latency_sigma=0.3, spike_every=64,
+                                      spike_width=16, spike_ms=400.0, seed=3),
+                            ResilienceConfig(deadline_ms=250.0, hedge_ms=80.0,
+                                             breaker=BreakerConfig(cooldown_requests=48))),
+            "outage": (FaultSpec(outages=((int(0.4 * t), int(0.6 * t)),), **base),
+                       ResilienceConfig(deadline_ms=250.0))}
+    rrows = {(r["label"], r["scenario"]): r for r in resil["rows"]}
+    cells = [(label, "outage") for label in specs]
+    cells += [(label, s) for label in in_files for s in ("flaky", "slow_spikes")]
+    res_fields = ("degraded", "shed", "remote_failures", "retries", "deadline_misses",
+                  "counters", "breaker_log", "p50_ms", "p99_ms", "goodput",
+                  "degraded_share", "shed_share")
+    for label, s in cells:
+        fault, rcfg = scen[s]
+
+        def run(where, label=label, fault=fault, rcfg=rcfg):
+            p = policy(label, where)
+            inner = p.pol if label == "acai" else p
+            rp = ResilientPolicy(inner, remote=FaultyRemote(fault), resilience=rcfg)
+            us = (np.stack([step_uniforms(5, i, n).numpy() for i in range(t // 8)])
+                  if label == "acai" else None)
+            o = replay_resilient(rp, reqs, batch=8,
+                                 uniforms=None if us is None else torch.from_numpy(us).to(
+                                     where))
+            o["nag"] = float(o["gain"].sum()) / (rp.k * rp.c_f * o["requests"])
+            return o
+
+        row = rrows.get((label, s))
+        both(run, f"resilience {label} {s}", res_fields, label,
+             None if row is None else row["nag"])
+
+    # BENCH_answer_cache.json: AÇAI over flat on the Zipf trace and the
+    # rolling catalog, the cache on and in pass-through, and the engine's
+    # fast path
+    from repro_torch.core import churn
+
+    zcat, zreqs, _ = trace.sift_like(n=n, d=d, t=t, zipf_a=answer["zipf_a"], jitter=0.0,
+                                     seed=17)
+    rcat, rreqs, _ = trace.rolling_catalog(n=n, d=d, t=t, churn_rate=answer["churn_rate"],
+                                           warm=answer["churn_warm"], seed=17)
+    revents = trace.rolling_catalog_events(n=n, t=t, churn_rate=answer["churn_rate"],
+                                           warm=answer["churn_warm"])
+    n_warm = churn.warm_size(n, answer["churn_warm"])
+    arows = {(r["scenario"], r["index"]["backend"], r["cache"]): r for r in answer["rows"]}
+    ac_fields = ("answer_hits", "hit_rate", "invalidations", "inv_remove", "inv_add",
+                 "scans_skipped")
+    for scenario in ("zipf", "rolling_catalog"):
+        for cap in (answer["answer_capacity"], 0):
+            def run(where, scenario=scenario, cap=cap):
+                spec = AnswerCacheSpec(capacity=cap)
+                if scenario == "zipf":
+                    p = policy("acai", where, spec, IndexSpec("flat"), zcat)
+                    r = PA.replay_trace_steps(p, zreqs, batch=8)
+                else:
+                    p = policy("acai", where, spec, IndexSpec("flat"), rcat[:n_warm]).pol
+                    r = churn.replay_with_churn(p, rcat, rreqs, revents, batch=8,
+                                                uniforms_fn=lambda i, nn: step_uniforms(
+                                                    5, i, nn))
+                st = p.answer_cache.stats()
+                o = {f: st[f] for f in ac_fields[1:]}
+                o["answer_hits"] = st["hits"]
+                o["nag"] = p.normalized_gain(float(r["gain"].sum()), r["requests"])
+                return o
+
+            row = arows.get((scenario, "flat", "on" if cap else "off"))
+            both(run, f"answer cache {scenario} flat {'on' if cap else 'off'}", ac_fields,
+                 "acai", None if row is None else row["nag"])
+
+    def run_engine(where):
+        p = policy("acai", where, AnswerCacheSpec(capacity=answer["answer_capacity"]),
+                   IndexSpec("flat"), zcat)
+        sm = ServiceModel()
+        o = OnlineServingEngine(p, former=BatchFormerConfig(8, 5.0), service=sm).run(
+            zreqs, ArrivalSpec(kind="poisson", rate_rps=0.8 * sm.capacity_rps(8),
+                               seed=answer["arrival_seed"]))
+        o["nag"] = p.normalized_gain(float(o["gain"].sum()), o["requests"])
+        return o
+
+    both(run_engine, "answer cache engine fast path",
+         ("answer_hit", "answer_hit_rate", "p50_user_ms", "p99_user_ms", "p50_hit_ms",
+          "p50_miss_ms", "user_latency_ms"), "acai")
+    log(f"serving n=2000: worst |NAG diff| card against CPU {worst['card_cpu']} "
+        f"(<= {CARD_CPU_TOL}); against the reference files: AÇAI {worst['acai_file']} "
+        f"(<= {ACAI_TOL}), baselines {worst['baseline_file']} (<= {BASELINE_TOL})")
+
+
+def serving_phase(torch, ops, dev):
+    """The serving tier on the card: (a) the answer cache on
+    answer_cache_bench.py's Zipf and flash-crowd traces and its rolling
+    catalog, (b) the resilient tier and (c) the online engine on the
+    slice's sift_like, all at 1M x 128; then the n 2000 parity against the
+    CPU port and the reference's files.  Launches are counted by shape into
+    SERVING_SHAPES (the rolling catalog's into SERVING_CHURN_SHAPES)."""
+    from repro_torch.core import oma, policy, trace
+    from repro_torch.core.costs import calibrate_fetch_cost
+
+    t_phase = time.perf_counter()
+    traces = {}
+    for name, make, backends in (
+            ("zipf", lambda: trace.sift_like(**SERVE_ZIPF), ("flat", "ivf", "ivfpq")),
+            ("flash_crowd", lambda: trace.flash_crowd(**SERVE_CROWD), ("flat", "ivf"))):
+        t0 = time.perf_counter()
+        cat, reqs, ids = make()
+        c_f = calibrate_fetch_cost(cat, kth=50, device=dev)
+        traces[name] = (cat, reqs, c_f, backends)
+        log(f"serving: {name} {N_FULL} x {D_FULL}: {len(set(ids.tolist()))} distinct "
+            f"objects in {T_FULL} requests, c_f {c_f} ({time.perf_counter() - t0} s)")
+    cfg = policy.AcaiConfig(h=H_FULL, k=K_FULL, c_f=1.0)
+    state0 = policy.init_state(N_FULL, cfg, seed=0, device=dev)
+    total = Counter()
+    t0 = time.perf_counter()
+    serving_answer_cache(torch, ops, dev, traces, state0)
+    log(f"serving: (a) answer cache {time.perf_counter() - t0} s")
+    del traces
+    t0 = time.perf_counter()
+    serving_churn(torch, ops, dev)
+    log(f"serving: (a) rolling catalog {time.perf_counter() - t0} s")
+    t0 = time.perf_counter()
+    cat, reqs, _ = trace.sift_like(n=N_FULL, d=D_FULL, t=T_FULL, seed=0)
+    c_f = calibrate_fetch_cost(cat, kth=50, device=dev)
+    log(f"serving: the slice's sift_like {N_FULL} x {D_FULL}, c_f {c_f} "
+        f"({time.perf_counter() - t0} s)")
+    t0 = time.perf_counter()
+    serving_resilience(torch, ops, dev, cat, reqs, c_f, state0)
+    log(f"serving: (b) resilience {time.perf_counter() - t0} s")
+    t0 = time.perf_counter()
+    serving_engine(torch, ops, dev, cat, reqs, c_f, state0)
+    log(f"serving: (c) online engine {time.perf_counter() - t0} s")
+    del cat, reqs, state0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    serving_small(torch, ops, dev)
+    log(f"serving: n=2000 card against CPU {time.perf_counter() - t0} s")
+    for (name, _), v in list(SERVING_SHAPES.items()) + list(SERVING_CHURN_SHAPES.items()):
+        total[name] += v
+    log(f"serving: phase {time.perf_counter() - t_phase} s; launches at 1M {dict(total)}")
 
 
 def flash_phase(torch, ops, ref, dev):
@@ -1470,13 +2326,12 @@ def lm_parity_phase(torch, ops, dev):
 
 
 def lm_slice_phase(torch, ops, card: str):
-    """qwen1.5-0.5b at full width through the launcher; returns the summed
-    launch counts."""
+    """qwen1.5-0.5b at full width through the launcher (launches counted by
+    shape into MAIN_SHAPES)."""
     from repro_torch.configs import get_config
     from repro_torch.launch import serve as lm_serve
 
     n_layers = get_config(LM_ARCH).n_layers
-    total = {name: 0 for name in ops.LAUNCHES}
     for name, argv in LM_RUNS.items():
         ops.reset_launches()
         torch.cuda.synchronize()
@@ -1515,13 +2370,14 @@ def lm_slice_phase(torch, ops, card: str):
                 f"lm slice {name}: flash_attention_wgmma launched "
                 f"{counts['flash_attention_wgmma']} times and the FMA flash kernel "
                 f"{counts['flash_attention']} for {prefills} prefills of {n_layers} layers")
-        for k in total:
-            total[k] += counts[k]
         MAIN_SHAPES.update(ops.SHAPE_LAUNCHES)
-    return total
 
 
 def main() -> int:
+    only = sys.argv[1:] == ["--only", "serving"]
+    if sys.argv[1:] and not only:
+        print("usage: chip_smoke.py [--only serving]", file=sys.stderr)
+        return 2
     if not (SRC / "repro_torch").is_dir():
         print(f"chip_smoke: {SRC / 'repro_torch'} not found — run from the "
               f"repository", file=sys.stderr)
@@ -1557,6 +2413,13 @@ def main() -> int:
                                    if any(w in line for w in ("registers", "spill",
                                                               "arning"))))
 
+    if only:
+        # a quick look at one phase while it is worked on: no kernels line
+        # and no result line
+        serving_phase(torch, ops, dev)
+        log(f"total: {time.perf_counter() - t_start} s (--only serving: no result)")
+        return 0
+
     t0 = time.perf_counter()
     cat_np, reqs_np, _ = trace.sift_like(n=N_FULL, d=D_FULL, t=T_FULL, seed=0)
     catalog = torch.from_numpy(cat_np).to(dev)
@@ -1578,31 +2441,43 @@ def main() -> int:
 
     kernel_phase(torch, ops, ref, catalog, reqs, ivf_index, pq_index, dev)
     parity_phase(torch, ops, dev)
-    launches = slice_phase(torch, ops, cat_np, reqs_np, dev)
-    pol_launches = policies_phase(torch, ops, cat_np, reqs_np, dev)
+    slice_phase(torch, ops, cat_np, reqs_np, dev)
+    policies_phase(torch, ops, cat_np, reqs_np, dev)
     del cat_np, reqs_np
     torch.cuda.empty_cache()
-    churn_cases, churn_launches = churn_phase(torch, ops, ref, dev)
+    churn_cases = churn_phase(torch, ops, ref, dev)
+    serving_phase(torch, ops, dev)
+    MAIN_SHAPES.update(SERVING_SHAPES)
+    CHURN_SHAPES.update(SERVING_CHURN_SHAPES)
 
     flash_phase(torch, ops, ref, dev)
     topk_wide_phase(torch, ops, ref, dev)
     torch.cuda.empty_cache()
     lm_parity_phase(torch, ops, dev)
-    lm_launches = lm_slice_phase(torch, ops, card)
+    lm_slice_phase(torch, ops, card)
     # last: once torch.profiler has traced the card, every later launch in
     # this process pays its callbacks, so no host-clock figure comes after
     rows = shapes_phase(torch, ops, ref, catalog, reqs, ivf_index, pq_index, dev,
                         churn_cases)
     del ivf_index, pq_index, catalog, reqs, churn_cases
     for name in sorted({k for k, _ in MAIN_SHAPES}):
-        total = launches[name] + pol_launches[name] + lm_launches[name]
+        total = sum(n for (k, _), n in MAIN_SHAPES.items() if k == name)
         log(f"main path {name}: {total} launches; by shape: "
             + ", ".join(f"{dims} x {n}" for (k, dims), n in sorted(MAIN_SHAPES.items())
                         if k == name))
     for name in sorted({k for k, _ in CHURN_SHAPES}):
-        log(f"churn path {name}: {churn_launches[name]} launches; by shape: "
+        total = sum(n for (k, _), n in CHURN_SHAPES.items() if k == name)
+        log(f"churn path {name}: {total} launches; by shape: "
             + ", ".join(f"{dims} x {n}" for (k, dims), n in sorted(CHURN_SHAPES.items())
                         if k == name))
+    # the serving phase's shapes: each a row's (none expected new: they
+    # are the retrieval slice's and the churn path's)
+    for counts in (SERVING_SHAPES, SERVING_CHURN_SHAPES):
+        for (name, dims), n in sorted(counts.items()):
+            rowed = any(shape_launches(Counter({(name, dims): 1}), *r["key"])
+                        for r in rows)
+            log(f"serving path {name} {dims} x {n}: "
+                f"{'a row of the kernels line' if rowed else 'NEW to the main path, no row'}")
     for row in rows:
         row["launches"] = shape_launches(CHURN_SHAPES if row.pop("churn") else MAIN_SHAPES,
                                          *row.pop("key"))

@@ -390,6 +390,14 @@ def cases(torch, ops, ref, catalog, reqs, ivf_index, pq_index, dev, wide=True):
                      3.0 * nvalid * d))
         topk(f"flat index B {b}", q, catalog, K_REMOTE)
         pq_cases(b, q)
+    # the online engine's partial batches (its batch window forms 1 to 7
+    # requests): AÇAI's step over the flat index at each size
+    rows = catalog[torch.randperm(n, device=dev, generator=gen)[:CAP]].contiguous()
+    for b in range(1, 8):
+        q = reqs[:b].contiguous()
+        topk(f"flat index, partial batch B {b}", q, catalog, K_REMOTE)
+        l2(f"topk_l2 sample bound, partial batch B {b}", q, catalog[:SAMPLE])
+        l2(f"cached-row scan, partial batch B {b}", q, rows)
     # the baselines' server oracle and c_f's calibration (queries: requests,
     # and catalog rows for the calibration, as calibrate_fetch_cost takes)
     cal = catalog[torch.randperm(n, device=dev, generator=gen)[:CF_SAMPLE]].contiguous()
@@ -460,6 +468,14 @@ def churn_cases(torch, ops, ref, reqs, flat, ivf, pq, dev, b: int = 8):
                     "iters": iters})
 
     slab, valid = flat.embeddings, flat.valid
+    # a rolling catalog before its first insert: the warm half, unmasked
+    warm = slab[:cap // 2]
+    add("l2_topk", f"churn: flat index B {b} before the first insert",
+        f"Q={b} N={cap // 2} D={d} k={K_REMOTE}", ("l2_topk", (b, cap // 2, d, K_REMOTE)),
+        lambda: ops.topk_l2(q, warm, K_REMOTE), lambda: ref.l2_topk_ref(q, warm, K_REMOTE),
+        lambda: torch.topk(torch.cdist(q, warm), K_REMOTE, largest=False),
+        bound_ms(4.0 * (cap // 2 * d + b * d) + 8.0 * b * K_REMOTE,
+                 2.0 * b * cap // 2 * d, TF32_FLOPS))
     add("l2_topk", f"churn: flat index masked B {b}",
         f"Q={b} N={cap} live={n_live} D={d} k={K_REMOTE}", ("l2_topk", (b, cap, d, K_REMOTE)),
         lambda: ops.topk_l2(q, slab, K_REMOTE, valid=valid),

@@ -34,8 +34,8 @@ logic stays untouched.
 
 Geometric tests (QCACHE) run in *Euclidean* distance (triangle inequality);
 costs are whatever the CostModel says (squared Euclidean by default), as in
-the paper's experiments.  `step_degraded` (the resilient tier, ROADMAP A9)
-raises NotImplementedError.
+the paper's experiments.  `step_degraded` is the resilient tier's
+local-only serve under a remote failure (`repro_torch.serve.resilience`).
 """
 
 from __future__ import annotations
@@ -48,7 +48,6 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.core.policy import _NOT_PORTED
 from repro_torch.kernels import ops
 
 
@@ -562,10 +561,37 @@ class KeyValueCache:
         cost = self.oracle.empty_cost(t, self.k, self.c_f, self.metric)
         return StepResult(cost, 0.0, False, 0, self.k_prime)
 
-    def step_degraded(self, r_emb, *, ceiling: float = 2.0):
-        """Remote-failure serve of the resilient tier."""
-        raise NotImplementedError(_NOT_PORTED.format(
-            item=9, what="degraded serving under remote failure"))
+    def step_degraded(self, r_emb: np.ndarray, *, ceiling: float = 2.0):
+        """Remote-failure serve of the resilient tier: answer from cached
+        objects only.  No oracle read and no entry insert or touch — the
+        LRU state must not learn from a request whose fetch failed.
+        Cached objects within `ceiling x` the request's best healthy-serve
+        cost (nearest catalog dissimilarity + c_f, the ceiling of
+        `repro_torch.serve.resilience.degraded_serve`) are eligible; with
+        none the request is shed.  The empty-cache reference cost is
+        computed locally against the live catalog (distances are
+        edge-local metadata), so gains stay comparable with the healthy
+        path's.
+
+        Returns (StepResult, shed: bool)."""
+        r_emb = np.asarray(r_emb, np.float32)
+        valid = getattr(self.oracle, "valid", None)
+        cat = (self.catalog if valid is None
+               else self.catalog[valid[: len(self.catalog)]])
+        d_all = self._cost(np.sort(_dist2(r_emb, cat))[: self.k])
+        empty_slots = d_all + self.c_f  # j-th cheapest all-remote answer
+        empty_cost = float(empty_slots.sum())
+        ids = self.cached_object_ids()
+        if ids.size == 0:
+            return StepResult(empty_cost, 0.0, False, 0, 0), True
+        d_loc = self._cost(np.sort(_dist2(r_emb, self.catalog[ids])))
+        d_loc = d_loc[d_loc <= ceiling * (d_all[0] + self.c_f)][: self.k]
+        if d_loc.size == 0:
+            return StepResult(empty_cost, 0.0, False, 0, 0), True
+        # per-slot pairing against the empty-cache answer, clamped at 0
+        gain = float(np.maximum(empty_slots[: d_loc.size] - d_loc, 0.0).sum())
+        return StepResult(float(d_loc.sum()), gain, True, int(d_loc.size),
+                          0), False
 
     # -- per-policy hooks ---------------------------------------------------
 

@@ -47,18 +47,41 @@ class StepMetrics(NamedTuple):
     fetched: torch.Tensor       # cache-update traffic (objects fetched)
     occupancy: torch.Tensor     # sum x_{t+1}
     # the reference's debug counter (cached rows past the candidate
-    # generator's gather) and its resilient-serving and answer-tier
-    # counters: 0 on every path ported so far (the AÇAI step leaves the
-    # int default; the baselines fill them with zero arrays)
+    # generator's gather; not ported, so 0)
     local_overflow: torch.Tensor | int = 0
-    degraded: torch.Tensor | int = 0
-    shed: torch.Tensor | int = 0
-    remote_failures: torch.Tensor | int = 0
-    retries: torch.Tensor | int = 0
-    deadline_misses: torch.Tensor | int = 0
-    answer_hits: torch.Tensor | int = 0
-    answer_misses: torch.Tensor | int = 0
-    answer_invalidations: torch.Tensor | int = 0
+    # resilient-serving counters: 0 on the fault-free path, filled by
+    # repro_torch.serve.resilience when a remote backend is attached
+    degraded: torch.Tensor | int = 0         # served locally under failure
+    shed: torch.Tensor | int = 0             # failed, nothing local in ceiling
+    remote_failures: torch.Tensor | int = 0  # the request's remote tier failed
+    retries: torch.Tensor | int = 0          # extra attempts beyond the first
+    deadline_misses: torch.Tensor | int = 0  # deadline budget exceeded
+    # answer-tier counters: 0 without an answer cache, booked on the host
+    # (int32 CPU tensors) by AcaiCache._serve_batch_direct
+    answer_hits: torch.Tensor | int = 0      # the request's answer was memoized
+    answer_misses: torch.Tensor | int = 0    # the request needed the scan
+    answer_invalidations: torch.Tensor | int = 0  # entries dropped by churn
+    #                                               since the previous step
+    #                                               (on the batch's first row)
+
+
+def shed_only_metrics(batch: int) -> StepMetrics:
+    """StepMetrics rows for requests that never reached a policy step:
+    zero gain, cost and occupancy with shed = 1 on every row (CPU tensors).
+
+    The online serving engine's admission control books its victims
+    through this helper, so engine-level shedding lands in the same
+    counters the resilient tier fills."""
+    zf = torch.zeros(batch, dtype=torch.float64)
+    zi = torch.zeros(batch, dtype=torch.int32)
+    return StepMetrics(
+        gain_int=zf, gain_frac=zf.clone(), cost=zf.clone(),
+        served_local=zi, fetched=zi.clone(), occupancy=zf.clone(),
+        local_overflow=zi.clone(), degraded=zi.clone(),
+        shed=torch.ones(batch, dtype=torch.int32), remote_failures=zi.clone(),
+        retries=zi.clone(), deadline_misses=zi.clone(),
+        answer_hits=zi.clone(), answer_misses=zi.clone(),
+        answer_invalidations=zi.clone())
 
 
 def first_row(m: StepMetrics) -> StepMetrics:
@@ -369,6 +392,17 @@ def copy_state(state: CacheState, seed: int = 0) -> CacheState:
 _NOT_PORTED = "not ported yet (ROADMAP A{item}: {what})"
 
 
+def host_rows(rs):
+    """A (B, d) float32 numpy copy of a request batch that lies on the host
+    (numpy, a list or a CPU tensor), else None: the answer tier hashes
+    these bytes, so a batch on the card is never read back for its keys."""
+    if isinstance(rs, torch.Tensor):
+        if rs.device.type != "cpu":
+            return None
+        rs = rs.detach().numpy()
+    return np.atleast_2d(np.ascontiguousarray(rs, dtype=np.float32))
+
+
 def batched_view(candidate_fn: Callable) -> Callable:
     """A per-request generator fn(r (d,), x) -> (ids (C,), d (C,), valid
     (C,)) as a batched one: the requests one after another, the outputs
@@ -393,11 +427,17 @@ class AcaiCache:
     candidates.  The escape hatches `candidate_fn` (per request) and
     `candidate_fn_batched` override the spec-built generator (passing one
     beside `cfg.index` warns, as in the reference).  The catalog mutates
-    online (`add_objects`, `remove_objects`, `refresh*`, `compact`); the
-    mesh, remote-backend and answer-cache surfaces of the reference raise
-    NotImplementedError naming the ROADMAP item that ports them.  `state`
-    starts the cache from a given CacheState (it must lie on `device`)
-    instead of running `init_state`."""
+    online (`add_objects`, `remove_objects`, `refresh*`, `compact`).
+
+    `answer_cache` (an AnswerCacheSpec, its dict, a capacity int or True)
+    fronts the spec-built index with the exact answer memo
+    (`repro_torch.serve.answer_cache.CachedIndex`), and the cache then
+    serves through the mutable step from step 0 (the step that queries
+    the index eagerly, where the memo sits).  `remote` / `resilience`
+    attach the resilient remote tier (`attach_remote`).  The mesh (ROADMAP
+    A11) raises NotImplementedError.  `state` starts the cache from a
+    given CacheState (it must lie on `device`) instead of running
+    `init_state`."""
 
     def __init__(self, catalog, cfg, seed: int = 0, device=None,
                  state: CacheState | None = None, mesh=None, remote=None,
@@ -406,12 +446,6 @@ class AcaiCache:
         if mesh is not None:
             raise NotImplementedError(_NOT_PORTED.format(
                 item=11, what="the sharded step over a mesh"))
-        if remote is not None or resilience is not None:
-            raise NotImplementedError(_NOT_PORTED.format(
-                item=9, what="resilient serving against a remote backend"))
-        if answer_cache is not None:
-            raise NotImplementedError(_NOT_PORTED.format(
-                item=9, what="the answer-cache tier"))
         if not isinstance(cfg, AcaiConfig):
             from repro_torch.core.costs import CostModel
             from repro_torch.core.policy_api import (acai_config_from_spec,
@@ -465,32 +499,85 @@ class AcaiCache:
             self._fn_batched = exact_candidate_fn_batched(
                 self.catalog, cfg.c_remote, cfg.c_local)
         self._bsteps: dict[int, Callable] = {}
+        # the answer tier: a CachedIndex around the spec-built index, served
+        # through the mutable step, whose eager `index.query` is where the
+        # memo sits
+        from repro_torch.serve.answer_cache import CachedIndex, resolve_answer_cache_spec
+
+        self.answer_cache = None
+        ac_spec = resolve_answer_cache_spec(answer_cache)
+        if ac_spec is not None:
+            if self._custom_fn:
+                raise ValueError(
+                    "answer_cache= cannot front an explicit candidate_fn*: the "
+                    "tier memoizes `Index.query` answers — drop the escape "
+                    "hatch or the spec")
+            if self.index is None:
+                raise ValueError(
+                    "answer_cache= fronts an index backend; set cfg.index "
+                    "(IndexSpec('flat') gives the exact fused scan)")
+            self.index = self.answer_cache = CachedIndex(self.index, ac_spec)
+            self._enter_mutable()
         if state is None:
             state = init_state(n, cfg, seed=seed, device=self.device)
         elif state.y.device != self.device or state.y.shape[0] != n:
             raise ValueError("state must lie on the cache's device and match "
                              "the catalog size")
         self.state = state
+        # the resilient mode: None until a remote backend is attached
+        self._res = None
+        if remote is not None or resilience is not None:
+            self.attach_remote(remote, resilience)
+
+    def attach_remote(self, remote=None, resilience=None):
+        """Switch serving to the resilient mode: each request first runs
+        its remote interaction (retries, hedging, deadline, circuit
+        breaker) against `remote`, a `repro_torch.serve.remote` backend
+        (None: the always-ok `OracleRemote`), and failed requests are
+        served through the degradation ladder.  A batch whose every
+        request succeeds takes the ordinary step, so a healthy backend
+        leaves serving bitwise unchanged.  Returns the `AcaiResilience`
+        controller (counters, breaker log, reports)."""
+        from repro_torch.serve.resilience import AcaiResilience
+
+        self._res = AcaiResilience(self, remote, resilience)
+        return self._res
 
     def serve_update(self, r: torch.Tensor, u=None) -> StepMetrics:
         """Serve one request (d,) and update: the B = 1 batched step."""
         m = self.serve_update_batch(torch.as_tensor(r)[None, :], u)
         return first_row(m)
 
-    def serve_update_batch(self, rs: torch.Tensor, u=None) -> StepMetrics:
+    def serve_update_batch(self, rs, u=None) -> StepMetrics:
         """Serve a request mini-batch (B, d): one OMA + rounding update for
         the whole batch, per-request StepMetrics (B,).  `u` optionally
-        injects the step's N rounding uniforms."""
+        injects the step's N rounding uniforms.  With a remote backend
+        attached (`attach_remote`) the batch goes through the resilience
+        ladder.  A batch given on the host keeps its host copy for the
+        answer tier's keys."""
+        host = host_rows(rs) if self.answer_cache is not None else None
         rs = torch.atleast_2d(torch.as_tensor(rs, dtype=torch.float32)).to(
             self.device).contiguous()
         check_finite_queries(rs, "AcaiCache.serve_update_batch")
+        if self._res is not None:
+            return self._res.serve_update_batch(rs, u=u, host=host)
+        return self._serve_batch_direct(rs, u=u, host=host)
+
+    def _serve_batch_direct(self, rs: torch.Tensor, u=None, host=None) -> StepMetrics:
+        """The fault-oblivious step on a (B, d) batch on the cache's device
+        (also the all-ok path of the resilient mode, which keeps fault rate
+        0 bitwise identical); `host` is its host copy, if any."""
         b = rs.shape[0]
         if self._mutated:
+            if self.answer_cache is not None:
+                self.answer_cache.stage(host)
             ids, d, valid = self._mut_fn(rs, self.state.x)
             step = self._mut_steps.get(b)
             if step is None:
                 step = self._mut_steps[b] = make_mutable_step(self.cfg, b)
             self.state, metrics = step(self.state, ids, d, valid, self.valid, u)
+            if self.answer_cache is not None:
+                metrics = metrics._replace(**self.answer_cache.step_counters(b))
             return metrics
         step = self._bsteps.get(b)
         if step is None:
@@ -621,10 +708,6 @@ class AcaiCache:
     def live_count(self) -> int:
         """Live (non-tombstoned) catalog objects."""
         return self._live
-
-    def attach_remote(self, *_args, **_kw):
-        raise NotImplementedError(_NOT_PORTED.format(
-            item=9, what="resilient serving against a remote backend"))
 
     @property
     def cached_ids(self) -> torch.Tensor:

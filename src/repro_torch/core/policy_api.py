@@ -28,10 +28,13 @@ down:
   vectorized per mini-batch on the host
   (`repro_torch.core.baselines.KeyValueCache.step_batch`).
 
-Not ported yet, each raising NotImplementedError naming its ROADMAP item:
-`mesh=` (A11), `answer_cache=` and `replay_trace_online` (A9).  Every
-policy's catalog mutates online (`add_objects`, `remove_objects`,
-`refresh`, `compact`; the churn replay is `repro_torch.core.churn`).
+AÇAI's `answer_cache=` fronts its index with the exact answer memo
+(`repro_torch.serve.answer_cache`); the baselines reject it, as in the
+reference.  `replay_trace_online` drives any policy through the online
+serving engine (`repro_torch.serve.queue`).  Every policy's catalog
+mutates online (`add_objects`, `remove_objects`, `refresh`, `compact`; the
+churn replay is `repro_torch.core.churn`).  `mesh=` (ROADMAP A11) raises
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -48,7 +51,7 @@ from repro_torch.core import baselines as B
 from repro_torch.core import oma as oma_lib
 from repro_torch.core import policy as acai
 from repro_torch.core.costs import CostModel
-from repro_torch.core.policy import _NOT_PORTED, StepMetrics, first_row
+from repro_torch.core.policy import StepMetrics, first_row
 
 
 @runtime_checkable
@@ -211,9 +214,11 @@ def build_policy(spec, catalog, cost_model: CostModel, *, oracle=None,
     cost_model supplies (c_f, metric); spec params `c_f` / `metric`
     override it.  oracle: the trace's shared `ServerOracle` (baselines;
     built online on `device` when omitted); AÇAI ignores it.  index_spec:
-    AÇAI's remote-catalog index; baselines reject it.  mesh /
-    answer_cache: not ported (AÇAI raises naming A11 / A9; baselines
-    reject them as in the reference).  seed: rounding / randomized-policy
+    AÇAI's remote-catalog index; baselines reject it.  answer_cache:
+    AÇAI's answer memo in front of that index (an AnswerCacheSpec, its
+    dict, a capacity int or True; baselines reject it).  mesh: not ported
+    (AÇAI raises naming A11; baselines reject it as in the reference).
+    seed: rounding / randomized-policy
     seed (a spec param `seed` wins).  device: where AÇAI runs and an
     online oracle scans, the card by default.
 
@@ -307,6 +312,13 @@ class AcaiPolicy:
                                     mesh=mesh, answer_cache=answer_cache)
         self.cfg = self.cache.cfg
 
+    @property
+    def answer_cache(self):
+        """The `CachedIndex` wrapper when the answer tier is on (None
+        otherwise): the serving engine's fast path and the launcher read
+        its hit statistics through it."""
+        return self.cache.answer_cache
+
     k = property(lambda self: self.cfg.k)
     c_f = property(lambda self: self.cfg.c_f)
     h = property(lambda self: self.cfg.h)
@@ -346,13 +358,15 @@ class AcaiPolicy:
         return self.cache.normalized_gain(total_gain, t)
 
     def replay(self, reqs, ts=None, time_reps: int = 5, uniforms=None) -> dict:
+        dev = self.cache.device
+        if uniforms is not None:
+            uniforms = torch.as_tensor(uniforms, dtype=torch.float32).to(dev)
         if self.cache._mutated:
             # the batched replay closes over the static structures; a
-            # mutated cache replays through its own steps
-            if uniforms is not None:
-                raise TypeError("a mutated AcaiPolicy replays without injected uniforms")
-            return replay_trace_steps(self, reqs, ts, batch=self.batch)
-        dev = self.cache.device
+            # mutated cache (or one with the answer tier, which serves
+            # through the mutable step) replays through its own steps
+            return replay_trace_steps(self, reqs, ts, batch=self.batch,
+                                      uniforms=uniforms)
         reqs = torch.as_tensor(reqs, dtype=torch.float32).to(dev).contiguous()
         t, b = reqs.shape[0], self.batch
         tt = (t // b) * b
@@ -368,8 +382,6 @@ class AcaiPolicy:
             _sync(dev)
             times.append(time.perf_counter() - t0)
         replay = acai.make_replay_batched(self.cfg, self.cache._fn_batched, b)
-        if uniforms is not None:
-            uniforms = torch.as_tensor(uniforms, dtype=torch.float32).to(dev)
         state, m = replay(state0, reqs[:tt], uniforms)
         self.cache.state = state
         return {
@@ -543,11 +555,13 @@ def replay_trace(pol: CachePolicy, reqs, ts=None, *, batch: int = 8,
 
 
 def replay_trace_steps(pol: CachePolicy, reqs, ts=None, *,
-                       batch: int = 8) -> dict:
+                       batch: int = 8, uniforms=None) -> dict:
     """The mini-batch stepping loop behind `replay_trace`: mini-batches of
     `batch` requests (a tail that does not fill one is dropped, as
     make_replay_batched does), per-request metric arrays and the p50 step
-    latency (host clock; AÇAI's device is synchronised around a step)."""
+    latency (host clock; AÇAI's device is synchronised around a step).
+    `uniforms` (T / batch, N), AÇAI only, injects each step's rounding
+    uniforms.  The batches go to the policy on the host."""
     reqs = np.asarray(reqs)
     t = reqs.shape[0]
     tt = (t // batch) * batch
@@ -564,8 +578,9 @@ def replay_trace_steps(pol: CachePolicy, reqs, ts=None, *,
         _sync(dev)
         t0 = time.perf_counter()
         # ts=None stays None per batch: the online-oracle path must fire
+        kw = {} if uniforms is None else {"u": uniforms[s // batch]}
         m = pol.serve_update_batch(reqs[s:s + batch],
-                                   None if ts is None else ts[s:s + batch])
+                                   None if ts is None else ts[s:s + batch], **kw)
         _sync(dev)
         times.append(time.perf_counter() - t0)
         out["gain"].append(_np(m.gain_int, np.float64))
@@ -585,10 +600,27 @@ def replay_trace_steps(pol: CachePolicy, reqs, ts=None, *,
     return res
 
 
-def replay_trace_online(pol: CachePolicy, reqs, arrivals, **kw) -> dict:
-    """The arrival-aware replay through the online serving engine."""
-    raise NotImplementedError(_NOT_PORTED.format(
-        item=9, what="the online serving engine's queue"))
+def replay_trace_online(pol: CachePolicy, reqs, arrivals, *,
+                        former=None, admission=None, service=None,
+                        catalog=None, events=(), slo_ms=None) -> dict:
+    """Drive a trace through the online serving engine
+    (`repro_torch.serve.queue`): requests arrive on the virtual clock per
+    `arrivals` (an `ArrivalSpec`, a times array or a ready source), queue,
+    are coalesced by the dynamic batch former and may be shed by admission
+    control, so the result adds queueing, latency and shed fields to the
+    per-request gain / cost arrays.  Works for every registered policy
+    (the engine calls `serve_update_batch(rs, None)` and, with `events`,
+    the mutation surface).  The defaults are BatchFormerConfig(),
+    AdmissionConfig() and ServiceModel()."""
+    from repro_torch.serve.queue import (AdmissionConfig, BatchFormerConfig,
+                                         ServiceModel, serve_trace_online)
+
+    return serve_trace_online(
+        pol, reqs, arrivals,
+        former=BatchFormerConfig() if former is None else former,
+        admission=AdmissionConfig() if admission is None else admission,
+        service=ServiceModel() if service is None else service,
+        catalog=catalog, events=events, slo_ms=slo_ms)
 
 
 # Smallest sensible spec params per registered policy (fractions of a

@@ -12,6 +12,31 @@ from __future__ import annotations
 import torch
 
 _TINY = 1e-30
+_SCAN_ROW = 1024  # the row width of `suffix_sum`'s two-level scan
+
+
+def suffix_sum(v: torch.Tensor) -> torch.Tensor:
+    """Suffix sums of a 1-D tensor, `out[i] = sum(v[i:])`, added from the
+    end (the small tail entries of a descending vector first), in an order
+    fixed by the length alone.
+
+    PyTorch scans a tensor whose every element lies on the scanned
+    dimension with CUB's decoupled look-back on CUDA, which takes a tile's
+    prefix from its predecessors' partial sums in whatever order they come
+    ready, so two runs may differ in the last bit.  Here the reversed
+    vector is laid out as rows of `_SCAN_ROW` (at least two rows), each row
+    scanned on its own, and the rows' totals scanned as a row beside a row
+    of zeros: PyTorch scans those along the last dimension block by block,
+    in a fixed order."""
+    n = v.shape[0]
+    rows = max(2, -(-n // _SCAN_ROW))
+    w = torch.nn.functional.pad(torch.flip(v, (0,)), (0, rows * _SCAN_ROW - n))
+    within = torch.cumsum(w.reshape(rows, _SCAN_ROW), dim=1)
+    totals = within[:-1, -1]
+    # each row's offset: the totals of the rows before it
+    before = torch.cumsum(torch.stack([totals, torch.zeros_like(totals)]), dim=1)[0]
+    before = torch.cat([torch.zeros_like(before[:1]), before])
+    return torch.flip((within + before[:, None]).reshape(-1)[:n], (0,))
 
 
 def _negentropy_scale_from_sorted(zs_desc: torch.Tensor, tail_sum, h):
@@ -21,8 +46,9 @@ def _negentropy_scale_from_sorted(zs_desc: torch.Tensor, tail_sum, h):
     a = zs_desc.shape[0]
     m = torch.arange(a, dtype=zs_desc.dtype, device=zs_desc.device)
     # reversed cumsum: accumulates the small tail entries first — avoids
-    # the float32 cancellation of the (total - prefix) formulation
-    suffix = torch.flip(torch.cumsum(torch.flip(zs_desc, (0,)), 0), (0,))
+    # the float32 cancellation of the (total - prefix) formulation — in a
+    # fixed order, so two runs on the card agree to the last bit
+    suffix = suffix_sum(zs_desc)
     denom = torch.clamp_min(suffix + tail_sum, _TINY)
     s_m = (h - m) / denom
     # consistency: first uncapped scaled <= 1, last capped scaled >= 1

@@ -106,7 +106,7 @@ class NSWIndex(MutableRows):
     exact_distances = True  # candidates scored with exact L2
     # answer-cache capability flags, as the reference sets them: insertion
     # rewires existing nodes' edges and the first tombstone switches the
-    # beam's masking on (the answer-cache tier is ROADMAP A9)
+    # beam's masking on (`serve.answer_cache.CachedIndex` flushes then)
     answer_unstable_add = True
     answer_unstable_remove = True
     # how many of a new node's neighbours give one edge slot back to it

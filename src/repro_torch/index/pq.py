@@ -117,7 +117,7 @@ class IVFPQIndex(IVFFlatIndex):
 
     # answer-cache capability flags, as the reference sets them: the ADC
     # shortlist is cut by approximate distance, so a mutation anywhere can
-    # move its boundary (the answer-cache tier itself is ROADMAP A9)
+    # move its boundary (`serve.answer_cache.CachedIndex` flushes then)
     answer_unstable_add = True
     answer_unstable_remove = True
 

@@ -40,9 +40,38 @@ draws a random catalog and fresh random prompts instead: no prompt lies
 near any object there, so every request is served from the store and
 nothing generates.
 
-The reference's other flags (answer cache, resilient remote tier, online
-arrivals) are ROADMAP A9; `--mesh-shards` above 1 raises naming A11.  `main(argv)`
-prints one line a tier and returns the figures as a dict.
+`--answer-cache CAP` fronts AÇAI's index with the exact answer memo
+(repeated queries serve their memoized top-k without the index scan,
+bitwise equal to the uncached path) and `--answer-cache-opt key=value`
+passes `AnswerCacheSpec` fields, as the reference's:
+
+  ... --remote-index flat --answer-cache 4096
+  ... --remote-index ivf --answer-cache 1024 --answer-cache-opt hit_ms=0.1
+  ... --remote-index nsw --answer-cache 512 --answer-cache-opt idle_unload_ms=50
+
+The `--remote-fault-*` flags inject a deterministic fault schedule into
+the remote tier and route every request through the resilient path
+(retries with capped backoff, optional hedging `--hedge-ms`, deadlines
+`--deadline-ms`, a circuit breaker, degradation to local answers), for
+any policy:
+
+  ... --remote-fault-rate 0.2 --deadline-ms 250
+  ... --remote-fault-outage 10:30 --policy sim_lru
+  ... --remote-fault-latency-ms 40 --hedge-ms 80 --retries 3
+
+`--arrival` then drives --requests more requests of the same traffic
+through the online serving engine: they arrive on the virtual clock,
+queue and are coalesced by the batch former (`--batch` max size,
+`--batch-window-ms` max wait), at `--offered-load` times the service
+model's capacity; admission control sheds on `--queue-cap` and
+`--shed-deadline-ms`, and `--slo-ms` reports goodput at that SLO:
+
+  ... --arrival poisson --offered-load 0.8 --batch-window-ms 5 --slo-ms 25
+  ... --arrival flash_crowd --offered-load 1.2 --queue-cap 64
+  ... --arrival closed_loop --slo-ms 25
+
+`--mesh-shards` above 1 raises naming ROADMAP A11.  `main(argv)` prints
+one line a tier and returns the figures as a dict.
 """
 
 from __future__ import annotations
@@ -60,6 +89,12 @@ from repro_torch.core.policy_api import PolicySpec, parse_policy_opts, registere
 from repro_torch.index.base import IndexSpec, parse_index_opts, registered_backends
 from repro_torch.models import init_params
 from repro_torch.serve import SemanticCachedLM, ServeEngine, embed_prompt, generate
+from repro_torch.serve.answer_cache import AnswerCacheSpec, parse_answer_cache_opts
+from repro_torch.serve.arrivals import ARRIVAL_KINDS, ArrivalSpec
+from repro_torch.serve.queue import (AdmissionConfig, BatchFormerConfig, ServiceModel,
+                                     serve_trace_online)
+from repro_torch.serve.remote import FaultSpec, FaultyRemote, parse_outage_windows
+from repro_torch.serve.resilience import ResilienceConfig, RetryConfig
 
 SEED = 0  # weights, prompts and catalog
 ZIPF_A = 0.9  # the paper's popularity exponent (core/trace.py)
@@ -179,15 +214,19 @@ def semantic_traffic(params, cfg, n: int, prompt_len: int, n_req: int, rng,
     return catalog, [tokens[i].long() for i in ids], ids
 
 
-def run_semantic(params, cfg, args, rng, device, index_spec, policy_spec) -> dict:
+def run_semantic(params, cfg, args, rng, device, index_spec, policy_spec,
+                 answer_cache=None, remote=None, resilience=None) -> dict:
     """The semantic tier over a --catalog x d_model catalog of earlier
     prompts' embeddings (`semantic_traffic`): --requests single queries,
-    then --query-batches batches of --batch."""
+    then --query-batches batches of --batch, then (with --arrival)
+    --requests more through the online serving engine."""
     prompt_len = args.prompt_len[0]
     n_req = args.requests + args.query_batches * args.batch
+    n_online = args.requests if args.arrival != "off" else 0
     t0 = time.perf_counter()
     catalog, prompts, ids = semantic_traffic(params, cfg, args.catalog, prompt_len,
-                                             n_req, rng, device)
+                                             n_req + n_online, rng, device)
+    online_prompts, prompts, ids = prompts[n_req:], prompts[:n_req], ids[:n_req]
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     traffic_s = time.perf_counter() - t0
@@ -205,7 +244,8 @@ def run_semantic(params, cfg, args, rng, device, index_spec, policy_spec) -> dic
     t0 = time.perf_counter()
     lm = SemanticCachedLM(params, cfg, catalog[:n_warm], payloads[:n_warm], gen_timer,
                           h=args.cache_size, k=4, index_spec=index_spec,
-                          policy_spec=policy_spec)
+                          policy_spec=policy_spec, remote=remote,
+                          resilience=resilience, answer_cache=answer_cache)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     build_s = time.perf_counter() - t0
@@ -267,6 +307,67 @@ def run_semantic(params, cfg, args, rng, device, index_spec, policy_spec) -> dic
           f"{out['us_per_request']:.0f} us/request "
           f"({out['us_per_request_without_generation']:.0f} without generation)",
           flush=True)
+    if lm.answer_cache is not None:
+        st = out["answer_cache"] = lm.answer_cache.stats()
+        print(f"answer cache (capacity={st['capacity']}): hit rate "
+              f"{st['hit_rate']:.3f} ({st['hits']}/{st['hits'] + st['misses']}), "
+              f"{st['entries']} entries, {st['invalidations']} invalidations "
+              f"(remove={st['inv_remove']} add={st['inv_add']} "
+              f"refresh={st['inv_refresh']}), {st['scans_skipped']} scans skipped "
+              f"of {st['scans'] + st['scans_skipped']}, unloads={st['unloads']} "
+              f"reloads={st['reloads']}", flush=True)
+    if remote is not None:
+        ses = lm.policy.session
+        c = out["resilience"] = ses.counters.to_dict()
+        pct = ses.latency_percentiles()
+        out["resilience"].update(pct, breaker_transitions=ses.breaker.transitions)
+        print(f"resilience (fault={remote.spec.to_dict()}): "
+              f"{c['remote_failures']} remote failures, {c['retries']} retries, "
+              f"{c['degraded']} degraded, {c['shed']} shed, "
+              f"{c['deadline_misses']} deadline misses, {c['hedges']} hedges, "
+              f"{c['fast_fails']} breaker fast-fails, "
+              f"{ses.breaker.transitions} breaker transitions, "
+              f"p50={pct['p50_ms']:.1f}ms p99={pct['p99_ms']:.1f}ms", flush=True)
+    if n_online:
+        out["online"] = run_online(lm, args, params, online_prompts)
+    return out
+
+
+def run_online(lm, args, params, prompts) -> dict:
+    """--requests requests of the semantic traffic through the online
+    serving engine (virtual clock, the reference's service model); the
+    embeddings go to the engine on the host."""
+    service = ServiceModel()
+    rate = args.offered_load * service.capacity_rps(args.batch)
+    try:
+        arrival = ArrivalSpec(kind=args.arrival, rate_rps=max(rate, 1.0),
+                              seed=args.arrival_seed)
+    except ValueError as e:
+        raise SystemExit(str(e))
+    reqs = embed_prompt(params, torch.stack(prompts).to(lm.device)).cpu().numpy()
+    res = serve_trace_online(
+        lm.policy, reqs, arrival,
+        former=BatchFormerConfig(max_batch=args.batch,
+                                 max_wait_ms=(args.batch_window_ms
+                                              if args.batch_window_ms > 0 else None)),
+        admission=AdmissionConfig(queue_cap=args.queue_cap,
+                                  deadline_ms=args.shed_deadline_ms),
+        service=service, slo_ms=args.slo_ms)
+    out = {k: res[k] for k in ("requests", "served", "shed_total", "shed_share",
+                               "mean_batch", "p50_ms", "p99_ms", "p999_ms",
+                               "queue_p50_ms", "answer_hit_rate", "p50_step_s")}
+    out["batch_hist"] = res["batch_hist"]
+    out["nag"] = lm.policy.normalized_gain(float(res["gain"].sum()), res["requests"])
+    line = (f"online serving (arrival={args.arrival} load={args.offered_load:g} "
+            f"window={args.batch_window_ms:g}ms): {res['served']}/{res['requests']} "
+            f"served, {res['shed_total']} shed, mean batch {res['mean_batch']:.2f}, "
+            f"p50={res['p50_ms']:.1f}ms p99={res['p99_ms']:.1f}ms "
+            f"p999={res['p999_ms']:.1f}ms (queue p50={res['queue_p50_ms']:.1f}ms), "
+            f"NAG={out['nag']:.4f}")
+    if args.slo_ms is not None:
+        out["goodput_slo"] = res["goodput_slo"]
+        line += f", goodput@{args.slo_ms:g}ms={res['goodput_slo']:.3f}"
+    print(line, flush=True)
     return out
 
 
@@ -300,9 +401,61 @@ def main(argv=None) -> dict:
                          "rest is inserted over the run)")
     ap.add_argument("--mesh-shards", type=int, default=1,
                     help="model shards of the semantic tier (above 1: not ported)")
+    ap.add_argument("--answer-cache", type=int, default=None, metavar="CAP",
+                    help="answer-cache entry budget: memoize exact top-k index "
+                         "answers in front of the index scan (0 = pass-through; "
+                         "needs --remote-index, acai only)")
+    ap.add_argument("--answer-cache-opt", action="append", default=[],
+                    metavar="KEY=VALUE",
+                    help="AnswerCacheSpec field (repeatable), e.g. hit_ms=0.1 "
+                         "idle_unload_ms=50")
     ap.add_argument("--query-batches", type=int, default=0)
     ap.add_argument("--s-max", type=int, default=0)
     ap.add_argument("--device", default=None)
+    srv = ap.add_argument_group(
+        "online serving (--arrival serves --requests more requests through the "
+        "queued engine with dynamic batch formation)")
+    srv.add_argument("--arrival", default="off", choices=("off",) + ARRIVAL_KINDS,
+                     help="arrival process driving the request queue ('off' = "
+                          "no online phase)")
+    srv.add_argument("--offered-load", type=float, default=0.8,
+                     help="open-loop arrival rate as a fraction of the service "
+                          "model's max-batch capacity (1.0 = critically loaded)")
+    srv.add_argument("--batch-window-ms", type=float, default=5.0,
+                     help="batch former max wait (virtual ms) before a partial "
+                          "batch dispatches; 0 = pure size trigger")
+    srv.add_argument("--slo-ms", type=float, default=None,
+                     help="latency SLO (virtual ms): report goodput = served "
+                          "share meeting it")
+    srv.add_argument("--queue-cap", type=int, default=None,
+                     help="admission control: shed arrivals beyond this queue depth")
+    srv.add_argument("--shed-deadline-ms", type=float, default=None,
+                     help="admission control: shed queued requests whose estimated "
+                          "completion would exceed this budget")
+    srv.add_argument("--arrival-seed", type=int, default=0,
+                     help="arrival-schedule seed (same seed = same schedule)")
+    res = ap.add_argument_group(
+        "resilient serving (any flag here routes the semantic tier through the "
+        "resilient remote path)")
+    res.add_argument("--remote-fault-rate", type=float, default=0.0,
+                     help="per-attempt transient error probability")
+    res.add_argument("--remote-fault-corrupt", type=float, default=0.0,
+                     help="per-attempt corrupt-payload (NaN) probability")
+    res.add_argument("--remote-fault-latency-ms", type=float, default=5.0,
+                     help="median remote fetch latency (virtual ms)")
+    res.add_argument("--remote-fault-outage", action="append", default=[],
+                     metavar="START:END",
+                     help="hard outage window in request indices (repeatable)")
+    res.add_argument("--remote-fault-seed", type=int, default=0,
+                     help="fault-schedule seed (same seed = same faults)")
+    res.add_argument("--deadline-ms", type=float, default=None,
+                     help="per-request deadline budget (virtual ms); a late "
+                          "success counts as a miss")
+    res.add_argument("--hedge-ms", type=float, default=None,
+                     help="fire a hedged second request this far into a slow "
+                          "attempt")
+    res.add_argument("--retries", type=int, default=None,
+                     help="extra attempts after the first (default 2)")
     args = ap.parse_args(argv)
 
     if args.churn_rate < 0 or not 0.0 < args.churn_warm <= 1.0:
@@ -325,6 +478,8 @@ def main(argv=None) -> dict:
             raise SystemExit(str(e))
     elif args.index_opt:
         raise SystemExit("--index-opt needs --remote-index")
+    answer_cache = _answer_cache_spec(args, index_spec)
+    remote, resilience = _resilience(args)
     try:
         cfg = get_config(args.arch, smoke=args.smoke)
     except NotImplementedError as e:
@@ -338,8 +493,52 @@ def main(argv=None) -> dict:
                "engine": run_engine(params, cfg, args, rng, device)}
     if args.catalog > 0:
         figures["semantic"] = run_semantic(params, cfg, args, rng, device, index_spec,
-                                           policy_spec)
+                                           policy_spec, answer_cache, remote, resilience)
     return figures
+
+
+def _answer_cache_spec(args, index_spec):
+    """The answer tier's spec from the flags (None when off), with the
+    reference's validation."""
+    if args.answer_cache is None:
+        if args.answer_cache_opt:
+            raise SystemExit("--answer-cache-opt needs --answer-cache")
+        return None
+    if args.policy != "acai":
+        raise SystemExit(f"--policy {args.policy} serves oracle-exact (memoized) "
+                         f"answers by construction; --answer-cache only applies "
+                         f"to acai")
+    if index_spec is None:
+        raise SystemExit("--answer-cache fronts an index backend: pass "
+                         "--remote-index (flat = the exact fused scan)")
+    try:
+        return AnswerCacheSpec(capacity=args.answer_cache,
+                               **parse_answer_cache_opts(args.answer_cache_opt))
+    except (TypeError, ValueError) as e:
+        raise SystemExit(str(e))
+
+
+def _resilience(args):
+    """(remote, resilience) from the fault / deadline / hedge / retry
+    flags, both None when none is given (the reference's rule: any of
+    them routes the tier through the resilient path)."""
+    faulty = (args.remote_fault_rate > 0 or args.remote_fault_corrupt > 0
+              or args.remote_fault_outage or args.remote_fault_latency_ms != 5.0
+              or args.remote_fault_seed != 0)
+    if not (faulty or args.deadline_ms is not None or args.hedge_ms is not None
+            or args.retries is not None):
+        return None, None
+    try:
+        fault = FaultSpec(error_rate=args.remote_fault_rate,
+                          corrupt_rate=args.remote_fault_corrupt,
+                          latency_ms=args.remote_fault_latency_ms,
+                          outages=parse_outage_windows(args.remote_fault_outage),
+                          seed=args.remote_fault_seed)
+    except ValueError as e:
+        raise SystemExit(str(e))
+    retry = RetryConfig(max_retries=args.retries) if args.retries is not None else RetryConfig()
+    return FaultyRemote(fault), ResilienceConfig(deadline_ms=args.deadline_ms, retry=retry,
+                                                 hedge_ms=args.hedge_ms)
 
 
 if __name__ == "__main__":

@@ -16,9 +16,13 @@ The policy is one config knob (`policy_spec`): AÇAI by default, or any
 registered baseline (`sim_lru`, `qcache`, ...), which serves through an
 online `ServerOracle` (exact kNN a mini-batch, on the `l2_topk` kernel on
 the card).  Every policy speaks the `CachePolicy` step contract, catalog
-mutation included (`add_documents`, `remove_documents`, `compact`).  The
-mesh (ROADMAP A11), the remote and resilience tiers and the answer cache
-(A9) are not ported and raise NotImplementedError naming their item.
+mutation included (`add_documents`, `remove_documents`, `compact`).
+
+`answer_cache` fronts AÇAI's index with the exact answer memo
+(`repro_torch.serve.answer_cache`); `remote` / `resilience` route every
+request through the resilient remote tier (`ResilientPolicy`: retries,
+hedging, deadline, circuit breaker, degradation), for any policy.  The
+mesh (ROADMAP A11) raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -65,12 +69,6 @@ class SemanticCachedLM:
         if mesh is not None:
             raise NotImplementedError(_NOT_PORTED.format(
                 what="the sharded semantic tier (mesh)", item=11))
-        if remote is not None or resilience is not None:
-            raise NotImplementedError(_NOT_PORTED.format(
-                what="resilient serving against a remote backend", item=9))
-        if answer_cache is not None:
-            raise NotImplementedError(_NOT_PORTED.format(
-                what="the answer-cache tier", item=9))
         self.params, self.cfg = params, cfg
         self.device = params.embed.device
         self.payloads = list(catalog_payloads)
@@ -97,15 +95,23 @@ class SemanticCachedLM:
             raise ValueError(f"eta only applies to the 'acai' policy, not "
                              f"{spec.name!r}")
         spec = policy_api.PolicySpec(spec.name, {**base, **spec.params})
-        if spec.name != "acai" and index_spec is not None:
+        if spec.name != "acai" and (index_spec is not None
+                                    or answer_cache is not None):
             raise ValueError(
                 f"policy {spec.name!r} serves from the exact server oracle; "
                 f"index_spec/mesh/answer_cache only apply to 'acai'")
         self.policy = policy_api.build_policy(
             spec, catalog, CostModel(c_f=float(c_f)), index_spec=index_spec,
-            seed=seed, device=self.device)
+            seed=seed, answer_cache=answer_cache, device=self.device)
+        # resilient serving: with a remote backend and / or a resilience
+        # config, every request first runs its remote interaction, and
+        # failures fall down the degradation ladder, for any policy
+        if remote is not None or resilience is not None:
+            from repro_torch.serve.resilience import ResilientPolicy
+
+            self.policy = ResilientPolicy(self.policy, remote, resilience)
         # the underlying AcaiCache (None for baselines)
-        self.cache = getattr(self.policy, "cache", None)
+        self.cache = getattr(getattr(self.policy, "inner", self.policy), "cache", None)
         self.stats = ServeStats()
 
     @property
@@ -115,6 +121,12 @@ class SemanticCachedLM:
     @property
     def policy_spec(self):
         return self.policy.spec
+
+    @property
+    def answer_cache(self):
+        """The answer tier's `CachedIndex` (None when off): `.stats()`
+        carries the hit, invalidation and unload counts."""
+        return getattr(getattr(self.policy, "inner", self.policy), "answer_cache", None)
 
     def query(self, prompt_tokens: torch.Tensor, u=None):
         """Serve one prompt (S,): the k most similar cached results, each

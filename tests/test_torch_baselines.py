@@ -165,8 +165,24 @@ def test_run_policy_and_nag_match_reference(data):
 
 
 def test_step_degraded_is_not_ported(data):
+    """The resilient tier's local-only serve, once a NotImplementedError,
+    is ported: on the same cache contents it gives the reference's answer
+    (shed on an empty cache; the cached objects within the ceiling after
+    warm-up), and it never touches the LRU state."""
     catalog, reqs = data
-    pol = TB.SimLRU(catalog, TB.ServerOracle(catalog, reqs, kmax=8, device="cpu"),
-                    h=16, k=4, c_f=1.0)
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        pol.step_degraded(reqs[0])
+    jo = JB.ServerOracle(catalog, reqs, kmax=8)
+    to = TB.ServerOracle(catalog, reqs, kmax=8, device="cpu")
+    to.ids, to.d2 = jo.ids.copy(), jo.d2.copy()
+    kw = dict(h=16, k=4, c_f=1.0)
+    pol, jpol = TB.SimLRU(catalog, to, **kw), JB.SimLRU(catalog, jo, **kw)
+    (res, shed), (jres, jshed) = pol.step_degraded(reqs[0]), jpol.step_degraded(reqs[0])
+    assert shed and jshed and res.gain == jres.gain == 0.0
+    for t in range(12):
+        pol.step(t, reqs[t])
+        jpol.step(t, reqs[t])
+    before = list(pol.entries)
+    for t in (3, 11, 20):
+        (res, shed), (jres, jshed) = pol.step_degraded(reqs[t]), jpol.step_degraded(reqs[t])
+        assert shed == jshed and res.served_local == jres.served_local
+        np.testing.assert_allclose([res.gain, res.cost], [jres.gain, jres.cost], **TOL)
+    assert list(pol.entries) == before

@@ -69,6 +69,22 @@ def test_negentropy_topk_degenerate_z_matches_reference():
     _close(tproj.capped_simplex_negentropy_topk(_t(z), 10, 20), want)
 
 
+@pytest.mark.parametrize("n", [1, 1023, 1025, 5000, 70001])
+def test_suffix_sum_in_a_fixed_order(n):
+    """The projection's suffix sums (rows of 1024 scanned apart, then the
+    rows' totals; never PyTorch's 1-D scan, which on CUDA adds in a
+    timing-dependent order): within float32 rounding of the float64 sums,
+    and the projection over several rows still the reference's."""
+    rng = np.random.default_rng(n)
+    v = np.sort(rng.random(n).astype(np.float32) ** 3)[::-1].copy()
+    want = np.cumsum(v[::-1].astype(np.float64))[::-1]
+    got = tproj.suffix_sum(_t(v)).numpy()
+    np.testing.assert_allclose(got, want, rtol=4e-7 * np.log2(n + 2), atol=0)
+    h = max(1, n // 10)
+    _close(tproj.capped_simplex_negentropy(_t(v), h),
+           np.asarray(jproj.capped_simplex_negentropy(jnp.array(v), h)))
+
+
 @pytest.mark.parametrize("seed", range(4))
 def test_euclidean_projection_matches_reference(seed):
     rng = np.random.default_rng(50 + seed)

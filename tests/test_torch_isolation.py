@@ -78,6 +78,8 @@ def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
                  lambda: ServerOracle(cat, kmax=4),
                  lambda: build_policy(PolicySpec("acai", {"h": 4}), cat, CostModel(1.0)),
                  lambda: build_policy(PolicySpec("sim_lru", {"h": 4}), cat, CostModel(1.0)),
+                 lambda: build_policy(PolicySpec("acai", {"h": 4}), cat, CostModel(1.0),
+                                      index_spec="flat", answer_cache=8),
                  lambda: experiments.main(["--from-bench", "BENCH_experiments.json"])):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()

@@ -503,10 +503,11 @@ def test_acai_cache_mutation_guards(setup):
     with pytest.raises(ValueError, match="already dead"):
         clean.remove_objects([5])
     assert clean.live_count == cat.shape[0] - 1
-    # what stays unported still names its item
+    # what stays unported still names its item; the answer tier (ported)
+    # rejects what is not a spec form, as the reference does
     with pytest.raises(NotImplementedError, match="ROADMAP A11"):
         tpol.AcaiCache(cat, tcfg, device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+    with pytest.raises(TypeError, match="answer_cache"):
         tpol.AcaiCache(cat, tcfg, device="cpu", answer_cache=object())
 
 

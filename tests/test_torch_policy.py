@@ -176,7 +176,11 @@ def test_acai_cache_static_api():
     assert cache.live_count == 401
     with pytest.raises(NotImplementedError, match="ROADMAP A11"):
         tpol.AcaiCache(cat, cfg, device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+    with pytest.raises(TypeError, match="answer_cache"):
         tpol.AcaiCache(cat, cfg, device="cpu", answer_cache=object())
+    # the answer tier fronts a spec-built index (cfg.index): here the
+    # candidates are the escape hatch's, so it is refused as in the reference
+    with pytest.raises(ValueError, match="cfg.index"):
+        tpol.AcaiCache(cat, tpol.AcaiConfig(h=8, k=4), device="cpu", answer_cache=8)
     with pytest.raises(ValueError, match="NaN/Inf"):
         cache.serve_update_batch(torch.full((2, 8), float("nan")))

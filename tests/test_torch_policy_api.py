@@ -278,15 +278,20 @@ def test_spec_errors(setup):
     # what is not ported yet names its ROADMAP item
     with pytest.raises(NotImplementedError, match="ROADMAP A11"):
         build_policy(PolicySpec("acai", {"h": 8}), catalog, cm, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+    # the answer tier (ported) fronts an index: without one it is refused,
+    # as in the reference (tests/test_torch_answer_cache.py holds the rest)
+    with pytest.raises(ValueError, match="cfg.index"):
         build_policy(PolicySpec("acai", {"h": 8}), catalog, cm, answer_cache=8,
                      device="cpu")
+    assert build_policy(PolicySpec("acai", {"h": 8}), catalog, cm, answer_cache=8,
+                        index_spec="flat", device="cpu").answer_cache is not None
     pol = build_policy(PolicySpec("acai", {"h": 8}), catalog, cm, device="cpu")
     # AÇAI's catalog mutates online (tests/test_torch_mutable.py)
     assert pol.add_objects(catalog[:1]).tolist() == [catalog.shape[0]]
     assert pol.live_count == catalog.shape[0] + 1
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        PA.replay_trace_online(pol, catalog[:8], None)
+    # the online engine is ported (tests/test_torch_serving_engine.py)
+    res = PA.replay_trace_online(pol, catalog[:8], np.zeros(8))
+    assert res["requests"] == res["served"] == 8
 
 
 def test_resolve_policy_spec():

@@ -30,6 +30,7 @@ from repro_torch.serve import SemanticCachedLM as TSemantic
 from repro_torch.serve import ServeEngine as TEngine
 from repro_torch.serve import embed_prompt as t_embed_prompt
 from repro_torch.serve import generate as t_generate
+from repro_torch.serve.remote import FaultSpec, FaultyRemote
 
 
 def _t(a):
@@ -223,10 +224,16 @@ def test_semantic_cached_lm_refuses_what_is_not_ported(lm):
     _, _, tcfg, port = lm
     cat = np.eye(8, tcfg.d_model, dtype=np.float32)
     kw = dict(h=2, k=1, c_f=1.0)
-    for extra, item in (({"mesh": object()}, "A11"),
-                        ({"remote": object()}, "A9"), ({"answer_cache": 8}, "A9")):
-        with pytest.raises(NotImplementedError, match=item):
-            TSemantic(port, tcfg, cat, list(range(8)), lambda p: None, **kw, **extra)
+    with pytest.raises(NotImplementedError, match="A11"):
+        TSemantic(port, tcfg, cat, list(range(8)), lambda p: None, **kw, mesh=object())
+    # the remote / resilience tiers and the answer cache are ported
+    # (test_semantic_tier_resilience_and_answer_cache_match_reference); the
+    # answer cache needs an index, as in the reference
+    with pytest.raises(ValueError, match="cfg.index"):
+        TSemantic(port, tcfg, cat, list(range(8)), lambda p: None, **kw, answer_cache=8)
+    res = TSemantic(port, tcfg, cat, list(range(8)), lambda p: None, **kw,
+                    remote=FaultyRemote(FaultSpec(error_rate=0.5)))
+    assert res.policy.session.remote.spec.error_rate == 0.5
     # the catalog mutates online (tests/test_torch_churn.py holds it to the
     # reference)
     tlm = TSemantic(port, tcfg, cat, list(range(8)), lambda p: None, **kw)
@@ -299,3 +306,142 @@ def test_launcher_serves_every_registered_policy_on_the_cpu(policy):
                         "--remote-index", "flat"])
     with pytest.raises(SystemExit, match="--policy-opt"):
         serve.main(["--smoke", "--device", "cpu", "--policy", policy, "--policy-opt", "x"])
+
+
+SEMANTIC_TIERS = [
+    ("answer cache", dict(index_spec="flat", answer_cache=64)),
+    ("resilient acai", dict(index_spec="flat", answer_cache=64, fault=dict(
+        error_rate=0.3, outages=((6, 14),), seed=3), resilience=dict(deadline_ms=60.0))),
+    ("resilient sim_lru", dict(policy_spec={"policy": "sim_lru", "k_prime": 8},
+                               fault=dict(error_rate=0.4, seed=1), resilience={})),
+]
+
+
+@pytest.mark.parametrize("case", range(len(SEMANTIC_TIERS)))
+def test_semantic_tier_resilience_and_answer_cache_match_reference(lm, case):
+    """The semantic tier with `answer_cache=`, `remote=` / `resilience=`
+    against the reference's SemanticCachedLM at SMOKE size (AÇAI fed the
+    reference's uniforms): served_local per request, generations, the
+    answer tier's statistics and the resilience counters exactly, NAG to
+    1e-5.  The requests repeat a pool of prompts, so answers repeat."""
+    from repro.serve import remote as JR
+    from repro.serve import resilience as JRes
+    from repro_torch.serve.resilience import ResilienceConfig
+
+    _, kw = SEMANTIC_TIERS[case]
+    kw = dict(kw)
+    jcfg, jparams, tcfg, port = lm
+    rng = np.random.default_rng(5)
+    pool = [rng.integers(0, jcfg.vocab, 10).astype(np.int32) for _ in range(24)]
+    extra = rng.normal(size=(120, jcfg.d_model)).astype(np.float32)
+    extra /= np.linalg.norm(extra, axis=1, keepdims=True)
+    cat = np.concatenate([np.stack([np.asarray(j_embed_prompt(jparams, jnp.array(p)))
+                                    for p in pool]), extra])
+    n, c_f = cat.shape[0], 0.05
+    picks = rng.integers(0, 12, 36)
+    singles = [pool[i] for i in picks[:20]]
+    batches = [[pool[i] for i in picks[j:j + 4]] for j in range(20, 36, 4)]
+    fault, res_kw = kw.pop("fault", None), kw.pop("resilience", None)
+    jkw, tkw = dict(kw), dict(kw)
+    if fault is not None:
+        jkw.update(remote=JR.FaultyRemote(JR.FaultSpec(**fault)),
+                   resilience=JRes.ResilienceConfig(**res_kw))
+        tkw.update(remote=FaultyRemote(FaultSpec(**fault)),
+                   resilience=ResilienceConfig(**res_kw))
+    jlm = JSemantic(jparams, jcfg, jnp.array(cat), list(range(n)), lambda p: None,
+                    h=16, k=4, c_f=c_f, **jkw)
+    tlm = TSemantic(port, tcfg, cat, list(range(n)), lambda p: None, h=16, k=4,
+                    c_f=c_f, **tkw)
+    us = [None] * (len(singles) + len(batches))
+    if tlm.cache is not None:
+        jstate = jlm.cache.state
+        tlm.cache.state = convert.cache_state_from_numpy(jstate.y, jstate.x,
+                                                         int(jstate.t), device="cpu")
+        us = [_t(u) for u in reference_uniforms(jstate.key, n, len(us))]
+    for i, p in enumerate(singles):
+        assert int(tlm.query(_t(p), us[i]).served_local) == int(
+            jlm.query(jnp.array(p)).served_local)
+    for i, ps in enumerate(batches):
+        tm = tlm.query_batch([_t(p) for p in ps], us[len(singles) + i])
+        jm = jlm.query_batch([jnp.array(p) for p in ps])
+        np.testing.assert_array_equal(tm.served_local.numpy(), np.asarray(jm.served_local))
+    assert tlm.stats.served_local == jlm.stats.served_local
+    assert tlm.stats.generated == jlm.stats.generated
+    assert abs(tlm.nag - jlm.nag) < 1e-5
+    if "answer_cache" in kw:
+        got, want = tlm.answer_cache.stats(), jlm.answer_cache.stats()
+        assert {k: got[k] for k in want} == want and got["hits"] > 0
+    if fault is not None:
+        assert tlm.policy.session.counters.to_dict() == jlm.policy.session.counters.to_dict()
+        assert tlm.policy.session.breaker.log == jlm.policy.session.breaker.log
+        assert tlm.policy.session.counters.remote_failures > 0
+
+
+LAUNCHER_FLAGS = [
+    ["--remote-index", "flat", "--answer-cache", "64"],
+    ["--remote-index", "ivf", "--index-opt", "nlist=8", "--answer-cache", "32",
+     "--answer-cache-opt", "hit_ms=0.1", "--answer-cache-opt", "idle_unload_ms=5"],
+    ["--remote-index", "flat", "--answer-cache", "0"],
+    ["--remote-index", "flat", "--answer-cache", "64", "--churn-rate", "0.2"],
+    ["--remote-fault-rate", "0.3", "--deadline-ms", "250"],
+    ["--remote-fault-outage", "2:6", "--policy", "sim_lru", "--policy-opt", "k_prime=8"],
+    ["--remote-fault-latency-ms", "40", "--hedge-ms", "30", "--retries", "3",
+     "--remote-fault-corrupt", "0.2", "--remote-fault-seed", "4"],
+    ["--arrival", "poisson", "--offered-load", "0.8", "--batch-window-ms", "5",
+     "--slo-ms", "25", "--remote-index", "flat", "--answer-cache", "64"],
+    ["--arrival", "flash_crowd", "--offered-load", "1.2", "--queue-cap", "4",
+     "--arrival-seed", "3"],
+    ["--arrival", "closed_loop", "--slo-ms", "25", "--shed-deadline-ms", "6",
+     "--batch-window-ms", "0"],
+]
+
+
+@pytest.mark.parametrize("flags", LAUNCHER_FLAGS, ids=lambda f: " ".join(f[:2]))
+def test_launcher_a9_flags_on_the_cpu(flags):
+    """Every answer-cache, resilience and online-serving flag at SMOKE size
+    on the CPU: the tier it names runs and reports."""
+    from repro_torch.launch import serve
+
+    fig = serve.main(["--smoke", "--device", "cpu", "--requests", "16", "--batch", "4",
+                      "--catalog", "128", "--max-tokens", "2", *flags])
+    sem = fig["semantic"]
+    assert sem["requests"] == 16 and 0.0 <= sem["nag"] <= 1.0
+    if "--answer-cache" in flags:
+        st = sem["answer_cache"]
+        assert st["capacity"] == int(flags[flags.index("--answer-cache") + 1])
+        assert st["hits"] + st["misses"] > 0 or st["capacity"] == 0
+        if "--churn-rate" in flags:
+            assert sem["churn_events"] > 0
+    if any(f.startswith("--remote-fault") or f in ("--deadline-ms", "--hedge-ms",
+                                                    "--retries") for f in flags):
+        assert sem["resilience"]["requests"] == 16
+    if "--arrival" in flags:
+        on = sem["online"]
+        assert on["requests"] == 16 and on["served"] + on["shed_total"] == 16
+        assert 0.0 <= on["nag"] <= 1.0
+        if "--slo-ms" in flags:
+            assert 0.0 <= on["goodput_slo"] <= 1.0
+
+
+@pytest.mark.parametrize("flags,msg", [
+    (["--answer-cache", "64"], "--remote-index"),
+    (["--answer-cache", "64", "--churn-rate", "0.2"], "--remote-index"),
+    (["--answer-cache-opt", "hit_ms=1"], "--answer-cache-opt needs --answer-cache"),
+    (["--answer-cache", "8", "--remote-index", "flat", "--answer-cache-opt", "hit_ms"],
+     "KEY=VALUE"),
+    (["--answer-cache", "8", "--remote-index", "flat", "--answer-cache-opt", "cap=1"],
+     "unknown fields|unexpected keyword"),
+    (["--answer-cache", "-1", "--remote-index", "flat"], "capacity"),
+    (["--answer-cache", "8", "--policy", "lru"], "oracle-exact"),
+    (["--index-opt", "nlist=8"], "--index-opt needs --remote-index"),
+    (["--remote-fault-rate", "1.5"], "error_rate"),
+    (["--remote-fault-outage", "9:3"], "outage window"),
+    (["--mesh-shards", "2"], "A11"),
+])
+def test_launcher_a9_validation_errors(flags, msg):
+    """The reference's validation errors, raised before any model is built."""
+    from repro_torch.launch import serve
+
+    with pytest.raises(SystemExit, match=msg):
+        serve.main(["--smoke", "--device", "cpu", "--requests", "4", "--catalog", "64",
+                    *flags])
