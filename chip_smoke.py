@@ -218,6 +218,9 @@ KERNEL_META = {
 # path's flash_attention is the bf16 wgmma kernel; its float32 FMA sibling
 # (csrc/flash_attention.cu) takes float32 and D 16 / 32
 ROW_OF = {"flash_attention_wgmma": "flash_attention"}
+# a row's source where the counter's kernel is not KERNEL_META's: the FMA
+# flash kernel's rows (hubert-xlarge's head width 80 in bf16)
+SOURCE_OF = {"flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu"}
 
 # the LM tier: qwen1.5-0.5b (src/repro/configs/qwen1_5_0_5b.py) at full
 # width, random weights from seed 0; an 8192-token cache takes the flash
@@ -241,8 +244,9 @@ LM_RUNS = {
 # calibration (and the flat scan), pairwise_l2 in the exact candidate scan
 # (and the flat path's cached-row scan)
 LM_NEEDS = ("pairwise_l2", "l2_topk")
-# the engine run's prompt lengths (LM_RUNS["engine"]'s --prompt-len)
-ENGINE_PROMPTS = (2048, 8000)
+# the engine run's prompt lengths (LM_RUNS["engine"]'s --prompt-len), and
+# the one its flash row is timed at (scripts/kernel_shapes.py's FLASH_S)
+ENGINE_PROMPTS, ENGINE_TIMED_S = (2048, 8000), 4096
 
 # flash_attention checks: tests/test_kernels.py:101-106's five shapes in
 # float32 (b, s, t, h, kv, d, causal, window; q_offset t - s,
@@ -569,7 +573,8 @@ def shapes_phase(torch, ops, ref, catalog, reqs, ivf_index, pq_index, dev, churn
         if c["row"]:
             counter, dims = c["key"]
             name = ROW_OF.get(counter, counter)
-            rows.append({"name": name, "route": "cuda", "source": KERNEL_META[name][0],
+            rows.append({"name": name, "route": "cuda",
+                         "source": SOURCE_OF.get(counter, KERNEL_META[name][0]),
                          "replaces": KERNEL_META[name][1], "launches": 0,
                          "max_abs_err": err, "ms": r["device_ms"], "call_ms": r["call_ms"],
                          "device_all_kernels_ms": r["device_all_ms"],
@@ -594,7 +599,7 @@ def shape_launches(counts, counter: str, dims) -> int:
         return sum(v for (k, s), v in counts.items()
                    if k == counter and (s[0], s[1], s[3], s[4]) ==
                    (dims[0], dims[1], dims[3], dims[4]))
-    if counter == "flash_attention_wgmma" and dims[1] != 512:
+    if counter == "flash_attention_wgmma" and dims[1] == ENGINE_TIMED_S:
         lo, hi = ENGINE_PROMPTS
         return sum(v for (k, s), v in counts.items()
                    if k == counter and lo <= s[1] <= hi and s[0] == dims[0]
@@ -2176,7 +2181,7 @@ def flash_phase(torch, ops, ref, dev):
 
         def run_fma():  # the float32 FMA kernel this shape ran on before
             rc = fma(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, t,
-                     h, kv, d, int(causal), window, q_off, wuu, 1.0 / d ** 0.5, 1, stream)
+                     h, kv, d, d, int(causal), window, q_off, wuu, 1.0 / d ** 0.5, 1, stream)
             if rc:
                 raise RuntimeError(f"flash_attention (FMA) failed with CUDA error {rc}")
 
@@ -2373,6 +2378,289 @@ def lm_slice_phase(torch, ops, card: str):
         MAIN_SHAPES.update(ops.SHAPE_LAUNCHES)
 
 
+# the lm_archs phase: the other six architectures (src/repro/configs/), card
+# against CPU at SMOKE widths in float32 with the flash path forced, then at
+# full width with their depth cut (each cut on its log line)
+LM_ARCHS = ("deepseek-v3-671b", "mixtral-8x22b", "mamba2-130m", "jamba-1.5-large-398b",
+            "qwen2-vl-7b", "hubert-xlarge")
+LM_ARCHS_TOL = 1e-4
+# flash checks at the new widths against the plain version (name, B, S, T, H,
+# KV, Dk, Dv, bf16, causal, window, q_offset, written_upto): the wgmma kernel
+# at deepseek-v3's (192, 128), the FMA kernel at hubert's (80, 80) in bf16
+# and at deepseek's SMOKE (24, 16) in float32; S and T off the tiles
+FLASH_DKDV_CHECKS = [
+    ("MLA causal written_upto", 1, 333, 1000, 8, 8, 192, 128, True, True, 0, 500, 833),
+    ("MLA B 2 GQA", 2, 257, 513, 8, 2, 192, 128, True, True, 0, 0, 300),
+    ("MLA window", 1, 200, 700, 4, 4, 192, 128, True, True, 128, 300, 700),
+    ("width 80 bidirectional", 2, 300, 1000, 4, 4, 80, 80, True, False, 0, 0, None),
+    ("width 80 causal offset", 1, 130, 400, 4, 2, 80, 80, True, True, 0, 270, 400),
+    ("SMOKE MLA float32", 2, 100, 300, 4, 4, 24, 16, False, True, 0, 200, 290),
+    ("MLA float32", 1, 100, 300, 4, 4, 192, 128, False, True, 0, 200, 290),
+]
+# deepseek-v3 at full width: 61 -> 4 layers (3 dense MLA + 1 MoE MLA), the
+# MTP head held; ServeEngine at batch 2 over an 8192-token cache, two
+# prompts of 8000 tokens, 16 decode steps a decode path
+DS_LAYERS, DS_S_MAX, DS_PROMPT, DS_STEPS = 4, 8192, 8000, 16
+
+
+def lm_archs_smoke(torch, ops, dev) -> None:
+    """(a) The six architectures at SMOKE widths in float32 with
+    flash_threshold 32 / flash_chunk 16, card against the CPU port on the
+    same weights: a full forward over 64 tokens (frames for hubert), a
+    cached prefill of 59 into a 64-token cache and 5 decode steps, every
+    logit within LM_ARCHS_TOL; deepseek's absorbed decode against its
+    materialized decode on the card."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import forward, init_cache, init_params
+
+    for arch in LM_ARCHS:
+        cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32",
+                                  flash_threshold=32, flash_chunk=16)
+        cpu = init_params(cfg, seed=0, device="cpu")
+        card = copy.deepcopy(cpu).to(dev)
+        rng = np.random.default_rng(1)
+        errs = []
+        ops.reset_launches()
+        if cfg.modality == "audio":
+            e = torch.from_numpy(rng.normal(size=(2, 64, cfg.d_model)).astype(np.float32))
+            got = forward(card, cfg, embeds=e.to(dev)).logits.cpu()
+            errs.append(float((got - forward(cpu, cfg, embeds=e).logits).abs().max()))
+        else:
+            toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 64)))
+            got = forward(card, cfg, tokens=toks.to(dev)).logits.cpu()
+            errs.append(float((got - forward(cpu, cfg, tokens=toks).logits).abs().max()))
+            s = 59
+            caches = {w: init_cache(cfg, 2, 64, device=w) for w in ("cpu", dev)}
+            outs = {w: forward(m, cfg, tokens=toks[:, :s].to(w), cache=caches[w], cache_len=0)
+                    for w, m in (("cpu", cpu), (dev, card))}
+            errs.append(float((outs[dev].logits.cpu() - outs["cpu"].logits).abs().max()))
+            if cfg.attn_type == "mla":
+                absorbed = [{k: v.clone() for k, v in layer.items()} for layer in caches[dev]]
+                cfg_abs = dataclasses.replace(cfg, mla_absorbed_decode=True)
+            rel = 0.0
+            for j in range(s, 64):
+                step = {w: forward(m, cfg, tokens=toks[:, j:j + 1].to(w), cache=caches[w],
+                                   cache_len=j).logits
+                        for w, m in (("cpu", cpu), (dev, card))}
+                errs.append(float((step[dev].cpu() - step["cpu"]).abs().max()))
+                if cfg.attn_type == "mla":
+                    a = forward(card, cfg_abs, tokens=toks[:, j:j + 1].to(dev), cache=absorbed,
+                                cache_len=j).logits
+                    rel = max(rel, float((a - step[dev]).abs().max() / step[dev].abs().max()))
+            if cfg.attn_type == "mla":
+                log(f"  {arch} SMOKE: absorbed against materialized decode on the card, "
+                    f"max relative diff {rel} (reference bound 2e-2)")
+                if not rel < 2e-2:
+                    raise AssertionError(f"lm_archs {arch}: absorbed decode off by {rel}")
+        counts = {k: v for k, v in ops.LAUNCHES.items() if v}
+        log(f"  {arch} SMOKE float32 card against CPU: max abs err {max(errs)} over "
+            f"{len(errs)} calls (forward, prefill, decode steps); launches {counts}")
+        if not max(errs) <= LM_ARCHS_TOL:
+            raise AssertionError(f"lm_archs {arch}: card and CPU differ by {max(errs)}")
+        has_attention = cfg.layer_pattern != "ssm"
+        if has_attention and not ops.LAUNCHES["flash_attention"]:
+            raise AssertionError(f"lm_archs {arch}: the flash kernel never launched")
+        del cpu, card
+
+
+def lm_archs_kernel_checks(torch, ops, ref, dev) -> None:
+    """(b) The flash kernels at the new (Dk, Dv) pairs against the plain
+    version: bf16 within one bf16 rounding, float32 within 1e-4, each on
+    the kernel `flash_kernel_for` names."""
+    g = torch.Generator(device=dev).manual_seed(4)
+    for (name, b, s, t, h, kv, dk, dv, bf16, causal, window, q_off, wu) in FLASH_DKDV_CHECKS:
+        dt = torch.bfloat16 if bf16 else torch.float32
+        q = torch.randn(b, s, h, dk, device=dev, generator=g).to(dt)
+        k = torch.randn(b, t, kv, dk, device=dev, generator=g).to(dt)
+        v = torch.randn(b, t, kv, dv, device=dev, generator=g).to(dt)
+        kw = dict(causal=causal, window=window, q_offset=q_off, written_upto=wu)
+        ops.reset_launches()
+        got = ops.flash_attention(q, k, v, **kw)
+        kernel = ops.flash_kernel_for(dt, dk, dv)
+        if ops.LAUNCHES[kernel] != 1 or sum(ops.LAUNCHES.values()) != 1:
+            raise AssertionError(f"flash {name}: launches {ops.LAUNCHES}, expected {kernel}")
+        want = ref.flash_attention_ref(q.float(), k.float(), v.float(), **kw)
+        what = (f"flash {name} [{kernel}] B={b} S={s} T={t} H={h} KV={kv} Dk={dk} Dv={dv} "
+                f"causal={causal} window={window} q_offset={q_off} written_upto={wu}")
+        if got.shape != want.shape:
+            raise AssertionError(f"{what}: shape {tuple(got.shape)}")
+        if bf16:
+            check_bf16(torch, what, got, want)
+        else:
+            e = float((got - want).abs().max())
+            log(f"  {what}: max_abs_err={e}")
+            if not e <= 1e-4:
+                raise AssertionError(f"{what}: {e} > 1e-4")
+    # a pair no kernel is built for raises on the card, with no fallback
+    for dk, dv in ((96, 96), (192, 192)):
+        q = torch.zeros(1, 8, 2, dk, device=dev, dtype=torch.bfloat16)
+        kv = torch.zeros(1, 8, 2, dk, device=dev, dtype=torch.bfloat16)
+        try:
+            ops.flash_attention(q, kv, kv[..., :dv].contiguous())
+        except NotImplementedError:
+            continue
+        raise AssertionError(f"flash_attention took (Dk, Dv) = ({dk}, {dv})")
+    log("  flash (96, 96) and (192, 192): NotImplementedError, as no kernel is built for them")
+
+
+def _timed(torch, fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def lm_archs_deepseek(torch, ops, dev, card: str) -> None:
+    """(c) deepseek-v3 at full width, 4 layers: ServeEngine prefills of two
+    8000-token prompts (4 wgmma flash launches each at (Dk 192, Dv 128)),
+    16 decode steps with the materialized and with the absorbed decode;
+    the first tokens equal."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.serve import ServeEngine
+
+    cfg = dataclasses.replace(get_config("deepseek-v3-671b"), n_layers=DS_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    params, init_ms = _timed(torch, lambda: init_params(cfg, seed=0, device=dev))
+    n_params = sum(p.numel() for p in params.parameters())
+    log(f"lm_archs deepseek-v3-671b [{card}]: full width, n_layers 61 -> {DS_LAYERS} "
+        f"(3 dense MLA + 1 MoE MLA; MTP head held), {n_params} parameters "
+        f"({n_params * 2 / 1e9} GB bf16) drawn in {init_ms} ms")
+    rng = np.random.default_rng(0)
+    prompts = [torch.from_numpy(rng.integers(0, cfg.vocab, DS_PROMPT)) for _ in range(2)]
+    key = ops.flash_key((1, DS_PROMPT, cfg.n_heads, cfg.qk_nope_dim + cfg.qk_rope_dim),
+                        (1, DS_S_MAX, cfg.n_heads, 0), True, 0, DS_PROMPT, cfg.v_head_dim)
+    done = {}
+    for absorbed in (False, True):
+        c = dataclasses.replace(cfg, mla_absorbed_decode=absorbed)
+        eng = ServeEngine(params, c, batch=2, s_max=DS_S_MAX)
+        for i, p in enumerate(prompts):
+            eng.submit(i, p, max_tokens=DS_STEPS)
+        ops.reset_launches()
+        admitted, prefill_ms = _timed(torch, eng._admit)
+        prefill_launches = dict(ops.LAUNCHES)
+        at_key = ops.SHAPE_LAUNCHES[("flash_attention_wgmma", key)]
+        MAIN_SHAPES.update(ops.SHAPE_LAUNCHES)
+        ops.reset_launches()
+        steps, decode_ms = _timed(torch, lambda: sum(1 for _ in iter(eng.step, False)))
+        MAIN_SHAPES.update(ops.SHAPE_LAUNCHES)
+        done[absorbed] = {k: list(v) for k, v in eng.done.items()}
+        path = "absorbed" if absorbed else "materialized"
+        log(f"  deepseek-v3 {path} decode: prefill_ms_per_request={prefill_ms / admitted} "
+            f"({admitted} prompts of {DS_PROMPT} into {DS_S_MAX}) decode_steps={steps} "
+            f"decode_tokens_per_s={2 * DS_STEPS / (decode_ms / 1e3)} "
+            f"step_ms={decode_ms / steps} prefill launches={prefill_launches} "
+            f"at {key}: {at_key}; decode launches={dict(ops.LAUNCHES)} "
+            f"max_memory_allocated={torch.cuda.max_memory_allocated()}")
+        if at_key != 4 * admitted or prefill_launches["flash_attention_wgmma"] != 4 * admitted:
+            raise AssertionError(f"deepseek-v3: {at_key} wgmma flash launches at {key} for "
+                                 f"{admitted} prefills of {DS_LAYERS} MLA layers")
+        if len(done[absorbed]) != 2 or any(len(v) != DS_STEPS + 1
+                                           for v in done[absorbed].values()):
+            raise AssertionError(f"deepseek-v3 {path}: finished {done[absorbed]}")
+        del eng
+        torch.cuda.empty_cache()
+    first = [done[False][i][0] == done[True][i][0] for i in range(2)]
+    same = sum(a == b for i in range(2) for a, b in zip(done[False][i], done[True][i]))
+    log(f"  deepseek-v3: first tokens equal {first}; {same} of {2 * (DS_STEPS + 1)} tokens "
+        f"equal between the decode paths; peak memory {torch.cuda.max_memory_allocated()}")
+    if not all(first):
+        raise AssertionError("deepseek-v3: the decode paths' first tokens differ")
+    del params
+    torch.cuda.empty_cache()
+
+
+def lm_archs_rest(torch, ops, dev, card: str) -> None:
+    """(d) mixtral (2 layers), mamba2 (all 24), qwen2-vl (2) and hubert (2)
+    at full width: a prefill of about 8192 positions (qwen2-vl: 1024 patch
+    embeddings and 7000 tokens with M-RoPE ids; hubert: an encoder forward
+    over 8192 frames), then greedy decode steps, logits finite, the flash
+    kernel once a layer at its key."""
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.models import forward, init_cache, init_params
+    from repro_torch.serve.engine import make_decode_step, make_prefill
+    from repro_torch.train.batching import synthetic_batch
+
+    runs = [("mixtral-8x22b", 2, 8192, 32, 4096), ("mamba2-130m", 24, 8192, 64, 8192 + 64),
+            ("qwen2-vl-7b", 2, 8024, 16, 8192), ("hubert-xlarge", 2, 8192, 0, 0)]
+    for arch, n_layers, s, steps, s_max in runs:
+        full = get_config(arch)
+        cfg = dataclasses.replace(full, n_layers=n_layers)
+        torch.cuda.reset_peak_memory_stats()
+        params = init_params(cfg, seed=0, device=dev)
+        g = torch.Generator(device=dev).manual_seed(5)
+        ops.reset_launches()
+        if cfg.modality == "audio":
+            embeds = torch.randn(1, s, cfg.d_model, device=dev, generator=g).bfloat16()
+            out, prefill_ms = _timed(torch, lambda: forward(params, cfg, embeds=embeds))
+            finite, decode = bool(torch.isfinite(out.logits).all()), "encoder-only: no decode"
+            del out
+        else:
+            if cfg.modality == "vision":
+                batch = synthetic_batch(cfg, ShapeSpec("prefill", s, 1, "prefill"), seed=0,
+                                        device=dev)
+            else:
+                batch = {"tokens": torch.randint(0, cfg.vocab, (1, s), device=dev,
+                                                 generator=g)}
+            cache = init_cache(cfg, 1, s_max, device=dev)
+            (logits, cache), prefill_ms = _timed(
+                torch, lambda: make_prefill(cfg, s_max)(params, batch, cache))
+            finite = bool(torch.isfinite(logits[:, -1]).all())
+            last = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
+            del logits
+            decode_step = make_decode_step(cfg)
+
+            def run_decode(last=last, cache=cache):
+                for j in range(steps):
+                    p3 = (torch.full((3, 1, 1), s + j, device=dev, dtype=torch.int32)
+                          if cfg.pos_emb == "mrope" else None)
+                    last, lg, cache = decode_step(params, cache, last, s + j, positions3=p3)
+                return bool(torch.isfinite(lg).all())
+
+            ok, decode_ms = _timed(torch, run_decode)
+            finite = finite and ok
+            decode = f"decode_tokens_per_s={steps / (decode_ms / 1e3)} steps={steps}"
+        MAIN_SHAPES.update(ops.SHAPE_LAUNCHES)
+        flash = {k: v for k, v in ops.SHAPE_LAUNCHES.items() if k[0].startswith("flash")}
+        log(f"lm_archs {arch} [{card}]: full width, n_layers {full.n_layers} -> {n_layers}, "
+            f"prefill S={s} s_max={s_max}: prefill_ms={prefill_ms} {decode} "
+            f"logits_finite={finite} flash launches={flash} "
+            f"max_memory_allocated={torch.cuda.max_memory_allocated()}")
+        if not finite:
+            raise AssertionError(f"lm_archs {arch}: non-finite logits")
+        n_attn = sum(cfg.is_attn_layer(i) for i in range(n_layers))
+        if sum(flash.values()) != n_attn:
+            raise AssertionError(f"lm_archs {arch}: {sum(flash.values())} flash launches for "
+                                 f"{n_attn} attention layers")
+        del params
+        torch.cuda.empty_cache()
+
+
+def lm_archs_phase(torch, ops, ref, dev, card: str) -> None:
+    """The other six architectures: (a) SMOKE card against CPU, (b) the
+    flash kernels at the new widths, (c) deepseek-v3 at full width, (d)
+    mixtral, mamba2, qwen2-vl and hubert at full width, reduced depth
+    (jamba's one full-width unit of 8 layers holds 4 MoE layers of 19.3 GB
+    each: more than one card; it runs in (a) only)."""
+    t0 = time.perf_counter()
+    lm_archs_smoke(torch, ops, dev)
+    log(f"lm_archs: (a) SMOKE card against CPU {time.perf_counter() - t0} s")
+    t1 = time.perf_counter()
+    lm_archs_kernel_checks(torch, ops, ref, dev)
+    log(f"lm_archs: (b) kernel checks {time.perf_counter() - t1} s")
+    t1 = time.perf_counter()
+    lm_archs_deepseek(torch, ops, dev, card)
+    log(f"lm_archs: (c) deepseek-v3 {time.perf_counter() - t1} s")
+    t1 = time.perf_counter()
+    lm_archs_rest(torch, ops, dev, card)
+    log(f"lm_archs: (d) {time.perf_counter() - t1} s; phase {time.perf_counter() - t0} s")
+
+
 def main() -> int:
     only = sys.argv[1:] == ["--only", "serving"]
     if sys.argv[1:] and not only:
@@ -2455,6 +2743,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     lm_parity_phase(torch, ops, dev)
     lm_slice_phase(torch, ops, card)
+    lm_archs_phase(torch, ops, ref, dev, card)
     # last: once torch.profiler has traced the card, every later launch in
     # this process pays its callbacks, so no host-clock figure comes after
     rows = shapes_phase(torch, ops, ref, catalog, reqs, ivf_index, pq_index, dev,

@@ -39,14 +39,20 @@ kk 256) by `pq_adc_lists` and, off the main path now, by the per-query
 `pq_adc` over the probed table (alone, and with the sort and gather that
 followed it: the parent's shortlist, its call beside the new one's); the
 bf16 flash kernel at a 512-token prefill into an 8192-token cache (the
-semantic tier's prompts) and at 4096 tokens (the engine's 2048-8000).
+semantic tier's prompts) and at 4096 tokens (the engine's 2048-8000), and
+at the other architectures' prefills (FLASH_LM): deepseek-v3's MLA (Dk
+192, Dv 128, 128 heads, 8000 tokens into an 8192-token cache), mixtral's
+sliding window, qwen2-vl's patch prefix and hubert's bidirectional
+encoder at head width 80 (the FMA kernel).
 The churn path's shapes (`churn_cases`, over `churn_state`: the flat, IVF
 and IVF-PQ indexes of the first half of the catalog after 205 one-row
 inserts and the expiry of the 205 oldest rows, the state a rolling window
 at churn 0.1 leaves after 2048 requests): `l2_topk` masked over the 1M-row
 slab (8 x capacity x 128, k 64, `valid` holding the tombstones and the
-unused rows), `pairwise_l2` of AÇAI's exact mutable scan (8 x capacity)
-and of the add-time list assignment (1 x 256 x 128), and the IVF probe
+unused rows), `pairwise_l2` of AÇAI's exact mutable scan (8 x capacity;
+8 x 500k before the first insert, 8 x 524288 after a compaction), of the
+add-time list assignment (1 x 256 x 128) and of k-means' assignment at a
+refresh (500k x 256 x 128), and the IVF probe
 and the IVF-PQ shortlist, masked, over the lists the inserts appended to.
 `--src` imports another checkout's `repro_torch` (its kernels are built
 from its own sources), so two trees can be timed in one call; features a
@@ -91,12 +97,22 @@ ORACLE_Q, ORACLE_K, ONLINE_K, CF_SAMPLE, CF_K, SEM_CF_SAMPLE = 512, 128, 20, 256
 # flash: qwen1.5-0.5b's heads into an 8192-token cache, the prompt lengths
 # timed (a semantic-tier prompt; the engine's, 2048-8000, at 4096)
 FLASH_H, FLASH_D, FLASH_T, FLASH_S = 16, 64, 8192, (512, 4096)
+# the other architectures' prefills at full width (chip_smoke.py's lm_archs
+# phase): (label, B, S, T, H, KV, Dk, Dv, causal, window, written_upto)
+FLASH_LM = [
+    ("deepseek-v3 MLA prefill", 1, 8000, 8192, 128, 128, 192, 128, True, 0, 8000),
+    ("mixtral-8x22b SWA prefill", 1, 8192, 8192, 48, 8, 128, 128, True, 4096, None),
+    ("qwen2-vl-7b prefill, 1024 patches + 7000 tokens", 1, 8024, 8192, 28, 4, 128, 128,
+     True, 0, 8024),
+    ("hubert-xlarge encoder", 1, 8192, 8192, 16, 16, 80, 80, False, 0, None),
+]
 
 # kernel-name substrings of each wrapper's kernels in the profiler's events
 KERNEL_NAMES = {"pairwise_l2": ("pairwise_l2",), "ivf_scan": ("ivf_scan",),
                 "l2_topk": ("l2_topk_kernel",), "pq_adc": ("pq_adc_kernel",),
                 "pq_adc_lists": ("pq_adc_lists_kernel",),
-                "flash_attention": ("flash_wgmma_kernel",)}
+                "flash_attention": ("flash_wgmma_kernel",),
+                "flash_attention_fma": ("flash_kernel",)}
 
 
 def bound_ms(nbytes: float, flops: float, peak: float = FP32_FLOPS):
@@ -310,7 +326,7 @@ def cases(torch, ops, ref, catalog, reqs, ivf_index, pq_index, dev, wide=True):
                  else "engine prefill (prompts of 2048-8000, timed at 4096)")
         add("flash_attention", label,
             f"B=1 S={s_len} T={t} H={h} KV={h} D={dd} causal written_upto={s_len} bf16",
-            ("flash_attention_wgmma", (1, s_len, t, h, h, dd, "causal+written_upto")),
+            ("flash_attention_wgmma", (1, s_len, t, h, h, dd, dd, "causal+written_upto")),
             lambda: ops.flash_attention(qf, kf, vf, **kw),
             lambda: ref.flash_attention_ref(qf.float(), kf.float(), vf.float(), **kw),
             lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt,
@@ -426,6 +442,53 @@ def cases(torch, ops, ref, catalog, reqs, ivf_index, pq_index, dev, wide=True):
     l2("k-means assignment (build)", catalog, ivf_index.centroids, main=False, iters=3)
     for s_len in FLASH_S:
         flash_case(s_len)
+    return out + lm_flash_cases(torch, ops, ref, dev)
+
+
+def lm_flash_cases(torch, ops, ref, dev) -> list:
+    """The flash kernels at the other architectures' prefills (FLASH_LM),
+    as `cases` dicts: bf16 inputs drawn from a generator, the kernel the
+    wrapper picks (wgmma, or the FMA kernel at hubert's width 80), the
+    plain version on float32 copies, masked scaled_dot_product_attention
+    on k / v expanded to every head as the library yardstick."""
+    out = []
+    for i, (label, b, s_len, t, h, kv, dk, dv, causal, window, wu) in enumerate(FLASH_LM):
+        g = torch.Generator(device=dev).manual_seed(11 + i)
+        qf = torch.randn(b, s_len, h, dk, device=dev, generator=g).bfloat16()
+        kf = torch.randn(b, t, kv, dk, device=dev, generator=g).bfloat16()
+        vf = torch.randn(b, t, kv, dv, device=dev, generator=g).bfloat16()
+        kw = dict(causal=causal, window=window, q_offset=0, written_upto=wu)
+        wuu = t if wu is None else wu
+        qp = torch.arange(s_len, device=dev)[:, None]
+        kp = torch.arange(t, device=dev)[None, :]
+        mask = (kp < wuu).expand(s_len, t).clone()
+        if causal:
+            mask &= kp <= qp
+        if window:
+            mask &= kp > qp - window
+        qt = qf.transpose(1, 2)
+        kt, vt = (a.repeat_interleave(h // kv, dim=2).transpose(1, 2) for a in (kf, vf))
+        pairs = kept_pairs(b, s_len, t, causal, window, 0, wu)
+        counter = ops.flash_kernel_for(torch.bfloat16, dk, dv)
+        mask_kind = ("causal" if causal else "full") + (f" window={window}" if window else "")
+        out.append({
+            "kernel": "flash_attention" if counter == "flash_attention_wgmma"
+            else "flash_attention_fma",
+            "label": label,
+            "shape": f"B={b} S={s_len} T={t} H={h} KV={kv} Dk={dk} Dv={dv} {mask_kind} "
+                     f"written_upto={wuu} bf16",
+            "key": (counter, ops.flash_key(qf.shape, kf.shape, causal, window, wuu, dv)),
+            "fn": lambda qf=qf, kf=kf, vf=vf, kw=kw: ops.flash_attention(qf, kf, vf, **kw),
+            "plain": lambda qf=qf, kf=kf, vf=vf, kw=kw: ref.flash_attention_ref(
+                qf.float(), kf.float(), vf.float(), **kw),
+            "library": lambda qt=qt, kt=kt, vt=vt, mask=mask:
+                torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask),
+            # q, k, v read once, the output written; 2 (Dk + Dv) operations a
+            # kept pair and head on the bf16 tensor cores
+            "bound": bound_ms(2.0 * (b * s_len * h * (dk + dv) + b * t * kv * (dk + dv)),
+                              2.0 * (dk + dv) * h * pairs, BF16_FLOPS),
+            "main": True, "row": True, "check": "bf16", "all_kernels": False,
+            "iters": 5})
     return out
 
 
@@ -488,8 +551,27 @@ def churn_cases(torch, ops, ref, reqs, flat, ivf, pq, dev, b: int = 8):
         ("pairwise_l2", (b, cap, d)), lambda: ops.pairwise_l2(q, slab),
         lambda: ref.pairwise_l2_ref(q, slab), lambda: torch.cdist(q, slab),
         bound_ms(4.0 * (b * d + cap * d + b * cap), 2.0 * b * cap * d))
-    row = reqs[:1].contiguous()
+    # the exact scan before the first insert (the warm half, its own
+    # capacity) and after a compaction (the live rows at the smallest
+    # doubling that holds them and one write batch more: 524288)
+    compacted = slab[:1 << (n_live + 32 - 1).bit_length()]
+    for label, x in (("before the first insert", warm), ("after compaction", compacted)):
+        nx = x.shape[0]
+        add("pairwise_l2", f"churn: AÇAI exact candidates B {b} {label}", f"Q={b} N={nx} D={d}",
+            ("pairwise_l2", (b, nx, d)), lambda x=x: ops.pairwise_l2(q, x),
+            lambda x=x: ref.pairwise_l2_ref(q, x), lambda x=x: torch.cdist(q, x),
+            bound_ms(4.0 * (b * d + nx * d + b * nx), 2.0 * b * nx * d))
     nl = ivf.centroids.shape[0]
+    # k-means' assignment step at a refresh: the live rows against the lists'
+    # centroids (the slab's first n_live rows stand in for the live ones)
+    live_rows = slab[:n_live]
+    add("pairwise_l2", "churn: k-means assignment at refresh",
+        f"Q={n_live} N={nl} D={d}", ("pairwise_l2", (n_live, nl, d)),
+        lambda: ops.pairwise_l2(live_rows, ivf.centroids),
+        lambda: ref.pairwise_l2_ref(live_rows, ivf.centroids),
+        lambda: torch.cdist(live_rows, ivf.centroids),
+        bound_ms(4.0 * (n_live * d + nl * d + n_live * nl), 2.0 * n_live * nl * d), iters=5)
+    row = reqs[:1].contiguous()
     add("pairwise_l2", "churn: add-time list assignment", f"Q=1 N={nl} D={d}",
         ("pairwise_l2", (1, nl, d)), lambda: ops.pairwise_l2(row, ivf.centroids),
         lambda: ref.pairwise_l2_ref(row, ivf.centroids), lambda: torch.cdist(row, ivf.centroids),

@@ -4,9 +4,10 @@ is the reference it is held against).
 The layout follows `repro`: `core/` (cost model, OMA, projection,
 rounding, gain, traces, the batched policy step), `index/` (the index
 backends, candidate generation), `kernels/` (hand-written Hopper kernels
-with their plain PyTorch versions), `models/` and `configs/` (the dense
-GQA LMs), `serve/` (prefill / decode engine, semantic cache) and
-`launch/` (the serving driver).  Entry points run on the CUDA card unless
+with their plain PyTorch versions), `models/` and `configs/` (the ten
+LMs of the reference: dense GQA, MLA, MoE, Mamba2 and the hybrid),
+`serve/` (prefill / decode engine, semantic cache and the serving tier)
+and `launch/` (the serving launcher).  Entry points run on the CUDA card unless
 the caller passes `device="cpu"`.
 """
 

@@ -27,7 +27,7 @@ from repro_torch.index.lsh import LSHIndex
 from repro_torch.index.nsw import NSWIndex
 from repro_torch.index.pq import IVFPQIndex
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.model import LM, init_params
+from repro_torch.models.model import LM, init_params, unit_spec
 
 
 def cache_state_from_numpy(y, x, t: int = 0, seed: int = 0, device=None) -> CacheState:
@@ -108,31 +108,57 @@ def lm_params_from_numpy(params, cfg: ModelConfig, device=None) -> LM:
     """The port's model holding the reference's LM parameters.
 
     `params` is the reference's nested tree as numpy arrays: `embed`
-    (vocab, d), `final_norm` (d,), `lm_head` (d, vocab) unless tied, and
-    `body` stacked over the layers, `slot0.{norm1, norm2}`,
-    `slot0.mixer.{wq, wk, wv, wo[, bq, bk, bv]}` and
-    `slot0.ffn.{wi[, wg], wo}`.  Weights keep their (in, out) layout and
-    are cast to cfg.dtype, so both compute the same function."""
+    (vocab, d), `final_norm` (d,), `lm_head` (d, vocab) unless tied;
+    `prefix.layer{i}` (the unrolled layers, unstacked); `body.slot{j}`,
+    each leaf stacked over the units; and `mtp.{proj, block, norm}` when
+    cfg.mtp_depth.  A layer's leaves are `norm1`, `norm2` (not on a pure
+    mamba block), `mixer.*` (GQA `wq, wk, wv, wo[, bq, bk, bv]`; MLA
+    `wq_a, q_norm, wq_b` or `wq`, `wkv_a, kv_norm, wk_b, wv_b, wo`; mamba
+    `in_proj, conv_w, conv_b, a_log, dt_bias, d_skip, norm_w, out_proj`)
+    and `ffn.*` (`wi[, wg], wo`; MoE `router, wi, wg, wo[, shared.*]`).
+    Body slot j of unit u goes to layer n_prefix + u * len(kinds) + j.
+    Weights keep their layout and are cast to each parameter's dtype;
+    every leaf of the tree must land on a parameter of the same shape."""
     model = init_params(cfg, seed=0, device=device)
+    spec = unit_spec(cfg)
+    used = set()
 
-    def put(dst: torch.Tensor, src) -> None:
-        src = torch.from_numpy(np.array(src, dtype=np.float32))
+    def put(dst: torch.Tensor, tree, where: str, path: str, unit: int | None) -> None:
+        node = tree
+        for key in path.split("."):
+            node = node[key]
+        src = torch.from_numpy(np.array(node if unit is None else node[unit], np.float32))
         if tuple(src.shape) != tuple(dst.shape):
-            raise ValueError(f"lm_params_from_numpy: shape {tuple(src.shape)} "
-                             f"for a {tuple(dst.shape)} parameter")
+            raise ValueError(f"lm_params_from_numpy: {where}{path} has shape "
+                             f"{tuple(src.shape)} for a {tuple(dst.shape)} parameter")
         dst.copy_(src.to(dst.dtype))
+        used.add(where + path)
+
+    def put_module(module, tree, where: str, unit: int | None = None) -> None:
+        for name, t in module.named_parameters():
+            put(t, tree, where, name, unit)
 
     with torch.no_grad():
-        put(model.embed, params["embed"])
-        put(model.final_norm, params["final_norm"])
-        if not cfg.tie_embeddings:
-            put(model.lm_head, params["lm_head"])
-        body = params["body"]["slot0"]
+        for name in ("embed", "final_norm") + (() if cfg.tie_embeddings else ("lm_head",)):
+            put(getattr(model, name), params, "", name, None)
         for i, layer in enumerate(model.layers):
-            put(layer.norm1, body["norm1"][i])
-            put(layer.norm2, body["norm2"][i])
-            for name, t in layer.mixer.named_parameters():
-                put(t, body["mixer"][name][i])
-            for name, t in layer.ffn.named_parameters():
-                put(t, body["ffn"][name][i])
+            if i < spec.n_prefix:
+                put_module(layer, params["prefix"][f"layer{i}"], f"prefix.layer{i}.")
+            else:
+                u, j = divmod(i - spec.n_prefix, len(spec.kinds))
+                put_module(layer, params["body"][f"slot{j}"], f"body.slot{j}.", u)
+        if cfg.mtp_depth:
+            put_module(model.mtp, params["mtp"], "mtp.")
+    missing = set(_paths(params)) - used
+    if missing:
+        raise ValueError(f"lm_params_from_numpy: leaves with no parameter: {sorted(missing)}")
     return model
+
+
+def _paths(tree, prefix: str = ""):
+    """Dotted paths of a nested dict's leaves."""
+    for key, node in tree.items():
+        if isinstance(node, dict):
+            yield from _paths(node, f"{prefix}{key}.")
+        else:
+            yield prefix + key

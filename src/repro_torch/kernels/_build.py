@@ -52,11 +52,11 @@ _SIGNATURES = {
         "pq_adc_lists_smem_bytes": (_L, [_I] * 5),
     },
     "flash_attention": {
-        "flash_attention": (_I, [_P, _P, _P, _P] + [_I] * 10
+        "flash_attention": (_I, [_P, _P, _P, _P] + [_I] * 11
                             + [ctypes.c_float, _I, _P]),
     },
     "flash_attention_wgmma": {
-        "flash_attention_wgmma": (_I, [_P, _P, _P, _P] + [_I] * 10
+        "flash_attention_wgmma": (_I, [_P, _P, _P, _P] + [_I] * 11
                                   + [ctypes.c_float, _P]),
     },
 }

@@ -7,8 +7,8 @@
 // function: the port's attention_core takes this kernel on every flash
 // call with a CUDA tensor, cached prefill included.
 //
-// Contract: q (B, S, H, D), k / v (B, T, KV, D) contiguous, float32 or
-// bf16; out (B, S, H, D) in q's type.  Query row i sits at absolute
+// Contract: q (B, S, H, DK), k (B, T, KV, DK), v (B, T, KV, DV)
+// contiguous, float32 or bf16; out (B, S, H, DV) in q's type.  Query row i sits at absolute
 // position q_offset + i and keeps key j when j <= it (causal), j > it -
 // window (window > 0) and j < written_upto.  Head h reads kv head
 // h / (H / KV).  logits = (q . k) * scale in float32; masked logits are
@@ -16,17 +16,19 @@
 // with no kept key returns acc / max(l, 1e-30) = 0.  Accumulation and the
 // p . V product stay in float32, as the reference keeps them.
 //
-// Bound on an H100: 4*D operations per kept (query, key) pair and head
-// (two products of D multiply-adds), against the bytes of q, k, v and
-// out.  At the qwen1.5-0.5b prefill (S 4096, T 8192, written_upto 4096,
+// Bound on an H100: 2 (DK + DV) operations per kept (query, key) pair and
+// head (products of DK and DV multiply-adds), against the bytes of q, k,
+// v and out.  At the qwen1.5-0.5b prefill (S 4096, T 8192, written_upto 4096,
 // causal, H 16, D 64) that is 34 GFLOP against 50 MB: bound by the
 // operations on the bf16 tensor cores (0.035 ms at 989 TFLOP/s).  This
 // kernel keeps p in float32 and multiplies on the 67 TFLOP/s FMA units,
 // so it cannot come within 15x of that bound.  The wrapper sends bf16 at
-// D 64 and 128, the main path's types and widths, to
-// flash_attention_wgmma.cu (wgmma products, TMA-fed K / V, p split into
-// three bf16 parts); this kernel keeps float32 inputs, held to 1e-4, which
-// tensor cores cannot promise, and D 16 and 32.
+// (DK, DV) (64, 64), (128, 128) and (192, 128), the main path's types and
+// widths, to flash_attention_wgmma.cu (wgmma products, TMA-fed K / V, p
+// split into three bf16 parts); this kernel keeps float32 inputs, held to
+// 1e-4, which tensor cores cannot promise, and the widths TMA's 64-column
+// boxes do not tile: hubert-xlarge's 80 in bf16 on the main path, and
+// (16, 16), (24, 16) (deepseek-v3's SMOKE MLA) and (32, 32).
 //
 // Why not the TPU design: the Pallas kernel keeps a whole (T, D) KV
 // stream of one (b, kv head) resident in VMEM per grid cell (8 MiB at
@@ -39,7 +41,7 @@
 //     (4 x 4 outputs a thread), masked and written to shared memory;
 //   - one warp per row updates m and l (warp shuffles for the max and the
 //     sum) and turns the row into p in place;
-//   - acc (64 x D, 4 x D/16 a thread, in registers) is rescaled and gets
+//   - acc (64 x DV, 4 x DV/16 a thread, in registers) is rescaled and gets
 //     p . V.
 // KV tiles that the causal, window or written_upto mask drops whole are
 // never visited (exact: such a tile leaves m, l and acc unchanged), and
@@ -67,23 +69,24 @@ __device__ __forceinline__ void store_f32(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);  // round to nearest even, as torch's .to(bf16)
 }
 
-__host__ __device__ constexpr size_t smem_floats(int d) {
-  return (size_t)BQ * (d + 1) + (size_t)BK * (d + 1) + (size_t)BK * d +
+__host__ __device__ constexpr size_t smem_floats(int dk, int dv) {
+  return (size_t)BQ * (dk + 1) + (size_t)BK * (dk + 1) + (size_t)BK * dv +
          (size_t)BQ * (BK + 1) + 3 * BQ;
 }
 
-template <int D, typename T>
+template <int DK, int DV, typename T>
 __global__ void __launch_bounds__(THREADS)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, T* __restrict__ out, int S, int Tk,
              int H, int KV, int causal, int window, int q_offset,
              int written_upto, float scale) {
-  constexpr int JD = D / 16;  // output columns a thread owns
+  static_assert(DV % 16 == 0, "a thread owns DV / 16 output columns");
+  constexpr int JD = DV / 16;  // output columns a thread owns
   extern __shared__ float smem[];
-  float* qs = smem;                   // BQ x (D + 1), the query tile
-  float* ks = qs + BQ * (D + 1);      // BK x (D + 1), keys
-  float* vs = ks + BK * (D + 1);      // BK x D, values
-  float* ps = vs + BK * D;            // BQ x (BK + 1), logits then p
+  float* qs = smem;                   // BQ x (DK + 1), the query tile
+  float* ks = qs + BQ * (DK + 1);     // BK x (DK + 1), keys
+  float* vs = ks + BK * (DK + 1);     // BK x DV, values
+  float* ps = vs + BK * DV;           // BQ x (BK + 1), logits then p
   float* row_m = ps + BQ * (BK + 1);  // running max
   float* row_l = row_m + BQ;          // running denominator
   float* row_r = row_l + BQ;          // this tile's rescale
@@ -103,10 +106,10 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if (causal) k_hi = min(k_hi, pos_last + 1);
   const int k_lo = window > 0 ? max(0, pos_first - window + 1) : 0;
 
-  for (int e = tid; e < BQ * D; e += THREADS) {
-    const int r = e / D, c = e % D;
-    qs[r * (D + 1) + c] =
-        r < rows ? load_f32(q + (((size_t)b * S + q0 + r) * H + h) * D + c) : 0.f;
+  for (int e = tid; e < BQ * DK; e += THREADS) {
+    const int r = e / DK, c = e % DK;
+    qs[r * (DK + 1) + c] =
+        r < rows ? load_f32(q + (((size_t)b * S + q0 + r) * H + h) * DK + c) : 0.f;
   }
   if (tid < BQ) {
     row_m[tid] = neg_inf;
@@ -120,16 +123,15 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int k0 = k_lo; k0 < k_hi; k0 += BK) {
     __syncthreads();  // the previous tile's readers are done
-    for (int e = tid; e < BK * D; e += THREADS) {
-      const int r = e / D, c = e % D, t = k0 + r;
-      float kk = 0.f, vv = 0.f;
-      if (t < k_hi) {
-        const size_t off = (((size_t)b * Tk + t) * KV + kvh) * D + c;
-        kk = load_f32(k + off);
-        vv = load_f32(v + off);
-      }
-      ks[r * (D + 1) + c] = kk;
-      vs[r * D + c] = vv;
+    for (int e = tid; e < BK * DK; e += THREADS) {
+      const int r = e / DK, c = e % DK, t = k0 + r;
+      ks[r * (DK + 1) + c] =
+          t < k_hi ? load_f32(k + (((size_t)b * Tk + t) * KV + kvh) * DK + c) : 0.f;
+    }
+    for (int e = tid; e < BK * DV; e += THREADS) {
+      const int r = e / DV, c = e % DV, t = k0 + r;
+      vs[r * DV + c] =
+          t < k_hi ? load_f32(v + (((size_t)b * Tk + t) * KV + kvh) * DV + c) : 0.f;
     }
     __syncthreads();
 
@@ -140,12 +142,12 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) sacc[i][j] = 0.f;
 #pragma unroll 8
-    for (int c = 0; c < D; ++c) {
+    for (int c = 0; c < DK; ++c) {
       float a[4], bk[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = qs[(tq * 4 + i) * (D + 1) + c];
+      for (int i = 0; i < 4; ++i) a[i] = qs[(tq * 4 + i) * (DK + 1) + c];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) bk[j] = ks[(tr + 16 * j) * (D + 1) + c];
+      for (int j = 0; j < 4; ++j) bk[j] = ks[(tr + 16 * j) * (DK + 1) + c];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -204,7 +206,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int i = 0; i < 4; ++i) p[i] = ps[(tq * 4 + i) * (BK + 1) + kk];
 #pragma unroll
-      for (int j = 0; j < JD; ++j) vv[j] = vs[kk * D + tr + 16 * j];
+      for (int j = 0; j < JD; ++j) vv[j] = vs[kk * DV + tr + 16 * j];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -218,22 +220,22 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int r = tq * 4 + i;
     if (r >= rows) continue;
     const float denom = fmaxf(row_l[r], 1e-30f);
-    T* o = out + (((size_t)b * S + q0 + r) * H + h) * D;
+    T* o = out + (((size_t)b * S + q0 + r) * H + h) * DV;
 #pragma unroll
     for (int j = 0; j < JD; ++j) store_f32(o + tr + 16 * j, acc[i][j] / denom);
   }
 }
 
-template <int D, typename T>
+template <int DK, int DV, typename T>
 int launch(const void* q, const void* k, const void* v, void* out, int B,
            int S, int Tk, int H, int KV, int causal, int window, int q_offset,
            int written_upto, float scale, cudaStream_t stream) {
-  const size_t smem = smem_floats(D) * sizeof(float);
+  const size_t smem = smem_floats(DK, DV) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<D, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      flash_kernel<DK, DV, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((S + BQ - 1) / BQ, H, B);
-  flash_kernel<D, T><<<grid, THREADS, smem, stream>>>(
+  flash_kernel<DK, DV, T><<<grid, THREADS, smem, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (T*)out, S, Tk, H, KV, causal,
       window, q_offset, written_upto, scale);
   return (int)cudaGetLastError();
@@ -241,34 +243,41 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
 
 template <typename T>
 int launch_d(const void* q, const void* k, const void* v, void* out, int B,
-             int S, int Tk, int H, int KV, int D, int causal, int window,
+             int S, int Tk, int H, int KV, int DK, int DV, int causal, int window,
              int q_offset, int written_upto, float scale, cudaStream_t s) {
-  switch (D) {
-    case 16: return launch<16, T>(q, k, v, out, B, S, Tk, H, KV, causal, window, q_offset, written_upto, scale, s);
-    case 32: return launch<32, T>(q, k, v, out, B, S, Tk, H, KV, causal, window, q_offset, written_upto, scale, s);
-    case 64: return launch<64, T>(q, k, v, out, B, S, Tk, H, KV, causal, window, q_offset, written_upto, scale, s);
-    case 128: return launch<128, T>(q, k, v, out, B, S, Tk, H, KV, causal, window, q_offset, written_upto, scale, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+#define FLASH_CASE(dk, dv)                                                               \
+  if (DK == dk && DV == dv)                                                             \
+    return launch<dk, dv, T>(q, k, v, out, B, S, Tk, H, KV, causal, window, q_offset,  \
+                             written_upto, scale, s);
+  FLASH_CASE(16, 16)
+  FLASH_CASE(24, 16)
+  FLASH_CASE(32, 32)
+  FLASH_CASE(64, 64)
+  FLASH_CASE(80, 80)
+  FLASH_CASE(128, 128)
+  FLASH_CASE(192, 128)
+#undef FLASH_CASE
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// q (B, S, H, D), k / v (B, T, KV, D), out (B, S, H, D), contiguous on the
-// device; bf16 = 1 for __nv_bfloat16, 0 for float32.  D in {16, 32, 64,
-// 128}, H % KV == 0, written_upto <= T (the wrapper passes T for None).
-// Launches on `stream` and returns cudaGetLastError() as an int.
+// q (B, S, H, DK), k (B, T, KV, DK), v (B, T, KV, DV), out (B, S, H, DV),
+// contiguous on the device; bf16 = 1 for __nv_bfloat16, 0 for float32.
+// (DK, DV) in {(16, 16), (24, 16), (32, 32), (64, 64), (80, 80), (128, 128),
+// (192, 128)}, H % KV == 0, written_upto <= T (the wrapper passes T for
+// None).  Launches on `stream` and returns cudaGetLastError() as an int.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* out, int B, int S, int T, int H, int KV,
-                               int D, int causal, int window, int q_offset,
+                               int DK, int DV, int causal, int window, int q_offset,
                                int written_upto, float scale, int bf16,
                                void* stream) {
   if (B <= 0 || S <= 0 || H <= 0) return 0;
   if (KV <= 0 || H % KV != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (bf16)
-    return launch_d<__nv_bfloat16>(q, k, v, out, B, S, T, H, KV, D, causal,
+    return launch_d<__nv_bfloat16>(q, k, v, out, B, S, T, H, KV, DK, DV, causal,
                                    window, q_offset, written_upto, scale, s);
-  return launch_d<float>(q, k, v, out, B, S, T, H, KV, D, causal, window,
+  return launch_d<float>(q, k, v, out, B, S, T, H, KV, DK, DV, causal, window,
                          q_offset, written_upto, scale, s);
 }

@@ -1,23 +1,27 @@
-// flash_attention_wgmma: FlashAttention-2 forward in bf16 at head width 64
-// or 128 on Hopper's tensor cores: wgmma products, K and V fed by TMA
-// through a ring of shared-memory stages, the online softmax in registers.
+// flash_attention_wgmma: FlashAttention-2 forward in bf16 on Hopper's tensor
+// cores: wgmma products, Q, K and V fed by TMA through a ring of shared-
+// memory stages, the online softmax in registers.  Head widths (DK, DV) of
+// q / k and of v: (64, 64), (128, 128) and (192, 128).
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py:
 // flash_attention_pallas / _flash_kernel (and the reference's XLA flash
-// path `_sdpa_flash`) for bf16 inputs at D in {64, 128}: the main path's
-// types and widths (qwen1.5-0.5b D 64; yi-6b, minitron-8b, qwen2-72b D 128).
-// float32 inputs and D in {16, 32} keep flash_attention.cu.
+// path `_sdpa_flash`) for bf16 inputs at those widths: the main path's
+// types and widths (qwen1.5-0.5b D 64; yi-6b, minitron-8b, qwen2-72b,
+// mixtral-8x22b, qwen2-vl-7b, jamba D 128; deepseek-v3's MLA prefill
+// DK 192 = nope 128 + rope 64, DV 128).  float32 inputs and the other
+// widths (hubert-xlarge's 80) keep flash_attention.cu.
 //
-// Contract: as flash_attention.cu.  q (B, S, H, D), k / v (B, T, KV, D)
-// contiguous bf16, 16-byte aligned; out (B, S, H, D) bf16.  Query row i
-// sits at q_offset + i and keeps key j when j <= it (causal), j > it -
-// window (window > 0) and j < written_upto; head h reads kv head
-// h / (H / KV); logits = (q . k) * scale in float32, masked logits add
-// p = 0, shift = isfinite(m_new) ? m_new : 0, the rescale is 0 while
-// m = -inf, and out = acc / max(l, 1e-30), rounded to bf16 (nearest even).
+// Contract: as flash_attention.cu.  q (B, S, H, DK), k (B, T, KV, DK), v
+// (B, T, KV, DV) contiguous bf16, 16-byte aligned; out (B, S, H, DV) bf16.
+// Query row i sits at q_offset + i and keeps key j when j <= it (causal),
+// j > it - window (window > 0) and j < written_upto; head h reads kv head
+// h / (H / KV); logits = (q . k) * scale in float32 (the wrapper passes
+// 1 / sqrt(DK), q's width, as the Pallas kernel), masked logits add p = 0,
+// shift = isfinite(m_new) ? m_new : 0, the rescale is 0 while m = -inf,
+// and out = acc / max(l, 1e-30), rounded to bf16 (nearest even).
 //
-// Bound on an H100: 4*D operations a kept (query, key) pair and head
-// against the bytes of q, k, v and out.  At the qwen1.5-0.5b prefill
+// Bound on an H100: 2 (DK + DV) operations a kept (query, key) pair and
+// head against the bytes of q, k, v and out.  At the qwen1.5-0.5b prefill
 // (S 4096, T 8192, written_upto 4096, causal, H 16, D 64) that is 34 GFLOP
 // against 50 MB: bound by the bf16 tensor cores (0.035 ms at 989 TFLOP/s).
 // flash_attention.cu ran both products as float32 FMAs (67 TFLOP/s peak)
@@ -27,14 +31,17 @@
 //     (one thread issues TMA; setmaxnreg gives its registers away) and two
 //     consumer warpgroups of 64 rows each;
 //   - the producer loads the Q tile once and K / V tiles of BK keys (128 at
-//     D 64, 64 at D 128) into a 3-stage ring, each stage guarded by a full
-//     and an empty mbarrier.  k and v are (B, T, KV, D): a tile's rows are
-//     KV * D apart, so the loads go through 4-d tensor maps (built on the
-//     host per call), with 128-byte swizzle; a D 128 row is loaded as two
-//     64-column halves.  The K / V maps end at written_upto, so keys past
-//     it read as zeros, never as whatever the cache holds there;
-//   - S = Q K^T is wgmma m64nBKk16, bf16 operands from shared memory (both
-//     K-major, as loaded), float32 accumulator;
+//     DK 64, 64 at DK 128 and 192) into a 3-stage ring, each stage guarded
+//     by a full and an empty mbarrier.  k and v are (B, T, KV, D): a tile's
+//     rows are KV * D apart, so the loads go through 4-d tensor maps (built
+//     on the host per call), with 128-byte swizzle; a row wider than 64 is
+//     loaded as 64-column parts (three for DK 192: Q 48 KB, a stage of K
+//     24 KB and of V 16 KB, 169 KB in all with the ring).  The K / V maps
+//     end at written_upto, so keys past it read as zeros, never as
+//     whatever the cache holds there;
+//   - S = Q K^T is wgmma m64nBKk16 over DK / 16 k-steps (12 at DK 192),
+//     bf16 operands from shared memory (both K-major, as loaded), float32
+//     accumulator;
 //   - the online softmax runs on the accumulator fragment: each thread
 //     holds two rows, row max by quad shuffles, the row sum kept per thread
 //     and reduced once at the end.  Masks are computed from positions, and
@@ -43,16 +50,21 @@
 //     and the heaviest causal query tiles are scheduled first;
 //   - p . V keeps the reference's float32 p: p is split in registers into
 //     three bf16 parts, p1 = bf16(p), p2 = bf16(p - p1), p3 = bf16(p - p1
-//     - p2), whose sum is p to float32's 24 bits, and three wgmma m64nDk16
+//     - p2), whose sum is p to float32's 24 bits, and three wgmma m64nDVk16
 //     per 16 keys take them as A from registers (the accumulator fragment
 //     is the A fragment's layout) against the V tile in shared memory,
-//     read N-major through the transpose bit.  A single bf16 p errs by
-//     about 2^-9 of each term, as much as the bf16 output rounding itself.
+//     read N-major through the transpose bit, into a per-tile accumulator
+//     that float32 FMAs add to o (o = o * rescale + pv): wgmma's float32
+//     accumulation truncates, so accumulating across tiles in it drifted
+//     by ~1e-6 on outputs near 0 over deepseek-v3's 8000-key rows (on an
+//     H100, against the float32 plain version and a float64 one).  A single
+//     bf16 p errs by about 2^-9 of each term, as much as the bf16 output
+//     rounding itself.
 //     Two parts leave 2^-18 of each term: up to 5.5e-6 on rows that keep
 //     few keys (the first rows of a causal prefill), 5x the check's 1e-6
 //     floor where such a row's output is near 0.  The price of three parts
-//     is 2x the tensor work of the function itself (8 D operations a kept
-//     pair and head, against 4 D).
+//     is 2x the tensor work of p . V (6 DV operations a kept pair and head,
+//     against 2 DV).
 // Ragged S and T need no padding: TMA fills rows out of bounds with zeros
 // and the masks drop them.
 #include <cuda_bf16.h>
@@ -69,15 +81,20 @@ constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;  // 128*24 + 256*240 <= 6
 constexpr int LINE = 128;     // bytes of one swizzled shared-memory row: 64 bf16
 constexpr float LOG2E = 1.4426950408889634f;
 
-template <int D>
+// q and k rows of DK columns, v and out rows of DV
+template <int DK, int DV>
 struct Tile {
-  static constexpr int BK = D == 64 ? 128 : 64;  // keys a tile
-  static constexpr int PARTS = D / 64;           // 64-column halves of a row
-  static constexpr int Q_BYTES = BM * D * 2;
-  static constexpr int KV_BYTES = BK * D * 2;    // one K or V stage
+  static constexpr int BK = DK == 64 ? 128 : 64;  // keys a tile
+  static constexpr int QK_PARTS = DK / 64;        // 64-column parts of a q / k row
+  static constexpr int V_PARTS = DV / 64;         // 64-column parts of a v row
+  static constexpr int Q_BYTES = BM * DK * 2;
+  static constexpr int K_BYTES = BK * DK * 2;     // one K stage
+  static constexpr int V_BYTES = BK * DV * 2;     // one V stage
   // 1024-byte alignment slack (the swizzle atom), the tiles, 1 + 2 * STAGES
   // mbarriers
-  static constexpr int SMEM = 1024 + Q_BYTES + 2 * STAGES * KV_BYTES + 8 * (1 + 2 * STAGES);
+  static constexpr int SMEM =
+      1024 + Q_BYTES + STAGES * (K_BYTES + V_BYTES) + 8 * (1 + 2 * STAGES);
+  static_assert(SMEM <= 232448, "a block's shared memory on Hopper");
 };
 
 // e^x by ex2.approx (2 ulp); e^-inf = 0
@@ -178,26 +195,26 @@ __device__ __forceinline__ void wgmma_qk(float* d, uint64_t da, uint64_t db, int
   else wgmma_ss_n128(d, da, db, acc);
 }
 
-template <int D>
+template <int DV>
 __device__ __forceinline__ void wgmma_pv(float* d, const uint32_t* a, uint64_t db) {
-  if constexpr (D == 64) wgmma_rs_n64(d, a, db);
+  if constexpr (DV == 64) wgmma_rs_n64(d, a, db);
   else wgmma_rs_n128(d, a, db);
 }
 
-template <int D>
+template <int DK, int DV>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                    const __grid_constant__ CUtensorMap tm_k,
                    const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ out,
                    int S, int H, int KV, int causal, int window, int q_offset, int kv_limit,
                    float scale) {
-  using C = Tile<D>;
-  constexpr int BK = C::BK, PARTS = C::PARTS;
+  using C = Tile<DK, DV>;
+  constexpr int BK = C::BK;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t qs = (smem_u32(smem_raw) + 1023u) & ~1023u;  // swizzle atoms are 1 KB
-  const uint32_t ks = qs + C::Q_BYTES;                         // stage s at + s * KV_BYTES
-  const uint32_t vs = ks + STAGES * C::KV_BYTES;
-  const uint32_t q_full = vs + STAGES * C::KV_BYTES;           // then full[s], empty[s]
+  const uint32_t ks = qs + C::Q_BYTES;                         // stage s at + s * K_BYTES
+  const uint32_t vs = ks + STAGES * C::K_BYTES;                // stage s at + s * V_BYTES
+  const uint32_t q_full = vs + STAGES * C::V_BYTES;            // then full[s], empty[s]
   const uint32_t full = q_full + 8, empty = full + 8 * STAGES;
 
   const int tid = threadIdx.x, wg = tid / 128;
@@ -231,19 +248,21 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     if (tid == 0) {
       mbar_expect_tx(q_full, C::Q_BYTES);
 #pragma unroll
-      for (int p = 0; p < PARTS; ++p)
+      for (int p = 0; p < C::QK_PARTS; ++p)
         tma_load_4d(qs + p * BM * LINE, &tm_q, q_full, 64 * p, h, q0, b);
       for (int i = 0; i < n_tiles; ++i) {
         const int s = i % STAGES;
         if (i >= STAGES) mbar_wait(empty + 8 * s, ((i / STAGES) & 1) ^ 1);
-        mbar_expect_tx(full + 8 * s, 2 * C::KV_BYTES);
+        mbar_expect_tx(full + 8 * s, C::K_BYTES + C::V_BYTES);
         const int k0 = (j0 + i) * BK;
 #pragma unroll
-        for (int p = 0; p < PARTS; ++p) {
-          const int off = s * C::KV_BYTES + p * BK * LINE;
-          tma_load_4d(ks + off, &tm_k, full + 8 * s, 64 * p, kvh, k0, b);
-          tma_load_4d(vs + off, &tm_v, full + 8 * s, 64 * p, kvh, k0, b);
-        }
+        for (int p = 0; p < C::QK_PARTS; ++p)
+          tma_load_4d(ks + s * C::K_BYTES + p * BK * LINE, &tm_k, full + 8 * s, 64 * p, kvh,
+                      k0, b);
+#pragma unroll
+        for (int p = 0; p < C::V_PARTS; ++p)
+          tma_load_4d(vs + s * C::V_BYTES + p * BK * LINE, &tm_v, full + 8 * s, 64 * p, kvh,
+                      k0, b);
       }
     }
   } else {
@@ -255,9 +274,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     const int wg_first = q_offset + q0 + cw * 64, wg_last = wg_first + 63;
     const float neg_inf = __int_as_float(0xff800000);
 
-    float o[D / 2];
+    float o[DV / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    for (int i = 0; i < DV / 2; ++i) o[i] = 0.f;
     float m0 = neg_inf, m1 = neg_inf, l0 = 0.f, l1 = 0.f;
 
     mbar_wait(q_full, 0);
@@ -277,9 +296,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         for (int e = 0; e < BK / 2; ++e) sc[e] = 0.f;
         wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk) {
+        for (int kk = 0; kk < DK / 16; ++kk) {
           const uint32_t qa = qs + (kk / 4) * BM * LINE + cw * 64 * LINE + (kk % 4) * 32;
-          const uint32_t kb = ks + s * C::KV_BYTES + (kk / 4) * BK * LINE + (kk % 4) * 32;
+          const uint32_t kb = ks + s * C::K_BYTES + (kk / 4) * BK * LINE + (kk % 4) * 32;
           wgmma_qk<BK>(sc, sw128_desc(qa, 16, 1024), sw128_desc(kb, 16, 1024), kk > 0);
         }
         wgmma_commit();
@@ -340,28 +359,38 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         }
         l0 = l0 * rs0 + sum0;
         l1 = l1 * rs1 + sum1;
+        // the tile's p . V in a fresh accumulator, the parts smallest first
+        // over the whole tile (p3 of every 16 keys, then p2, then p1), then
+        // o = o * rescale + pv by float32 FMAs: the tensor cores' float32
+        // accumulation truncates, so a small part added onto o's running
+        // sum of thousands of keys would lose its low bits at every step.
+        // V stage: BK rows of 128 bytes per 64-column part, parts BK * 128
+        // bytes apart (the leading offset), 8-row groups 1 KB apart (the
+        // stride offset)
+        float pv[DV / 2];
 #pragma unroll
-        for (int c = 0; c < D / 8; ++c) {
-          o[4 * c] *= rs0;
-          o[4 * c + 1] *= rs0;
-          o[4 * c + 2] *= rs1;
-          o[4 * c + 3] *= rs1;
-        }
-        // o += p3 . V + p2 . V + p1 . V (smallest first); V stage: BK rows of 128 bytes per
-        // 64-column half, halves BK * 128 bytes apart (the leading offset),
-        // 8-row groups 1 KB apart (the stride offset)
-        fence_regs<D / 2>(o);
+        for (int i = 0; i < DV / 2; ++i) pv[i] = 0.f;
+        fence_regs<DV / 2>(pv);
         wgmma_fence();
 #pragma unroll
-        for (int kc = 0; kc < BK / 16; ++kc) {
-          const uint64_t dv = sw128_desc(vs + s * C::KV_BYTES + kc * 16 * LINE, BK * LINE, 1024);
-          wgmma_pv<D>(o, p3[kc], dv);
-          wgmma_pv<D>(o, p2[kc], dv);
-          wgmma_pv<D>(o, p1[kc], dv);
+        for (int part = 0; part < 3; ++part) {
+#pragma unroll
+          for (int kc = 0; kc < BK / 16; ++kc) {
+            const uint64_t dv =
+                sw128_desc(vs + s * C::V_BYTES + kc * 16 * LINE, BK * LINE, 1024);
+            wgmma_pv<DV>(pv, part == 0 ? p3[kc] : part == 1 ? p2[kc] : p1[kc], dv);
+          }
         }
         wgmma_commit();
         wgmma_wait_all();
-        fence_regs<D / 2>(o);
+        fence_regs<DV / 2>(pv);
+#pragma unroll
+        for (int c = 0; c < DV / 8; ++c) {
+          o[4 * c] = fmaf(o[4 * c], rs0, pv[4 * c]);
+          o[4 * c + 1] = fmaf(o[4 * c + 1], rs0, pv[4 * c + 1]);
+          o[4 * c + 2] = fmaf(o[4 * c + 2], rs1, pv[4 * c + 2]);
+          o[4 * c + 3] = fmaf(o[4 * c + 3], rs1, pv[4 * c + 3]);
+        }
       }
       mbar_arrive(empty + 8 * s);
     }
@@ -376,9 +405,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       const int srow = q0 + r0 + 8 * half;
       if (srow >= S) continue;
       const float den = fmaxf(half ? l1 : l0, 1e-30f);
-      __nv_bfloat16* op = out + (((size_t)b * S + srow) * H + h) * D;
+      __nv_bfloat16* op = out + (((size_t)b * S + srow) * H + h) * DV;
 #pragma unroll
-      for (int c = 0; c < D / 8; ++c)
+      for (int c = 0; c < DV / 8; ++c)
         *reinterpret_cast<__nv_bfloat162*>(op + 8 * c + 2 * t) =
             __floats2bfloat162_rn(o[4 * c + 2 * half] / den, o[4 * c + 2 * half + 1] / den);
     }
@@ -402,44 +431,49 @@ bool encode(EncodeTiled enc, CUtensorMap* map, const void* ptr, int D, int heads
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D>
+template <int DK, int DV>
 int launch(const void* q, const void* k, const void* v, void* out, int B, int S, int T, int H,
            int KV, int causal, int window, int q_offset, int kv_limit, float scale,
            cudaStream_t stream) {
-  using C = Tile<D>;
+  using C = Tile<DK, DV>;
   EncodeTiled enc = tensor_map_encoder();
   if (enc == nullptr) return (int)cudaErrorNotSupported;
   CUtensorMap tq, tk, tv;
   const int extent = kv_limit > 0 ? kv_limit : 1;  // no tile is loaded at kv_limit 0
-  if (!encode(enc, &tq, q, D, H, S, S, B, BM) ||
-      !encode(enc, &tk, k, D, KV, T > 0 ? T : 1, extent, B, C::BK) ||
-      !encode(enc, &tv, v, D, KV, T > 0 ? T : 1, extent, B, C::BK))
+  if (!encode(enc, &tq, q, DK, H, S, S, B, BM) ||
+      !encode(enc, &tk, k, DK, KV, T > 0 ? T : 1, extent, B, C::BK) ||
+      !encode(enc, &tv, v, DV, KV, T > 0 ? T : 1, extent, B, C::BK))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+      flash_wgmma_kernel<DK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((S + BM - 1) / BM, H, B);
-  flash_wgmma_kernel<D><<<grid, THREADS, C::SMEM, stream>>>(
+  flash_wgmma_kernel<DK, DV><<<grid, THREADS, C::SMEM, stream>>>(
       tq, tk, tv, (__nv_bfloat16*)out, S, H, KV, causal, window, q_offset, kv_limit, scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// q (B, S, H, D), k / v (B, T, KV, D), out (B, S, H, D): contiguous bf16 on
-// the device, 16-byte aligned.  D in {64, 128}, H % KV == 0,
-// written_upto <= T (the wrapper passes T for None).  Launches on `stream`
-// and returns a CUDA error code as an int (0 on success).
+// q (B, S, H, DK), k (B, T, KV, DK), v (B, T, KV, DV), out (B, S, H, DV):
+// contiguous bf16 on the device, 16-byte aligned.  (DK, DV) in {(64, 64),
+// (128, 128), (192, 128)}, H % KV == 0, written_upto <= T (the wrapper
+// passes T for None).  Launches on `stream` and returns a CUDA error code as
+// an int (0 on success).
 extern "C" int flash_attention_wgmma(const void* q, const void* k, const void* v, void* out,
-                                     int B, int S, int T, int H, int KV, int D, int causal,
-                                     int window, int q_offset, int written_upto, float scale,
-                                     void* stream) {
+                                     int B, int S, int T, int H, int KV, int DK, int DV,
+                                     int causal, int window, int q_offset, int written_upto,
+                                     float scale, void* stream) {
   if (B <= 0 || S <= 0 || H <= 0) return 0;
   if (KV <= 0 || H % KV != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  switch (D) {
-    case 64: return launch<64>(q, k, v, out, B, S, T, H, KV, causal, window, q_offset, written_upto, scale, s);
-    case 128: return launch<128>(q, k, v, out, B, S, T, H, KV, causal, window, q_offset, written_upto, scale, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+#define FLASH_CASE(dk, dv)                                                                     \
+  if (DK == dk && DV == dv)                                                                   \
+    return launch<dk, dv>(q, k, v, out, B, S, T, H, KV, causal, window, q_offset, written_upto, \
+                          scale, s);
+  FLASH_CASE(64, 64)
+  FLASH_CASE(128, 128)
+  FLASH_CASE(192, 128)
+#undef FLASH_CASE
+  return (int)cudaErrorInvalidValue;
 }

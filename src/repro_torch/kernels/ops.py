@@ -17,8 +17,9 @@ import torch
 from repro_torch.kernels import _build, ref
 
 # kernel launches since the last reset_launches(), by kernel; flash_attention
-# has two: "flash_attention" (float32 FMA products: float32 inputs, D 16 and
-# 32) and "flash_attention_wgmma" (bf16 on the tensor cores at D 64 and 128);
+# has two: "flash_attention" (float32 FMA products: float32 inputs, and bf16
+# at the head widths TMA's 64-column boxes do not tile) and
+# "flash_attention_wgmma" (bf16 on the tensor cores at FLASH_WGMMA_HEAD_DIMS);
 # the IVF probe's list-major scan counts as "ivf_scan_lists", apart from the
 # per-query "ivf_scan"; the IVF-PQ shortlist's list-major scan as
 # "pq_adc_lists", apart from the per-query "pq_adc"; pairwise_l2_batched
@@ -29,7 +30,7 @@ LAUNCHES = {"pairwise_l2": 0, "l2_topk": 0, "ivf_scan": 0, "ivf_scan_lists": 0,
 # the same launches by (kernel, shape): pairwise_l2 (Q, N, D) or batched
 # (Q, N, D, M); l2_topk (Q, N, D, k); ivf_scan (B, P, D, k); ivf_scan_lists
 # (B, nprobe, cap, D, k); pq_adc (B, P, M, C); pq_adc_lists (B, nprobe, cap,
-# M, kk); the flash kernels (B, S, T, H, KV, D, mask kind): see the *_key
+# M, kk); the flash kernels (B, S, T, H, KV, Dk, Dv, mask kind): see the *_key
 # helpers
 SHAPE_LAUNCHES: Counter = Counter()
 
@@ -59,8 +60,14 @@ SKINNY_MAX_Q = 16
 _SK_WARPS, _SK_ROWS, _SK_DK, _SK_STAGES, _SK_LD = 8, 32, 64, 2, 68
 PAIRWISE_KINDS = {"tile64": 0, "tile32": 1, "skinny": 2}
 PQ_MAX_C = 256       # pq_adc codes are uint8
-FLASH_HEAD_DIMS = (16, 32, 64, 128)  # head widths flash_attention is built for
-FLASH_WGMMA_HEAD_DIMS = (64, 128)    # of which bf16 takes flash_attention_wgmma
+# (Dk, Dv) head widths of q / k and of v the flash kernels are built for:
+# the dense LMs' D 64 / 128, hubert-xlarge's 80, deepseek-v3's MLA prefill
+# (nope 128 + rope 64, v 128) and its SMOKE widths (16 + 8, 16), and the
+# small widths of the kernel checks
+FLASH_HEAD_DIMS = ((16, 16), (24, 16), (32, 32), (64, 64), (80, 80), (128, 128),
+                   (192, 128))
+# of which bf16 takes flash_attention_wgmma (64-column TMA boxes tile them)
+FLASH_WGMMA_HEAD_DIMS = ((64, 64), (128, 128), (192, 128))
 TOPK_BN = 128        # catalog rows of an l2_topk tile
 _TOPK_DK, _TOPK_STAGES = 64, 2  # l2_topk's chunk depth and ring (l2_topk.cu)
 _PQ_THREADS = 256    # threads of a pq_adc block, one slot each at a time
@@ -92,15 +99,17 @@ def pq_adc_key(b: int, p: int, m: int, c: int) -> tuple:
     return (b, p, m, c)
 
 
-def flash_key(q_shape, k_shape, causal: bool, window: int, written_upto: int) -> tuple:
-    """The shape a flash launch is counted under: (B, S, T, H, KV, D, mask
-    kind), the kind "causal" or "full", "+window" with a sliding window and
-    "+written_upto" when keys at or past written_upto (< T) are masked."""
+def flash_key(q_shape, k_shape, causal: bool, window: int, written_upto: int,
+              dv: int | None = None) -> tuple:
+    """The shape a flash launch is counted under: (B, S, T, H, KV, Dk, Dv,
+    mask kind), Dv = Dk unless given, the kind "causal" or "full",
+    "+window" with a sliding window and "+written_upto" when keys at or
+    past written_upto (< T) are masked."""
     b, s, h, d = q_shape
     t, kvh = k_shape[1], k_shape[2]
     kind = ("causal" if causal else "full") + ("+window" if window else "") + (
         "+written_upto" if written_upto < t else "")
-    return (b, s, t, h, kvh, d, kind)
+    return (b, s, t, h, kvh, d, d if dv is None else dv, kind)
 
 
 def _on_cuda(*tensors) -> bool:
@@ -801,11 +810,13 @@ def pq_shortlist_lists(lut: torch.Tensor, codes_lists: torch.Tensor,
     return vals, ids
 
 
-def flash_kernel_for(dtype: torch.dtype, d: int) -> str:
-    """The flash kernel a CUDA call takes, by (dtype, D): bf16 at D 64 or
-    128 (the LM path's types and widths) -> "flash_attention_wgmma"; float32,
-    and bf16 at D 16 or 32 -> "flash_attention" (float32 FMA products)."""
-    if dtype == torch.bfloat16 and d in FLASH_WGMMA_HEAD_DIMS:
+def flash_kernel_for(dtype: torch.dtype, dk: int, dv: int | None = None) -> str:
+    """The flash kernel a CUDA call takes, by (dtype, Dk, Dv), Dv = Dk
+    unless given: bf16 at a pair of FLASH_WGMMA_HEAD_DIMS (the LM path's
+    types and widths) -> "flash_attention_wgmma"; float32, and bf16 at
+    the other pairs -> "flash_attention" (float32 FMA products)."""
+    pair = (dk, dk if dv is None else dv)
+    if dtype == torch.bfloat16 and pair in FLASH_WGMMA_HEAD_DIMS:
         return "flash_attention_wgmma"
     return "flash_attention"
 
@@ -813,23 +824,24 @@ def flash_kernel_for(dtype: torch.dtype, d: int) -> str:
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0, q_offset: int = 0,
                     written_upto: int | None = None) -> torch.Tensor:
-    """FlashAttention forward: q (B, S, H, D), k / v (B, T, KV, D) ->
-    (B, S, H, D) in q's dtype, with the reference's contract
-    (`ref.flash_attention_ref`): causal, sliding `window` (0 = full),
-    absolute `q_offset` of q's first row, keys at or past `written_upto`
-    (None = T) masked, GQA head h on kv head h // (H // KV), f32
-    accumulation, 0 for a row with no kept key.
+    """FlashAttention forward: q (B, S, H, Dk), k (B, T, KV, Dk), v (B, T,
+    KV, Dv) -> (B, S, H, Dv) in q's dtype, with the reference's contract
+    (`ref.flash_attention_ref`): logits scaled by 1 / sqrt(Dk), causal,
+    sliding `window` (0 = full), absolute `q_offset` of q's first row,
+    keys at or past `written_upto` (None = T) masked, GQA head h on kv
+    head h // (H // KV), f32 accumulation, 0 for a row with no kept key.
 
-    CUDA: contiguous float32 or bf16 tensors of one dtype, D in
-    FLASH_HEAD_DIMS and Dv = D; anything else raises.  The kernel is
-    chosen by (dtype, D), explicitly (`flash_kernel_for`):
-      - bf16 at D in FLASH_WGMMA_HEAD_DIMS (64, 128: the LM path's types
-        and widths): `flash_attention_wgmma`, wgmma on the tensor cores
-        with TMA-fed K / V and p split into three bf16 parts; the tensors
-        must start on 16 bytes (TMA);
-      - float32 at any D of FLASH_HEAD_DIMS, and bf16 at D 16 or 32:
-        `flash_attention`, float32 FMA products (float32 is held to 1e-4,
-        which tensor cores cannot promise).
+    CUDA: contiguous float32 or bf16 tensors of one dtype, (Dk, Dv) in
+    FLASH_HEAD_DIMS; anything else raises.  The kernel is chosen by
+    (dtype, Dk, Dv), explicitly (`flash_kernel_for`):
+      - bf16 at a pair of FLASH_WGMMA_HEAD_DIMS ((64, 64), (128, 128),
+        (192, 128): the LM path's types and widths): `flash_attention_wgmma`,
+        wgmma on the tensor cores with TMA-fed Q / K / V and p split into
+        three bf16 parts; the tensors must start on 16 bytes (TMA);
+      - float32 at any pair of FLASH_HEAD_DIMS, and bf16 at the others
+        (hubert-xlarge's (80, 80) among them): `flash_attention`, float32
+        FMA products (float32 is held to 1e-4, which tensor cores cannot
+        promise).
     Either kernel raises when its build or launch fails; neither falls
     back to the other."""
     if not _on_cuda(q, k, v):
@@ -842,15 +854,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _check("flash_attention k", k, dtype, 4)
     _check("flash_attention v", v, dtype, 4)
     b, s, h, d = q.shape
-    t, kvh = k.shape[1], k.shape[2]
+    t, kvh, dv = k.shape[1], k.shape[2], v.shape[3]
     if k.shape[0] != b or k.shape[3] != d or v.shape[:3] != k.shape[:3]:
         raise ValueError(f"flash_attention: shapes q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
-    if v.shape[3] != d:
-        raise NotImplementedError("flash_attention: the kernel takes Dv = D only")
-    if d not in FLASH_HEAD_DIMS:
-        raise NotImplementedError(f"flash_attention: D = {d} is not one of "
-                                  f"{FLASH_HEAD_DIMS}")
+    if (d, dv) not in FLASH_HEAD_DIMS:
+        raise NotImplementedError(f"flash_attention: (Dk, Dv) = ({d}, {dv}) is not one "
+                                  f"of {FLASH_HEAD_DIMS}")
     if kvh == 0 or h % kvh:
         raise ValueError(f"flash_attention: H = {h} is not a multiple of KV = {kvh}")
     if window < 0 or q_offset < 0:
@@ -860,25 +870,26 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise NotImplementedError(f"flash_attention: B = {b}, H = {h}, S = {s}, "
                                   f"T = {t} exceed the kernel's grid or positions")
     wu = t if written_upto is None else max(0, min(int(written_upto), t))
-    out = torch.empty((b, s, h, d), dtype=dtype, device=q.device)
+    out = torch.empty((b, s, h, dv), dtype=dtype, device=q.device)
     if not (b and s and h):
         return out
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, t, h,
-            kvh, d, int(bool(causal)), int(window), int(q_offset), wu,
+            kvh, d, dv, int(bool(causal)), int(window), int(q_offset), wu,
             1.0 / d ** 0.5)
-    if flash_kernel_for(dtype, d) == "flash_attention_wgmma":
+    key = flash_key(q.shape, k.shape, causal, window, wu, dv)
+    if flash_kernel_for(dtype, d, dv) == "flash_attention_wgmma":
         if any(a.data_ptr() % 16 for a in (q, k, v)):
             raise ValueError("flash_attention: bf16 q, k, v must start on 16 "
                              "bytes (the kernel loads them by TMA)")
         rc = _build.load("flash_attention_wgmma").flash_attention_wgmma(
             *args, _stream())
         _raise_on(rc, "flash_attention_wgmma")
-        _count("flash_attention_wgmma", flash_key(q.shape, k.shape, causal, window, wu))
+        _count("flash_attention_wgmma", key)
     else:
         rc = _build.load("flash_attention").flash_attention(
             *args, int(dtype == torch.bfloat16), _stream())
         _raise_on(rc, "flash_attention")
-        _count("flash_attention", flash_key(q.shape, k.shape, causal, window, wu))
+        _count("flash_attention", key)
     return out
 
 

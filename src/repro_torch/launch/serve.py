@@ -84,7 +84,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs import ARCHS, NOT_PORTED, get_config
+from repro_torch.configs import ARCHS, get_config
 from repro_torch.core.policy_api import PolicySpec, parse_policy_opts, registered_policies
 from repro_torch.index.base import IndexSpec, parse_index_opts, registered_backends
 from repro_torch.models import init_params
@@ -373,8 +373,7 @@ def run_online(lm, args, params, prompts) -> dict:
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--arch", default="qwen1.5-0.5b",
-                    choices=sorted(ARCHS) + sorted(NOT_PORTED))
+    ap.add_argument("--arch", default="qwen1.5-0.5b", choices=sorted(ARCHS))
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--requests", type=int, default=32)
     ap.add_argument("--batch", type=int, default=4)
@@ -480,10 +479,7 @@ def main(argv=None) -> dict:
         raise SystemExit("--index-opt needs --remote-index")
     answer_cache = _answer_cache_spec(args, index_spec)
     remote, resilience = _resilience(args)
-    try:
-        cfg = get_config(args.arch, smoke=args.smoke)
-    except NotImplementedError as e:
-        raise SystemExit(str(e))
+    cfg = get_config(args.arch, smoke=args.smoke)
     if not cfg.has_decode:
         raise SystemExit(f"{cfg.name} is encoder-only: no decode serving")
     device = resolve_device(args.device)

@@ -1,5 +1,6 @@
-"""Model zoo of the port (port of `repro.models`): the dense GQA decoder
-stack; MLA, MoE and SSM stacks are still to port (ROADMAP A10)."""
+"""Model zoo of the port (port of `repro.models`): dense GQA, MLA, MoE,
+Mamba2 SSD and the jamba hybrid, for all ten architectures of
+`repro_torch.configs`."""
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import (LM, ForwardResult, forward, init_cache,

@@ -40,6 +40,14 @@ def dense_init(generator: torch.Generator, in_dim: int, out_dim: int, dtype,
     return w.to(device=device, dtype=dtype)
 
 
+def normal_init(generator: torch.Generator, shape, scale: float, dtype, device) -> torch.Tensor:
+    """N(0, scale^2) tensor of `shape` drawn directly in `dtype` (no float32
+    copy: deepseek-v3's (256, 7168, 2048) expert stacks would need 15 GB
+    of one), on the generator's device, then moved to `device`."""
+    w = torch.randn(shape, generator=generator, device=generator.device, dtype=dtype)
+    return w.mul_(scale).to(device)
+
+
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
     xf = x.float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)

@@ -1,11 +1,18 @@
 """Model assembly (port of `repro.models.model`): embedding -> stack of
-decoder layers -> head, with prefill and decode through a KV cache.
+layers -> head, for all ten architectures of the reference, with prefill
+and decode through a per-layer cache.
 
-The reference groups layers into scanned units; the port keeps the unit
-schedule (`unit_spec`) for parity and runs the layers as a `ModuleList`,
-one Python loop.  Ported layer kind: ("attn", "dense"), the dense GQA
-family.  MLA, MoE and Mamba layers raise NotImplementedError naming
-ROADMAP A10.  No training path (no remat, no losses): `train/` is A10 too.
+The reference groups layers into scanned units (deepseek-v3: 3 dense MLA
+layers unrolled as a prefix, then MoE MLA units; jamba: units of 8 layers,
+attention at slot 4 and MoE on odd slots).  The port keeps the unit
+schedule (`unit_spec`) for parity and runs the layers as one `ModuleList`
+in order: body slot j of unit u is layer n_prefix + u * len(kinds) + j.
+A layer is (mixer, ffn): mixer "attn" (GQA), "mla" or "mamba", ffn
+"dense", "moe" or "none" (pure mamba2 blocks).
+
+deepseek-v3's MTP parameters (`mtp`: proj, block, norm) are held; the
+serving forward never reads them.  No training path (no remat, no
+losses): `train/` is ROADMAP A10's training half.
 """
 
 from __future__ import annotations
@@ -17,6 +24,9 @@ from torch import nn
 
 from repro_torch import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import mla as MLA
+from repro_torch.models import moe as MOE
+from repro_torch.models import ssm as SSM
 from repro_torch.models.config import ModelConfig
 
 
@@ -35,12 +45,15 @@ def _mixer_kind(cfg: ModelConfig, i: int) -> str:
 def _ffn_kind(cfg: ModelConfig, i: int) -> str:
     if cfg.is_moe_layer(i):
         return "moe"
-    return "dense" if cfg.d_ff else "none"
+    return "dense" if cfg.d_ff else "none"  # pure mamba2 blocks have no FFN
+
+
+def layer_kind(cfg: ModelConfig, i: int) -> tuple:
+    return (_mixer_kind(cfg, i), _ffn_kind(cfg, i))
 
 
 def unit_spec(cfg: ModelConfig) -> UnitSpec:
-    kinds = [(_mixer_kind(cfg, i), _ffn_kind(cfg, i))
-             for i in range(cfg.n_layers)]
+    kinds = [layer_kind(cfg, i) for i in range(cfg.n_layers)]
     n_prefix = cfg.moe_layer_start if cfg.n_experts else 0
     body = kinds[n_prefix:]
     # the smallest period that tiles the body becomes the unit
@@ -53,47 +66,60 @@ def unit_spec(cfg: ModelConfig) -> UnitSpec:
     raise AssertionError("unreachable: the full body is always a period")
 
 
-def check_ported(cfg: ModelConfig) -> None:
-    """Raise for a config with layers the port does not have yet."""
-    for i in range(cfg.n_layers):
-        kind = (_mixer_kind(cfg, i), _ffn_kind(cfg, i))
-        if kind != ("attn", "dense"):
-            raise NotImplementedError(
-                f"{cfg.name}: layer {i} is {kind}; only ('attn', 'dense') "
-                f"layers are ported (ROADMAP A10: MLA, MoE, SSM)")
-    if cfg.mtp_depth:
-        raise NotImplementedError(f"{cfg.name}: MTP heads are not ported "
-                                  f"(ROADMAP A10)")
+class Layer(nn.Module):
+    """norm1, mixer, and (unless ffn is "none") norm2 and ffn."""
+
+    def __init__(self, cfg: ModelConfig, kind: tuple, generator: torch.Generator, device):
+        super().__init__()
+        self.kind = kind
+        mixer_kind, ffn_kind = kind
+        dt = L.dtype_of(cfg)
+        self.norm1 = nn.Parameter(torch.ones(cfg.d_model, dtype=dt, device=device))
+        if mixer_kind == "attn":
+            self.mixer = L.init_attention(generator, cfg, device)
+        elif mixer_kind == "mla":
+            self.mixer = MLA.init_mla(generator, cfg, device)
+        else:
+            self.mixer = SSM.init_mamba(generator, cfg, device)
+        if ffn_kind != "none":
+            self.norm2 = nn.Parameter(torch.ones(cfg.d_model, dtype=dt, device=device))
+            self.ffn = (MOE.init_moe(generator, cfg, device) if ffn_kind == "moe"
+                        else L.init_mlp(generator, cfg, device))
 
 
-class DecoderLayer(nn.Module):
+class MTP(nn.Module):
+    """DeepSeek's multi-token-prediction head (depth 1): proj (2 d, d), one
+    block of the last layer's mixer with a dense FFN, and a norm."""
+
     def __init__(self, cfg: ModelConfig, generator: torch.Generator, device):
         super().__init__()
         dt = L.dtype_of(cfg)
-        self.norm1 = nn.Parameter(torch.ones(cfg.d_model, dtype=dt, device=device))
-        self.norm2 = nn.Parameter(torch.ones(cfg.d_model, dtype=dt, device=device))
-        self.mixer = L.init_attention(generator, cfg, device)
-        self.ffn = L.init_mlp(generator, cfg, device)
+        self.proj = nn.Parameter(L.dense_init(generator, 2 * cfg.d_model, cfg.d_model, dt,
+                                              device))
+        self.block = Layer(cfg, (_mixer_kind(cfg, cfg.n_layers - 1), "dense"), generator,
+                           device)
+        self.norm = nn.Parameter(torch.ones(cfg.d_model, dtype=dt, device=device))
 
 
 class LM(nn.Module):
-    """Parameters of a dense decoder LM: `embed` (vocab, d), `final_norm`,
-    `lm_head` (d, vocab) unless cfg.tie_embeddings, and `layers`."""
+    """Parameters of an LM: `embed` (vocab, d), `final_norm`, `lm_head`
+    (d, vocab) unless cfg.tie_embeddings, `layers` (prefix then body, in
+    order) and `mtp` when cfg.mtp_depth."""
 
     def __init__(self, cfg: ModelConfig, generator: torch.Generator, device):
         super().__init__()
-        check_ported(cfg)
         self.cfg = cfg
         dt = L.dtype_of(cfg)
-        embed = torch.randn((cfg.vocab, cfg.d_model), generator=generator,
-                            device=generator.device) * 0.02
-        self.embed = nn.Parameter(embed.to(device=device, dtype=dt))
+        self.embed = nn.Parameter(L.normal_init(generator, (cfg.vocab, cfg.d_model), 0.02,
+                                                torch.float32, device).to(dt))
         self.final_norm = nn.Parameter(torch.ones(cfg.d_model, dtype=dt, device=device))
         if not cfg.tie_embeddings:
             self.lm_head = nn.Parameter(
                 L.dense_init(generator, cfg.d_model, cfg.vocab, dt, device))
-        self.layers = nn.ModuleList(DecoderLayer(cfg, generator, device)
-                                    for _ in range(cfg.n_layers))
+        self.layers = nn.ModuleList(Layer(cfg, layer_kind(cfg, i), generator, device)
+                                    for i in range(cfg.n_layers))
+        if cfg.mtp_depth:
+            self.mtp = MTP(cfg, generator, device)
         self.requires_grad_(False)  # serving only: no autograd graph
 
     def forward(self, **kw) -> "ForwardResult":
@@ -111,17 +137,28 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
     return LM(cfg, generator, device)
 
 
+def _init_layer_cache(cfg: ModelConfig, kind: tuple, batch: int, s_max: int, dtype,
+                      device) -> dict:
+    mixer_kind, _ = kind
+    if mixer_kind == "attn":
+        t = min(s_max, cfg.sliding_window) if cfg.sliding_window else s_max
+        shape = (batch, t, cfg.n_kv_heads, cfg.head_dim)
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device)}
+    if mixer_kind == "mla":
+        return MLA.init_mla_cache(cfg, batch, s_max, dtype, device)
+    return SSM.init_mamba_cache(cfg, batch, dtype, device)
+
+
 def init_cache(cfg: ModelConfig, batch: int, s_max: int, device=None) -> list:
-    """Zeroed KV cache: one {"k", "v"} pair of (batch, T, KV, D) tensors a
-    layer, T = min(s_max, sliding_window) under a window, else s_max."""
-    check_ported(cfg)
+    """Zeroed cache, one dict a layer by its mixer: attention {"k", "v"}
+    (batch, T, KV, D), T = min(s_max, sliding_window) under a window;
+    MLA {"ckv", "krope"} (batch, s_max, ·); mamba {"conv" (batch, K-1, CH),
+    "ssm" (batch, H, P, N) float32}."""
     device = resolve_device(device)
     dt = L.dtype_of(cfg)
-    t = min(s_max, cfg.sliding_window) if cfg.sliding_window else s_max
-    shape = (batch, t, cfg.n_kv_heads, cfg.head_dim)
-    return [{"k": torch.zeros(shape, dtype=dt, device=device),
-             "v": torch.zeros(shape, dtype=dt, device=device)}
-            for _ in range(cfg.n_layers)]
+    return [_init_layer_cache(cfg, layer_kind(cfg, i), batch, s_max, dt, device)
+            for i in range(cfg.n_layers)]
 
 
 def embed_lookup(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
@@ -137,15 +174,45 @@ class ForwardResult(NamedTuple):
     hidden: torch.Tensor
 
 
+def _apply_layer(layer: Layer, x, positions, cfg: ModelConfig, cache, cache_len: int,
+                 positions3):
+    """One layer: x + mixer(norm1 x), then + ffn(norm2 x).  Returns (x,
+    aux loss: the MoE's, else 0)."""
+    mixer_kind, ffn_kind = layer.kind
+    h = L.rms_norm(x, layer.norm1, cfg.norm_eps)
+    if mixer_kind == "attn":
+        y = L.attention(layer.mixer, h, positions, cfg, cache=cache, cache_len=cache_len,
+                        positions3=positions3)
+    elif mixer_kind == "mla":
+        y = MLA.mla_attention(layer.mixer, h, positions, cfg, cache=cache,
+                              cache_len=cache_len)
+    else:
+        y = SSM.mamba_mixer(layer.mixer, h, cfg, cache=cache)
+    x = x + y
+    aux = torch.zeros((), device=x.device)
+    if ffn_kind == "none":
+        return x, aux
+    h = L.rms_norm(x, layer.norm2, cfg.norm_eps)
+    if ffn_kind == "moe":
+        y, aux = MOE.moe_ffn(layer.ffn, h, cfg)
+    else:
+        y = L.mlp(layer.ffn, h)
+    return x + y, aux
+
+
 @torch.no_grad()
 def forward(params: LM, cfg: ModelConfig, tokens=None, embeds=None,
             positions=None, positions3=None, cache=None,
             cache_len: int | None = None) -> ForwardResult:
-    """tokens: (B, S) integer and/or embeds: (B, P, d) prefix.
+    """tokens (B, S) integer and / or embeds (B, P, d): the prefix (patch
+    or frame embeddings) goes first.
 
     cache / cache_len: incremental mode, the cache written in place at
-    [cache_len, cache_len + S) (prefill: cache_len 0) and returned.  The
-    logits are (B, S, vocab) float32, as in the reference."""
+    [cache_len, cache_len + S) (prefill: cache_len 0) and returned.  Under
+    M-RoPE, positions3 (3, B, S) defaults to the 1-D positions on all
+    three axes, Qwen2-VL's ids for text (the reference needs it passed).
+    The logits are (B, S, vocab) float32; aux_loss sums the MoE layers'
+    in the reference's order (the prefix's, then each unit's sum)."""
     parts = []
     if embeds is not None:
         parts.append(embeds.to(L.dtype_of(cfg)))
@@ -156,15 +223,22 @@ def forward(params: LM, cfg: ModelConfig, tokens=None, embeds=None,
     cl = 0 if cache_len is None else int(cache_len)
     if positions is None:
         positions = (cl + torch.arange(s, device=x.device)).expand(b, s)
+    if cfg.pos_emb == "mrope" and positions3 is None:
+        positions3 = positions[None].expand(3, b, s)
+    spec = unit_spec(cfg)
+    aux_total = torch.zeros((), device=x.device)
+    aux_unit = None
     for i, layer in enumerate(params.layers):
-        h = L.rms_norm(x, layer.norm1, cfg.norm_eps)
-        x = x + L.attention(layer.mixer, h, positions, cfg,
-                            cache=None if cache is None else cache[i],
-                            cache_len=cl, positions3=positions3)
-        h = L.rms_norm(x, layer.norm2, cfg.norm_eps)
-        x = x + L.mlp(layer.ffn, h)
+        x, aux = _apply_layer(layer, x, positions, cfg, None if cache is None else cache[i],
+                              cl, positions3)
+        if i < spec.n_prefix:
+            aux_total = aux_total + aux
+            continue
+        slot = (i - spec.n_prefix) % len(spec.kinds)
+        aux_unit = aux if slot == 0 else aux_unit + aux
+        if slot == len(spec.kinds) - 1:
+            aux_total = aux_total + aux_unit
     x = L.rms_norm(x, params.final_norm, cfg.norm_eps)
     head = params.embed.T if cfg.tie_embeddings else params.lm_head
     logits = (x @ head).float()
-    return ForwardResult(logits=logits, cache=cache,
-                         aux_loss=torch.zeros((), device=x.device), hidden=x)
+    return ForwardResult(logits=logits, cache=cache, aux_loss=aux_total, hidden=x)

@@ -17,7 +17,7 @@ from typing import Callable, Optional
 
 import torch
 
-from repro_torch.models import forward, init_cache
+from repro_torch.models import forward, init_cache, unit_spec
 from repro_torch.models.config import ModelConfig
 
 
@@ -121,6 +121,7 @@ class ServeEngine:
             self._prefill1 = wrap("prefill", self._prefill1)
             self._decode = wrap("decode", self._decode)
         self._last = torch.zeros((batch, 1), dtype=torch.int32, device=self.device)
+        self._n_prefix = unit_spec(cfg).n_prefix
 
     def submit(self, request_id: int, prompt: torch.Tensor, max_tokens: int):
         self.queue.append((request_id, prompt, max_tokens))
@@ -141,14 +142,17 @@ class ServeEngine:
             nxt = int(torch.argmax(logits[0, -1]))
             del logits  # (1, S, vocab) float32
             # The reference writes the row with dynamic_update_slice_in_dim
-            # at index i on axis 0 of its (n_units, B, T, KV, D) leaves: the
-            # unit axis, whose start clamps to 0, so every admitted prefill
-            # lands in batch row 0 and the other rows keep what decode wrote
-            # there.  Kept for parity (ROADMAP C lists it as a fault of the
-            # reference); the slot's own row would be [i:i + 1].
-            for full, one in zip(self.cache, cache1):
-                full["k"][0:1].copy_(one["k"])
-                full["v"][0:1].copy_(one["v"])
+            # at index i on axis 0 of each cache leaf.  A body leaf is
+            # stacked over the units, (n_units, B, ...): axis 0 is the unit
+            # axis, whose start clamps to 0, so the prefill lands in batch
+            # row 0 and the other rows keep what decode wrote there.  A
+            # prefix leaf (deepseek-v3's unrolled dense layers) is (B, ...):
+            # the prefill lands in row i, the slot's own.  Kept for parity,
+            # layer by layer and for every cache kind (ROADMAP C2).
+            for li, (full, one) in enumerate(zip(self.cache, cache1)):
+                row = i if li < self._n_prefix else 0
+                for name, leaf in full.items():
+                    leaf[row:row + 1].copy_(one[name])
             del cache1
             self._last[i, 0] = nxt
             self.slots[i] = Slot(active=True, request_id=rid,

@@ -1,7 +1,8 @@
-"""Training substrate of the port (port of `repro.train`).  Only the
-straggler monitor is here so far, which the resilient serving tier
-reuses; the training loop, checkpoints, data and the optimizer are
-ROADMAP A10."""
+"""Training substrate of the port (port of `repro.train`).  Here so far:
+the straggler monitor, which the resilient serving tier reuses, and the
+batch construction serving needs (`batching`: the stubbed vision and
+audio prefixes).  The training loop, checkpoints, data and the optimizer
+are ROADMAP A10's training half."""
 
 from repro_torch.train.fault import StragglerMonitor
 

@@ -31,11 +31,11 @@ SHAPES = [(2, 64, 64, 4, 2, 32, True, 0),
           (1, 32, 128, 4, 2, 32, True, 0)]
 
 
-def _qkv(b, s, t, h, kv, d, seed=0):
+def _qkv(b, s, t, h, kv, d, seed=0, dv=None):
     rng = np.random.default_rng(seed)
     return (rng.normal(size=(b, s, h, d)).astype(np.float32),
             rng.normal(size=(b, t, kv, d)).astype(np.float32),
-            rng.normal(size=(b, t, kv, d)).astype(np.float32))
+            rng.normal(size=(b, t, kv, d if dv is None else dv)).astype(np.float32))
 
 
 @pytest.mark.parametrize("b,s,t,h,kv,d,causal,window", SHAPES)
@@ -48,6 +48,38 @@ def test_plain_version_matches_interpret_mode_kernel(b, s, t, h, kv, d, causal, 
                                    torch.from_numpy(v), causal=causal,
                                    window=window, q_offset=t - s, written_upto=t)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=TOL, atol=TOL)
+
+
+# the widths the new architectures bring (b, s, t, h, kv, dk, dv, causal,
+# window, q_offset, written_upto): deepseek-v3's SMOKE MLA (nope 16 + rope 8,
+# v 16; heads share no kv head), a cached prefill into a part-written cache,
+# and hubert-xlarge's head width 80, bidirectional
+WIDE_PAIRS = [(2, 40, 64, 4, 4, 24, 16, True, 0, 24, 64),
+              (1, 24, 96, 4, 4, 24, 16, True, 0, 0, 24),
+              (2, 48, 48, 4, 4, 80, 80, False, 0, 0, None),
+              (1, 32, 128, 4, 2, 80, 80, True, 40, 96, 128)]
+
+
+@pytest.mark.parametrize("b,s,t,h,kv,dk,dv,causal,window,q_offset,written_upto",
+                         WIDE_PAIRS)
+def test_plain_version_matches_interpret_mode_kernel_at_dk_dv(b, s, t, h, kv, dk, dv, causal,
+                                                              window, q_offset,
+                                                              written_upto):
+    """v narrower than q and k (the output takes v's width, the scale q's)
+    and a head width off the kernels' 64-column grid, against the Pallas
+    kernel in interpret mode."""
+    q, k, v = _qkv(b, s, t, h, kv, dk, seed=dk + s, dv=dv)
+    kw = dict(causal=causal, window=window, q_offset=q_offset, written_upto=written_upto)
+    want = jops.flash_attention(jnp.array(q), jnp.array(k), jnp.array(v), interpret=True,
+                                **kw)
+    got = tref.flash_attention_ref(torch.from_numpy(q), torch.from_numpy(k),
+                                   torch.from_numpy(v), **kw)
+    assert got.shape == (b, s, h, dv)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=TOL, atol=TOL)
+    # ops on CPU tensors is the plain version, and (Dk, Dv) is a built pair
+    assert torch.equal(tops.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                                            torch.from_numpy(v), **kw), got)
+    assert (dk, dv) in tops.FLASH_HEAD_DIMS
 
 
 @pytest.mark.parametrize("q_offset,written_upto,window,chunk", [
@@ -109,13 +141,13 @@ def _kernel_tile(d):
 def _flash_bf16_emulation(q, k, v, parts, *, causal, window, q_offset,
                           written_upto, round_out=True):
     b, s, h, dd = q.shape
-    t, kvh = k.shape[1], k.shape[2]
+    t, kvh, dv = k.shape[1], k.shape[2], v.shape[3]
     bk = _kernel_tile(dd)
     qg = q.reshape(b, s, kvh, h // kvh, dd).float()
     q_pos = q_offset + torch.arange(s)
     m = torch.full((b, kvh, h // kvh, s), float("-inf"))
     l = torch.zeros_like(m)
-    acc = torch.zeros((b, kvh, h // kvh, s, dd))
+    acc = torch.zeros((b, kvh, h // kvh, s, dv))
     for j in range(0, t, bk):
         kb, vb = k[:, j:j + bk].float(), v[:, j:j + bk].float()
         logits = torch.einsum("bskgd,btkd->bkgst", qg, kb) / dd ** 0.5
@@ -142,13 +174,13 @@ def _flash_bf16_emulation(q, k, v, parts, *, causal, window, q_offset,
         acc = acc * rescale[..., None] + pv
         m = m_new
     out = (acc / torch.clamp_min(l, 1e-30)[..., None]).permute(0, 3, 1, 2, 4)
-    out = out.reshape(b, s, h, dd)
+    out = out.reshape(b, s, h, dv)
     return out.bfloat16() if round_out else out
 
 
-def _bf16_case(shape):
+def _bf16_case(shape, dv=None):
     b, s, t, h, kv, d, causal, window = shape
-    q, k, v = (torch.from_numpy(a).bfloat16() for a in _qkv(b, s, t, h, kv, d))
+    q, k, v = (torch.from_numpy(a).bfloat16() for a in _qkv(b, s, t, h, kv, d, dv=dv))
     kw = dict(causal=causal, window=window, q_offset=t - s, written_upto=t)
     want = tref.flash_attention_ref(q.float(), k.float(), v.float(),
                                     chunk=_kernel_tile(d), **kw)
@@ -197,3 +229,22 @@ def test_two_bf16_parts_of_p_err_above_the_floor_on_short_causal_rows():
     p3 = (p - p1 - p2).bfloat16().float()
     assert torch.equal(p1 + p2 + p3, p)
     assert not torch.equal(p1 + p2, p)
+
+
+# deepseek-v3's MLA prefill widths on the wgmma kernel: q / k 192 = nope 128
+# + rope 64, v 128, the kernel's 64-key tiles; causal with S and T off the
+# tile, and a window
+MLA_BF16 = [(1, 200, 333, 4, 4, 192, True, 0), (2, 130, 130, 2, 2, 192, True, 0),
+            (1, 96, 256, 4, 4, 192, True, 64)]
+
+
+@pytest.mark.parametrize("shape", MLA_BF16)
+def test_bf16_kernel_numerics_at_dk_192_dv_128(shape):
+    """The p split at (Dk, Dv) = (192, 128): three parts within one bf16
+    rounding of the float32 plain version, one part far outside it."""
+    q, k, v, kw, want = _bf16_case(shape, dv=128)
+    assert want.shape[-1] == 128
+    got = _flash_bf16_emulation(q, k, v, 3, **kw)
+    assert got.shape == want.shape
+    assert _ratio(got, want) <= 1.0
+    assert _ratio(_flash_bf16_emulation(q, k, v, 1, **kw), want) > 10.0

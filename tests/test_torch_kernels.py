@@ -202,12 +202,18 @@ def test_l2_topk_query_tile_raises_when_no_tile_fits():
     (torch.bfloat16, 64, "flash_attention_wgmma"),
     (torch.bfloat16, 128, "flash_attention_wgmma"),
     (torch.bfloat16, 32, "flash_attention"), (torch.bfloat16, 16, "flash_attention"),
-    (torch.float32, 64, "flash_attention"), (torch.float32, 128, "flash_attention")])
+    (torch.float32, 64, "flash_attention"), (torch.float32, 128, "flash_attention"),
+    (torch.bfloat16, (192, 128), "flash_attention_wgmma"),
+    (torch.bfloat16, 80, "flash_attention"), (torch.bfloat16, (24, 16), "flash_attention"),
+    (torch.float32, (192, 128), "flash_attention")])
 def test_flash_attention_takes_its_kernel_by_dtype_and_width(dtype, d, want):
-    """bf16 at D 64 / 128 goes to the tensor-core kernel, everything else to
-    the float32 FMA kernel (float32 is held to 1e-4, which tensor cores
-    cannot promise)."""
-    assert tops.flash_kernel_for(dtype, d) == want
+    """bf16 at (Dk, Dv) (64, 64), (128, 128) and deepseek-v3's (192, 128)
+    goes to the tensor-core kernel, everything else (hubert-xlarge's 80
+    among them: TMA's 64-column boxes do not tile it) to the float32 FMA
+    kernel (float32 is held to 1e-4, which tensor cores cannot promise)."""
+    dk, dv = d if isinstance(d, tuple) else (d, d)
+    assert tops.flash_kernel_for(dtype, dk, dv) == want
+    assert (dk, dv) in tops.FLASH_HEAD_DIMS
 
 
 @pytest.mark.parametrize("k", [1, 10, 64, 128])
@@ -418,9 +424,13 @@ def test_launch_shape_keys():
     assert tops.pq_adc_key(64, 66448, 8, 256) == (64, 66448, 8, 256)
     # a prompt's prefill into the cache: causal, keys past the prompt masked
     q, kv = (1, 512, 16, 64), (1, 8192, 16, 64)
-    assert tops.flash_key(q, kv, True, 0, 512) == (1, 512, 8192, 16, 16, 64,
+    assert tops.flash_key(q, kv, True, 0, 512) == (1, 512, 8192, 16, 16, 64, 64,
                                                    "causal+written_upto")
     assert tops.flash_key(q, kv, True, 0, 8192)[-1] == "causal"
     assert tops.flash_key(q, kv, True, 4096, 8192)[-1] == "causal+window"
     assert tops.flash_key((2, 300, 8, 128), (2, 1024, 2, 128), False, 0, 700) == (
-        2, 300, 1024, 8, 2, 128, "full+written_upto")
+        2, 300, 1024, 8, 2, 128, 128, "full+written_upto")
+    # deepseek-v3's MLA prefill: v narrower than q and k
+    assert tops.flash_key((1, 8000, 128, 192), (1, 8192, 128, 192), True, 0, 8000,
+                          128) == (1, 8000, 8192, 128, 128, 192, 128,
+                                   "causal+written_upto")

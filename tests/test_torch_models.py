@@ -33,6 +33,9 @@ from repro_torch.models import model as tmodel
 from repro_torch.models.config import ModelConfig
 
 DENSE = ["qwen1.5-0.5b", "yi-6b", "minitron-8b", "qwen2-72b"]
+# the MoE, MLA, SSM, hybrid and prefixed architectures (tests/test_torch_lm_archs.py)
+ALL_OTHERS = ["deepseek-v3-671b", "mixtral-8x22b", "mamba2-130m", "jamba-1.5-large-398b",
+              "qwen2-vl-7b", "hubert-xlarge"]
 
 
 def _t(a):
@@ -72,7 +75,7 @@ def _max_rel(a, b):
 # configs
 # --------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + ALL_OTHERS)
 def test_configs_are_the_reference_configs(arch):
     from repro.configs import ARCHS as J_ARCHS
 
@@ -80,19 +83,7 @@ def test_configs_are_the_reference_configs(arch):
         port = tconfigs.get_config(arch, smoke=smoke)
         assert dataclasses.asdict(port) == dataclasses.asdict(table[arch])
         assert port.param_count() == table[arch].param_count()
-    assert tuple(tmodel.unit_spec(port)) == tuple(j_unit_spec(J_SMOKE[arch]))
-
-
-@pytest.mark.parametrize("arch", sorted(tconfigs.NOT_PORTED))
-def test_unported_archs_name_roadmap_a10(arch):
-    with pytest.raises(NotImplementedError, match="A10"):
-        tconfigs.get_config(arch)
-    # the model itself refuses layers it does not have (the encoder and
-    # the VLM are dense attention layers behind a frontend still to port)
-    cfg = _port_cfg(J_SMOKE[arch])
-    if set(tmodel.unit_spec(cfg).kinds) != {("attn", "dense")}:
-        with pytest.raises(NotImplementedError, match="A10"):
-            tmodel.init_params(cfg, device="cpu")
+        assert tuple(tmodel.unit_spec(port)) == tuple(j_unit_spec(table[arch]))
 
 
 def test_shapes_and_runnable_are_the_reference_ones():
@@ -100,7 +91,7 @@ def test_shapes_and_runnable_are_the_reference_ones():
 
     assert {k: dataclasses.asdict(v) for k, v in tconfigs.SHAPES.items()} == \
         {k: dataclasses.asdict(v) for k, v in SHAPES.items()}
-    for arch in DENSE:
+    for arch in DENSE + ALL_OTHERS:
         for name, shape in SHAPES.items():
             assert tconfigs.runnable(tconfigs.ARCHS[arch], tconfigs.SHAPES[name]) == \
                 runnable(tconfigs.ARCHS[arch], shape)
