@@ -111,7 +111,25 @@ Phases, each of which raises on failure (the script then exits non-zero):
              catalog prompts with the paper's Zipf(0.9) popularity); every
              prefill, the engine's and each generation's on a miss, must
              launch the wgmma flash kernel once a layer, and the FMA one
-             never.
+             never;
+10. lm archs — the other six architectures card against CPU at SMOKE, the
+             flash kernels at their widths, and each at full width with its
+             depth cut;
+11. train  — (c) the C5 checks: `topk_l2` (10% tombstoned), `ivf_scan_topk`
+             and `ivf_scan_lists` at k 160, 400 and 1024 against their plain
+             versions at k + 1, and ServerOracle(kmax=160) at 1M x 128 (4
+             `l2_topk` launches at 512 x 1M x 128, k 160); (b) one training
+             step at SMOKE size in float32 with flash forced, card against
+             CPU, for qwen1.5-0.5b, mixtral (MoE, Adafactor), deepseek-v3
+             (MLA + MTP) and mamba2 (SSD): loss, grad norm and every leaf's
+             gradient to 1e-4; (a) qwen1.5-0.5b at full width (24 layers,
+             bf16, AdamW) through `repro_torch.launch.train.main` at 8192
+             tokens: 6 steps at batch 1 (the last loss below the first) and
+             2 at accum 2 over batch 2, 48 (96) `flash_attention_wgmma`
+             launches a step at the training key, every wq / wk / wv / bias
+             gradient finite and nonzero, step ms and peak memory; after
+             the shapes phase, a profiled step: the attention backward's
+             share of the step (torch.profiler).
 
 The churn path's kernel rows (masked `l2_topk` over the slab, AÇAI's exact
 scan over it, the add-time assignment, the masked IVF probe and IVF-PQ
@@ -130,6 +148,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import json
+import math
 from collections import Counter
 import subprocess
 import sys
@@ -2212,7 +2231,8 @@ def flash_phase(torch, ops, ref, dev):
 
 # the (d, k) of tests/test_torch_kernels.py's launch-plan cases, whose
 # smem arithmetic runs there on ops.l2_topk_smem_bytes_host
-TOPK_PLAN_DK = [(d, k) for d in (128, 1024, 2048, 4096, 8192) for k in (16, 51, 64)]
+TOPK_PLAN_DK = [(d, k) for d in (128, 1024, 2048, 4096, 8192)
+                for k in (16, 51, 64, 160, 400, 1024)]
 # l2_topk beyond the retrieval slice's width: the semantic tier's catalog at
 # qwen1.5-0.5b's d_model, and yi-6b's (16 GB of float32 catalog)
 TOPK_WIDE = [(64, 1_000_000, 1024, 16), (64, 1_000_000, 4096, 16)]
@@ -2661,6 +2681,221 @@ def lm_archs_phase(torch, ops, ref, dev, card: str) -> None:
     log(f"lm_archs: (d) {time.perf_counter() - t1} s; phase {time.perf_counter() - t0} s")
 
 
+# the C5 checks: k beyond the 128 the kernels kept before (fig4's k' 160,
+# 400 at --full, and the cap), each against the plain version at k + 1;
+# the server oracle at fig4's k' (build_policy sizes it kmax = k')
+LARGE_K = (160, 400, 1024)
+LARGE_K_Q, ORACLE_KMAX_FIG4 = 64, 160
+
+
+def large_k_phase(torch, ops, ref, catalog, reqs, ivf_index, dev) -> None:
+    """C5: topk_l2 (with tombstones), ivf_scan_topk and ivf_scan_lists at
+    k 160 / 400 / 1024 on the card against their plain versions, the host
+    copies of the smem formulas at those k, then ServerOracle(kmax=160) at
+    1M x 128 (its launches counted by shape into MAIN_SHAPES)."""
+    from repro_torch.core import baselines as B
+    from repro_torch.kernels import _build
+
+    t0 = time.perf_counter()
+    lib = _build.load("ivf_scan_lists")
+    for d in (16, 33, 128, 256):
+        for vec4 in ((0, 1) if d % 4 == 0 else (0,)):
+            for k in (10, 64, 128) + LARGE_K:
+                host = ops.ivf_scan_lists_smem_bytes_host(d, vec4, k)
+                card = lib.ivf_scan_lists_smem_bytes(d, vec4, k)
+                if host != card:
+                    raise AssertionError(f"ivf_scan_lists smem at d={d} vec4={vec4} k={k}: "
+                                         f"host copy {host}, ivf_scan_lists.cu {card}")
+    log("large k: ivf_scan_lists' smem formula, host copy equal to the library's")
+    g = torch.Generator(device=dev).manual_seed(21)
+    q = reqs[:LARGE_K_Q].contiguous()
+    valid = torch.rand(catalog.shape[0], device=dev, generator=g) > 0.1
+    probe = ivf_index.probe_lists(q)
+    cand = ivf_index.probe_table(q)
+    for k in LARGE_K:
+        qt = ops.topk_l2_query_tile(LARGE_K_Q, D_FULL, k, ops.l2_topk_smem_bytes_host)
+        gd, gi = ops.topk_l2(q, catalog, k, valid=valid)
+        wd, wi = ref.l2_topk_ref(q, catalog, k + 1, valid)
+        compare(torch, f"topk_l2 k={k} {LARGE_K_Q} x {N_FULL} x {D_FULL}, 10% tombstoned "
+                f"(query tile {16 * qt})", gd, wd, (gi, wi))
+        dead = ~valid[gi.clamp_min(0).long()] & (gi >= 0)
+        if bool(dead.any()):
+            raise AssertionError(f"topk_l2 k={k}: a tombstoned row surfaced")
+        gd, gi = ops.ivf_scan_topk(q, catalog, cand, k)
+        wd, wi = ref.ivf_scan_ref(q, catalog, cand, k + 1)
+        compare(torch, f"ivf_scan_topk k={k} B={LARGE_K_Q} P={cand.shape[1]}", gd, wd,
+                (gi, wi))
+        gd, gi = ops.ivf_scan_lists(q, catalog, ivf_index.invlists, probe, k,
+                                    lens=ivf_index.lens)
+        compare(torch, f"ivf_scan_lists k={k} B={LARGE_K_Q} nprobe={probe.shape[1]}", gd, wd,
+                (gi, wi))
+        del gd, gi, wd, wi
+    torch.cuda.synchronize()
+    log(f"large k: kernel checks {time.perf_counter() - t0} s")
+
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    oracle = B.ServerOracle(catalog.cpu().numpy(), reqs.cpu().numpy(), kmax=ORACLE_KMAX_FIG4,
+                            device=dev)
+    torch.cuda.synchronize()
+    key = ("l2_topk", ops.l2_topk_key(ORACLE_BLOCK, N_FULL, D_FULL, ORACLE_KMAX_FIG4))
+    n_pre = -(-T_FULL // ORACLE_BLOCK)
+    log(f"large k: ServerOracle(kmax={ORACLE_KMAX_FIG4}) precompute at {N_FULL} x {D_FULL}, "
+        f"{T_FULL} requests: {time.perf_counter() - t0} s, launches "
+        f"{dict(ops.SHAPE_LAUNCHES)}")
+    if ops.SHAPE_LAUNCHES[key] != n_pre:
+        raise AssertionError(f"large k: the oracle launched l2_topk "
+                             f"{ops.SHAPE_LAUNCHES[key]} times at {key[1]}, expected {n_pre}")
+    wd, wi = ref.l2_topk_ref(q, catalog, ORACLE_KMAX_FIG4 + 1)
+    compare(torch, f"ServerOracle(kmax={ORACLE_KMAX_FIG4}) answers of the first "
+            f"{LARGE_K_Q} requests (host distances)",
+            torch.from_numpy(oracle.d2[:LARGE_K_Q]).to(dev), wd,
+            (torch.from_numpy(oracle.ids[:LARGE_K_Q]).to(dev), wi))
+    MAIN_SHAPES.update(ops.SHAPE_LAUNCHES)
+    del oracle
+    torch.cuda.empty_cache()
+
+
+# the train phase: qwen1.5-0.5b at full width (24 layers, tied embeddings,
+# bf16, AdamW) over 8192 tokens through the launcher, and SMOKE card
+# against CPU in float32 with flash forced for four mixer families
+TRAIN_ARCH, TRAIN_SEQ, TRAIN_STEPS = "qwen1.5-0.5b", 8192, 6
+TRAIN_ARGV = ["--arch", TRAIN_ARCH, "--seq-len", str(TRAIN_SEQ), "--log-every", "1"]
+TRAIN_SMOKE_ARCHS = ("qwen1.5-0.5b", "mixtral-8x22b", "deepseek-v3-671b", "mamba2-130m")
+TRAIN_TOL = 1e-4
+
+
+def train_flash_key(ops, cfg, b: int = 1):
+    """The flash launch key of the training forward: q = k = (B, S, H, D),
+    causal, keys up to T (no written_upto)."""
+    shape = (b, TRAIN_SEQ, cfg.n_heads, cfg.head_dim)
+    kv = (b, TRAIN_SEQ, cfg.n_kv_heads, cfg.head_dim)
+    return ops.flash_key(shape, kv, cfg.causal, cfg.sliding_window, TRAIN_SEQ)
+
+
+def train_smoke(torch, ops, dev) -> None:
+    """(b) One training step at SMOKE size in float32 with the flash path
+    forced, card against CPU on the same weights and batch: loss, grad norm
+    and each leaf's gradient (within TRAIN_TOL x the leaf's largest |g|)."""
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.train import OptConfig, init_opt, init_train_state, make_train_step
+    from repro_torch.train.data import SyntheticDataset, to_device
+
+    for arch in TRAIN_SMOKE_ARCHS:
+        cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32",
+                                  flash_threshold=32, flash_chunk=16)
+        batch = SyntheticDataset(cfg, ShapeSpec("train", 48, 2, "train"), seed=1).batch(0)
+        model_cpu, _ = init_train_state(cfg, seed=0, device="cpu")
+        models = {"cpu": model_cpu, dev: copy.deepcopy(model_cpu).to(dev)}
+        out = {}
+        for where, model in models.items():
+            opt = init_opt(cfg.optimizer, dict(model.named_parameters()))
+            step = make_train_step(cfg, OptConfig(name=cfg.optimizer))
+            ops.reset_launches()
+            _, _, m = step(model, opt, to_device(batch, cfg, where), 0)
+            out[where] = (float(m.loss), float(m.grad_norm),
+                          {n: g.detach().float().cpu() for n, g in step.grads.items()},
+                          dict(ops.LAUNCHES))
+        (l0, n0, g0, _), (l1, n1, g1, launched) = out["cpu"], out[dev]
+        worst = max(float((g1[n] - g0[n]).abs().max()) /
+                    max(float(g0[n].abs().max()), 1e-30) for n in g0)
+        finite = all(bool(torch.isfinite(g).all()) for g in g1.values())
+        log(f"train smoke {arch} (float32, flash_threshold 32, {cfg.optimizer}): loss "
+            f"cpu={l0} cuda={l1} grad_norm cpu={n0} cuda={n1}; worst leaf gradient "
+            f"err / max|g| = {worst} ({len(g0)} leaves); launches on the card "
+            f"{ {k: v for k, v in launched.items() if v} }")
+        if not finite:
+            raise AssertionError(f"train smoke {arch}: non-finite gradients on the card")
+        if abs(l1 - l0) > TRAIN_TOL * abs(l0) or abs(n1 - n0) > TRAIN_TOL * abs(n0):
+            raise AssertionError(f"train smoke {arch}: loss or grad norm differ by more "
+                                 f"than {TRAIN_TOL} relative")
+        if worst > TRAIN_TOL:
+            raise AssertionError(f"train smoke {arch}: a leaf's gradient differs by "
+                                 f"{worst} x its max")
+        if cfg.layer_pattern != "ssm" and launched["flash_attention"] == 0:
+            raise AssertionError(f"train smoke {arch}: the flash kernel never launched")
+
+
+def train_full(torch, ops, card: str) -> None:
+    """(a) qwen1.5-0.5b at full width through the launcher: 6 steps at batch
+    1, then 2 at accum 2 over batch 2; launches counted by shape into
+    MAIN_SHAPES."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as lm_train
+
+    cfg = get_config(TRAIN_ARCH)
+    key = ("flash_attention_wgmma", train_flash_key(ops, cfg))
+    for label, extra, per_step in (
+            ("batch 1", ["--batch", "1", "--steps", str(TRAIN_STEPS)], 2 * cfg.n_layers),
+            ("accum 2 over batch 2", ["--batch", "2", "--accum", "2", "--steps", "2"],
+             4 * cfg.n_layers)):
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fig = lm_train.main(TRAIN_ARGV + extra)
+        dt = time.perf_counter() - t0
+        losses, steps = fig["losses"], fig["step_ms"]
+        flash = [n["flash_attention_wgmma"] for n in fig["launches"]]
+        at_key = [c[key] for c in fig["shape_launches"]]
+        grads = fig["attn_grads"]
+        log(f"train {TRAIN_ARCH} full width {label}, seq {TRAIN_SEQ} [{card}]: {dt} s; "
+            f"losses={losses} grad_norms={fig['grad_norms']}")
+        log(f"  step_ms={steps} median_step_ms (steps 2 on)={fig['median_step_ms']} "
+            f"peak_memory_bytes={fig['peak_bytes']} ({fig['peak_bytes'] / 2 ** 30} GiB)")
+        log(f"  flash_attention_wgmma launches a step={flash} at {key[1]}: {at_key}; "
+            f"FMA flash launches={[n['flash_attention'] for n in fig['launches']]}")
+        log(f"  attention gradients: {len(grads)} tensors, max|g| from "
+            f"{min(grads.values())} to {max(grads.values())}")
+        if not all(map(math.isfinite, losses)):
+            raise AssertionError(f"train {label}: non-finite loss")
+        if label == "batch 1" and not losses[-1] < losses[0]:
+            raise AssertionError(f"train {label}: the last loss {losses[-1]} is not below "
+                                 f"the first {losses[0]}")
+        if any(n != per_step for n in flash) or any(n != per_step for n in at_key) or any(
+                n["flash_attention"] for n in fig["launches"]):
+            raise AssertionError(f"train {label}: flash_attention_wgmma launched {flash} "
+                                 f"times a step ({at_key} at the training key), expected "
+                                 f"{per_step}")
+        for name in ("wq", "wk", "wv", "bq", "bk", "bv"):
+            got = [v for n, v in grads.items() if n.endswith(f"mixer.{name}")]
+            if len(got) != cfg.n_layers or not all(math.isfinite(v) and v > 0 for v in got):
+                raise AssertionError(f"train {label}: {name} gradients {got}")
+        MAIN_SHAPES.update(ops.SHAPE_LAUNCHES)
+
+
+def train_phase(torch, ops, ref, catalog, reqs, ivf_index, dev, card: str) -> None:
+    t0 = time.perf_counter()
+    large_k_phase(torch, ops, ref, catalog, reqs, ivf_index, dev)
+    log(f"train: (c) the C5 checks {time.perf_counter() - t0} s")
+    t1 = time.perf_counter()
+    train_smoke(torch, ops, dev)
+    log(f"train: (b) SMOKE card against CPU {time.perf_counter() - t1} s")
+    t1 = time.perf_counter()
+    train_full(torch, ops, card)
+    log(f"train: (a) full width {time.perf_counter() - t1} s; phase "
+        f"{time.perf_counter() - t0} s")
+
+
+def train_profile(torch, ops, card: str) -> None:
+    """The attention backward's share of a full-width step, from
+    torch.profiler over the last of two steps (run after every timed
+    phase: the profiler's callbacks slow later launches)."""
+    from repro_torch.launch import train as lm_train
+
+    fig = lm_train.main(TRAIN_ARGV + ["--batch", "1", "--steps", "2", "--profile"])
+    prof = fig["profile"]
+    log(f"train profile [{card}]: traced step_ms={prof['step_ms']} kernel "
+        f"device_ms={prof['device_ms']} attn_backward_device_ms="
+        f"{prof['attn_backward_device_ms']} ({prof['attn_backward_spans']} spans of the "
+        f"range {ops.FLASH_BACKWARD_RANGE}) share of the step's kernel time="
+        f"{prof['attn_backward_share']}, of its wall time="
+        f"{prof['attn_backward_device_ms'] / prof['step_ms']} (torch.profiler); device "
+        f"idle share of the traced step={1 - prof['device_ms'] / prof['step_ms']}")
+    if not prof["attn_backward_share"]:
+        raise AssertionError("train profile: the trace attributes no kernel time to the "
+                             "attention backward")
+
+
 def main() -> int:
     only = sys.argv[1:] == ["--only", "serving"]
     if sys.argv[1:] and not only:
@@ -2744,10 +2979,12 @@ def main() -> int:
     lm_parity_phase(torch, ops, dev)
     lm_slice_phase(torch, ops, card)
     lm_archs_phase(torch, ops, ref, dev, card)
+    train_phase(torch, ops, ref, catalog, reqs, ivf_index, dev, card)
     # last: once torch.profiler has traced the card, every later launch in
     # this process pays its callbacks, so no host-clock figure comes after
     rows = shapes_phase(torch, ops, ref, catalog, reqs, ivf_index, pq_index, dev,
                         churn_cases)
+    train_profile(torch, ops, card)
     del ivf_index, pq_index, catalog, reqs, churn_cases
     for name in sorted({k for k, _ in MAIN_SHAPES}):
         total = sum(n for (k, _), n in MAIN_SHAPES.items() if k == name)

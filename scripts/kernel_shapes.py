@@ -94,6 +94,9 @@ SEM_K = 16  # the semantic tier's c_remote: max(4 k, 16) at k 4
 # k max(k', 16) = 20 a batch of 8; c_f calibrated from 256 catalog rows at
 # kth 50 (k 51); the semantic tier calibrates from 512 (k 51)
 ORACLE_Q, ORACLE_K, ONLINE_K, CF_SAMPLE, CF_K, SEM_CF_SAMPLE = 512, 128, 20, 256, 51, 512
+# the oracle at fig4's k' (chip_smoke.py's C5 checks: kmax 160 > 128), and
+# the k > 128 timed off the main path (fig4 --full's 400, the cap 1024)
+ORACLE_K_FIG4, LARGE_K = 160, (160, 400, 1024)
 # flash: qwen1.5-0.5b's heads into an 8192-token cache, the prompt lengths
 # timed (a semantic-tier prompt; the engine's, 2048-8000, at 4096)
 FLASH_H, FLASH_D, FLASH_T, FLASH_S = 16, 64, 8192, (512, 4096)
@@ -105,6 +108,10 @@ FLASH_LM = [
     ("qwen2-vl-7b prefill, 1024 patches + 7000 tokens", 1, 8024, 8192, 28, 4, 128, 128,
      True, 0, 8024),
     ("hubert-xlarge encoder", 1, 8192, 8192, 16, 16, 80, 80, False, 0, None),
+    # qwen1.5-0.5b training over 8192 tokens (chip_smoke.py's train phase):
+    # every layer's forward and its remat recompute
+    ("qwen1.5-0.5b train forward and remat recompute", 1, 8192, 8192, 16, 16, 64, 64,
+     True, 0, None),
 ]
 
 # kernel-name substrings of each wrapper's kernels in the profiler's events
@@ -234,14 +241,14 @@ def cases(torch, ops, ref, catalog, reqs, ivf_index, pq_index, dev, wide=True):
                     "row": main if row is None else row, "check": check,
                     "all_kernels": all_kernels, "iters": iters})
 
-    def topk(label, q, x, k, iters=20):
+    def topk(label, q, x, k, iters=20, main=True):
         nq, nx, dd = q.shape[0], x.shape[0], q.shape[1]
         add("l2_topk", label, f"Q={nq} N={nx} D={dd} k={k}", ("l2_topk", (nq, nx, dd, k)),
             lambda: ops.topk_l2(q, x, k), lambda: ref.l2_topk_ref(q, x, k),
             lambda: torch.topk(torch.cdist(q, x), k, largest=False),
             # operations at the TF32 tensor-core rate the kernel runs them on
             bound_ms(4.0 * (nx * dd + nq * dd) + 8.0 * nq * k, 2.0 * nq * nx * dd,
-                     TF32_FLOPS), iters=iters)
+                     TF32_FLOPS), iters=iters, main=main)
 
     def l2(label, q, x, main=True, iters=50):
         nq, nx, dd = q.shape[0], x.shape[0], q.shape[1]
@@ -419,6 +426,32 @@ def cases(torch, ops, ref, catalog, reqs, ivf_index, pq_index, dev, wide=True):
     cal = catalog[torch.randperm(n, device=dev, generator=gen)[:CF_SAMPLE]].contiguous()
     topk(f"server oracle precompute Q {ORACLE_Q}", reqs[:ORACLE_Q].contiguous(), catalog,
          ORACLE_K)
+    topk(f"server oracle precompute Q {ORACLE_Q}, fig4's k' {ORACLE_K_FIG4}",
+         reqs[:ORACLE_Q].contiguous(), catalog, ORACLE_K_FIG4, iters=5)
+    if getattr(ops, "MAX_K", 128) >= max(LARGE_K):
+        # k above the 128 the kernels once stopped at (C5), off the main
+        # path: checked and timed, no row of chip_smoke.py's kernels line
+        topk(f"server oracle precompute Q {ORACLE_Q}, fig4 --full's k' 400",
+             reqs[:ORACLE_Q].contiguous(), catalog, 400, iters=5, main=False)
+        topk("flat index B 64 at the cap k 1024", reqs[:64].contiguous(), catalog, 1024,
+             iters=3, main=False)
+        q = reqs[:64].contiguous()
+        probe, cand = ivf_index.probe_lists(q), ivf_index.probe_table(q)
+        nvalid = int((cand >= 0).sum())
+        ndistinct = int(torch.unique(cand[cand >= 0]).numel())
+        for k in LARGE_K[:2]:
+            add("ivf_scan", f"IVF probe B 64 at c_remote {k}",
+                f"B=64 P={cand.shape[1]} valid={nvalid} distinct={ndistinct} D={d} k={k}",
+                ("ivf_scan_lists", (64, probe.shape[1], ivf_index.invlists.shape[1], d, k)),
+                lambda k=k: ops.ivf_scan_lists(q, catalog, ivf_index.invlists, probe, k,
+                                               lens=ivf_index.lens),
+                lambda k=k: ref.ivf_scan_ref(q, catalog, cand, k),
+                lambda k=k: torch.topk(torch.cdist(q[:, None, :], catalog[
+                    cand.clamp_min(0).long()])[:, 0].masked_fill(cand < 0, float("inf")),
+                    k, largest=False),
+                bound_ms(4.0 * (ndistinct * (d + 1) + probe.numel() + ivf_index.lens.numel()
+                                + 64 * d) + 8.0 * 64 * k, 3.0 * nvalid * d),
+                iters=10, main=False)
     topk("server oracle online B 8", reqs[:8].contiguous(), catalog, ONLINE_K)
     topk(f"c_f calibration Q {CF_SAMPLE}", cal, catalog, CF_K)
     l2("AÇAI exact candidates B 8", reqs[:8].contiguous(), catalog, iters=20)

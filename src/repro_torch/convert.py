@@ -155,6 +155,47 @@ def lm_params_from_numpy(params, cfg: ModelConfig, device=None) -> LM:
     return model
 
 
+def lm_params_to_numpy(model: LM, cfg: ModelConfig, tensors: dict | None = None) -> dict:
+    """The reference's nested LM tree (the layout `lm_params_from_numpy`
+    reads) as float32 numpy arrays: from the model's parameters, or from
+    `tensors`, a dict by the model's parameter names (its gradients, say;
+    a name missing from it gives zeros).  Body slot j's leaves are stacked
+    over the units, in unit order."""
+    spec = unit_spec(cfg)
+    named = dict(model.named_parameters())
+
+    def leaf(name: str) -> np.ndarray:
+        t = named[name] if tensors is None else tensors.get(name)
+        if t is None:
+            return np.zeros(tuple(named[name].shape), np.float32)
+        return t.detach().float().cpu().numpy()
+
+    def nest(tree: dict, path: str, value) -> None:
+        *heads, last = path.split(".")
+        for key in heads:
+            tree = tree.setdefault(key, {})
+        tree[last] = value
+
+    out: dict = {}
+    for name in ("embed", "final_norm") + (() if cfg.tie_embeddings else ("lm_head",)):
+        out[name] = leaf(name)
+    body: dict = {}
+    for i, layer in enumerate(model.layers):
+        for pname, _ in layer.named_parameters():
+            value = leaf(f"layers.{i}.{pname}")
+            if i < spec.n_prefix:
+                nest(out, f"prefix.layer{i}.{pname}", value)
+            else:
+                j = (i - spec.n_prefix) % len(spec.kinds)
+                body.setdefault(f"slot{j}.{pname}", []).append(value)
+    for path, values in body.items():
+        nest(out, f"body.{path}", np.stack(values))
+    if cfg.mtp_depth:
+        for pname, _ in model.mtp.named_parameters():
+            nest(out, f"mtp.{pname}", leaf(f"mtp.{pname}"))
+    return out
+
+
 def _paths(tree, prefix: str = ""):
     """Dotted paths of a nested dict's leaves."""
     for key, node in tree.items():

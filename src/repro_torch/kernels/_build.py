@@ -41,7 +41,7 @@ _SIGNATURES = {
     },
     "ivf_scan_lists": {
         "ivf_scan_lists": (_I, [_P] * 9 + [_I] * 10 + [_P]),
-        "ivf_scan_lists_smem_bytes": (_L, [_I, _I]),
+        "ivf_scan_lists_smem_bytes": (_L, [_I, _I, _I]),
     },
     "pq_adc": {
         "pq_adc": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]),

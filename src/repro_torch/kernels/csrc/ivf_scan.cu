@@ -142,7 +142,7 @@ extern "C" long long ivf_scan_smem_bytes(int D, int k) {
 
 // q (B, D), x (N, D) float32; cand (B, P) int32, -1 = invalid slot;
 // out_d / out_p (B, nchunks * k).  Block x scans positions
-// [x*chunk, min(P, (x+1)*chunk)).  k <= 128.  Launches on `stream` and
+// [x*chunk, min(P, (x+1)*chunk)).  k <= TOPK_MAX_K.  Launches on `stream` and
 // returns cudaGetLastError() as an int.
 extern "C" int ivf_scan_partial(const float* q, const float* x, const int* cand,
                                 float* out_d, int* out_p, int B, int N, int D,

@@ -71,11 +71,19 @@ __host__ __device__ inline int row_ld(int D, int vec4) {
   return vec4 ? 4 * ((D / 4) | 1) : (D | 1);
 }
 
-size_t smem_bytes(int D, int vec4) {
+// a list's slots: k rounded up to a power of two, at least 32 (the bitonic
+// sort's width)
+__host__ __device__ inline int list_slots(int k) {
+  int kpow = 32;
+  while (kpow < k) kpow *= 2;
+  return kpow;
+}
+
+size_t smem_bytes(int D, int vec4, int k) {
   return sizeof(float) * ((size_t)STAGES * TILE * row_ld(D, vec4) + (size_t)GMAX * D +
                           (size_t)WARPS * GMAX * TILE) +
          sizeof(int) * (size_t)STAGES * TILE +
-         (sizeof(float) + sizeof(int)) * (size_t)GMAX * TOPK_MAX_K;
+         (sizeof(float) + sizeof(int)) * (size_t)GMAX * list_slots(k);
 }
 
 // (v2, s2) ranks before (v, s): by distance, then by slot
@@ -83,7 +91,7 @@ __device__ __forceinline__ bool key_less(float v2, int s2, float v, int s) {
   return v2 < v || (v2 == v && s2 < s);
 }
 
-// Sort a warp's list of kpow (a power of two, 32 to 128) (distance, slot)
+// Sort a warp's list of kpow (a power of two, 32 to TOPK_MAX_K) (distance, slot)
 // entries ascending by (distance, slot), a bitonic network in shared
 // memory: the +inf / -1 tail stays last, and equal distances keep the
 // lower slot first.
@@ -137,9 +145,10 @@ ivf_scan_lists_kernel(const float* __restrict__ q, const float* __restrict__ x,
   float* ring = smem;                                         // STAGES x TILE x ld
   float* qs = ring + STAGES * TILE * ld;                      // GMAX x D
   int* ids = reinterpret_cast<int*>(qs + GMAX * D);           // STAGES x TILE
+  const int kpow = list_slots(k);
   float* lv = reinterpret_cast<float*>(ids + STAGES * TILE);  // GMAX x kpow
-  int* ls = reinterpret_cast<int*>(lv + GMAX * TOPK_MAX_K);   // GMAX x kpow
-  float* part = reinterpret_cast<float*>(ls + GMAX * TOPK_MAX_K);  // WARPS x GMAX x TILE
+  int* ls = reinterpret_cast<int*>(lv + GMAX * kpow);         // GMAX x kpow
+  float* part = reinterpret_cast<float*>(ls + GMAX * kpow);   // WARPS x GMAX x TILE
   __shared__ int gb[GMAX], gr[GMAX], wcnt[WARPS], next_cursor;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -151,8 +160,6 @@ ivf_scan_lists_kernel(const float* __restrict__ q, const float* __restrict__ x,
   const int* lrow = lists + (size_t)L * cap;
   const float inf = __int_as_float(0x7f800000);
   const int pieces = VEC ? D / 4 : D;  // cp.async pieces a row
-  int kpow = 32;  // a list's slots: k rounded up to a power of two
-  while (kpow < k) kpow *= 2;
   const uint32_t ring_u32 = static_cast<uint32_t>(__cvta_generic_to_shared(ring));
 
   // a probe entry outside [0, nlist) names no list, so no block below
@@ -360,7 +367,7 @@ int launch(const float* q, const float* x, const int* lists, const int* lens,
            const int* probe, const unsigned char* valid, float* out_d, int* out_i,
            float* bound, int B, int N, int D, int nlist, int cap, int nprobe, int k, int nruns,
            int run, cudaStream_t stream) {
-  const size_t smem = smem_bytes(D, VEC);
+  const size_t smem = smem_bytes(D, VEC, k);
   cudaError_t err = cudaFuncSetAttribute(ivf_scan_lists_kernel<VEC>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
@@ -376,8 +383,8 @@ int launch(const float* q, const float* x, const int* lists, const int* lens,
 
 }  // namespace
 
-extern "C" long long ivf_scan_lists_smem_bytes(int D, int vec4) {
-  return (long long)smem_bytes(D, vec4);
+extern "C" long long ivf_scan_lists_smem_bytes(int D, int vec4, int k) {
+  return (long long)smem_bytes(D, vec4, k);
 }
 
 // q (B, D), x (N, D) float32; lists (nlist, cap), lens (nlist), probe
@@ -385,7 +392,7 @@ extern "C" long long ivf_scan_lists_smem_bytes(int D, int vec4) {
 // partials come back +inf / -1); valid (N) bool or null;
 // out_d / out_i (B, nprobe * nruns * k); bound (B) float32 scratch.
 // Block (L, j) walks slots [j*run, min((j+1)*run, lens[L])) of list L.
-// D <= 256, k <= 128; vec4 = D % 4 == 0 and x on 16 bytes.  Launches on
+// D <= 256, k <= TOPK_MAX_K; vec4 = D % 4 == 0 and x on 16 bytes.  Launches on
 // `stream` and returns the first CUDA error as an int.
 extern "C" int ivf_scan_lists(const float* q, const float* x, const int* lists,
                               const int* lens, const int* probe, const unsigned char* valid,

@@ -55,7 +55,11 @@
 // shared memory: a warp ballots the tile's distances below the list's
 // current k-th value and, when some pass, takes the list into registers
 // and inserts them in ascending row order (the lowest id wins a tie, as in
-// topk_common.cuh), by ballots and shuffles.  Building a list costs about
+// topk_common.cuh), by ballots and shuffles.  A list longer than REG_K
+// (128: four slots a lane) is not taken into registers: the warp inserts
+// into it in shared memory (topk_common.cuh's warp_insert), in the same
+// order, so k up to TOPK_MAX_K (1024) keeps the tie rule; its BQ x k lists
+// make the wrapper's plan shrink the query tile (16 queries at k 1024).  Building a list costs about
 // k (1 + ln(run / k)) inserts a query in every block; the wrapper's bound
 // (`tau`) cuts that to about k N / 16384.  The per-block lists go out as
 // (Q, nblocks*k) partials in block order, and the wrapper merges them with
@@ -72,6 +76,7 @@ constexpr int SUB = DK / 32; // sub-rows a row of a chunk
 constexpr int STAGES = 2;    // depth of the ring
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
+constexpr int REG_K = 128;   // longest list a warp selects into in registers
 
 __host__ __device__ constexpr int q_tile(int qt) { return 16 * qt; }
 
@@ -135,7 +140,7 @@ __device__ __forceinline__ void wgmma_tf32_n64(float* d, const uint32_t* a, uint
 }
 
 // The list of the query a warp is selecting for, in registers: entry
-// j = lane + 32 m sits in (rv[m], ri[m]) of lane `lane` (k <= 128: four
+// j = lane + 32 m sits in (rv[m], ri[m]) of lane `lane` (k <= REG_K: four
 // slots a lane), ascending, +inf / -1 in the unused tail.  Its k-th value:
 __device__ __forceinline__ float reg_kth(const float (&rv)[4], int k) {
   const int m = (k - 1) >> 5;
@@ -371,6 +376,25 @@ l2_topk_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__
         any |= __ballot_sync(TOPK_FULL_MASK, v[p] < L[k - 1]);
       }
       if (!any) continue;
+      if (k > REG_K) {
+        // a list longer than the registers hold stays in shared memory,
+        // where the warp inserts into it (topk_common.cuh), same order
+        float kth = L[k - 1];
+#pragma unroll
+        for (int p = 0; p < BN / 32; ++p) {
+          unsigned m = __ballot_sync(TOPK_FULL_MASK, v[p] < kth);
+          while (m) {
+            const int src = __ffs(m) - 1;
+            m &= m - 1;
+            const float cv = __shfl_sync(TOPK_FULL_MASK, v[p], src);
+            if (cv < kth) {
+              warp_insert(L, I, k, cv, r0 + p * 32 + src, lane);
+              kth = L[k - 1];
+            }
+          }
+        }
+        continue;
+      }
       float rv[4];
       int ri[4];
 #pragma unroll
@@ -474,7 +498,7 @@ extern "C" long long l2_topk_smem_bytes(int qt, int D, int k) {
 // a distance that no row of its top k exceeds (rows farther away are never
 // offered to its list); out_d / out_i (Q, nchunks*k).  Block y scans rows
 // [y*chunk, min(N, (y+1)*chunk)).  qt in {1, 2, 4} sets the query tile
-// (16*qt).  k <= 128.  Launches on `stream` and returns a CUDA error code as
+// (16*qt).  k <= TOPK_MAX_K.  Launches on `stream` and returns a CUDA error code as
 // an int (0 on success).
 extern "C" int l2_topk_partial(const float* q_hi, const float* q_lo, const float* qn,
                                const float* x, const uint8_t* valid, const float* tau,

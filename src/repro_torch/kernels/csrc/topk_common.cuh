@@ -1,4 +1,5 @@
-// Shared device helpers of the two top-k kernels (l2_topk.cu, ivf_scan.cu).
+// Shared device helpers of the top-k kernels (l2_topk.cu, ivf_scan.cu,
+// ivf_scan_lists.cu).
 //
 // A query's running top-k is a list of k (value, index) pairs in shared
 // memory, sorted ascending with +inf / -1 in its unused tail.  One warp
@@ -11,7 +12,9 @@
 #include <cuda_runtime.h>
 
 #define TOPK_FULL_MASK 0xffffffffu
-#define TOPK_MAX_K 128  // four list slots per lane
+// the longest list: the reference's benchmarks ask for up to k 400 (fig4 at
+// --full); a list of 1024 pairs takes 8 KB of shared memory
+#define TOPK_MAX_K 1024
 
 __device__ __forceinline__ int warp_sum_int(int v) {
 #pragma unroll
@@ -28,28 +31,28 @@ __device__ __forceinline__ float warp_sum_float(float v) {
 // Insert (v, id) into the sorted list (lv, li) of length k <= TOPK_MAX_K.
 // The whole warp calls it with the same arguments, and only when
 // v < lv[k - 1], so the insert position is < k and the last entry drops.
+// Slots (pos, k) move up one, 32 at a time from the top stripe down: a
+// stripe reads its left neighbours, syncs, then writes, and the stripe
+// below it writes only after that sync, so no slot is read after it is
+// overwritten.  A stripe wholly at or below pos is not touched.
 __device__ __forceinline__ void warp_insert(float* lv, int* li, int k, float v,
                                             int id, int lane) {
   int cnt = 0;
   for (int j = lane; j < k; j += 32) cnt += (lv[j] <= v) ? 1 : 0;
   const int pos = warp_sum_int(cnt);
-  float tv[4];
-  int ti[4];
-#pragma unroll
-  for (int m = 0; m < 4; ++m) {
-    const int j = lane + 32 * m;
-    if (j < k && j > pos) {
-      tv[m] = lv[j - 1];
-      ti[m] = li[j - 1];
+  for (int base = (k - 1) & ~31; base + 31 > pos; base -= 32) {
+    const int j = base + lane;
+    const bool move = j < k && j > pos;
+    float tv = 0.f;
+    int ti = -1;
+    if (move) {
+      tv = lv[j - 1];
+      ti = li[j - 1];
     }
-  }
-  __syncwarp();
-#pragma unroll
-  for (int m = 0; m < 4; ++m) {
-    const int j = lane + 32 * m;
-    if (j < k && j > pos) {
-      lv[j] = tv[m];
-      li[j] = ti[m];
+    __syncwarp();
+    if (move) {
+      lv[j] = tv;
+      li[j] = ti;
     }
   }
   if (lane == 0) {

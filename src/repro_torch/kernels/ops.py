@@ -34,7 +34,10 @@ LAUNCHES = {"pairwise_l2": 0, "l2_topk": 0, "ivf_scan": 0, "ivf_scan_lists": 0,
 # helpers
 SHAPE_LAUNCHES: Counter = Counter()
 
-MAX_K = 128          # the top-k kernels keep four list slots per lane
+# the top-k kernels' longest list (topk_common.cuh's TOPK_MAX_K): every k
+# the reference's benchmarks ask for (fig4's k' 160, 400 at --full); l2_topk
+# keeps lists up to 128 in registers, longer ones in shared memory
+MAX_K = 1024
 SMEM_LIMIT = 232448  # dynamic shared memory a block may use on Hopper
 _TARGET_BLOCKS = 4 * 132  # a few waves over the H100's 132 SMs
 # l2_topk: one wave of blocks (a 64-query block fills an SM's shared
@@ -139,8 +142,8 @@ def _check_k(kernel: str, k: int) -> None:
         raise ValueError(f"{kernel}: k must be >= 1, got {k}")
     if k > MAX_K:
         raise NotImplementedError(
-            f"{kernel}: k = {k} > {MAX_K} is not supported by the CUDA "
-            f"kernel yet (ROADMAP B: the k > 128 extension)")
+            f"{kernel}: k = {k} is above the CUDA kernels' cap of {MAX_K} "
+            f"(ops.MAX_K, topk_common.cuh's TOPK_MAX_K)")
 
 
 def _ieee_fp32() -> None:
@@ -280,9 +283,10 @@ def l2_topk_smem_bytes_host(qt: int, d: int, k: int) -> int:
 def topk_l2_query_tile(nq: int, d: int, k: int, smem_bytes) -> int:
     """qt of an `l2_topk` launch (a block holds 16 * qt queries): the
     widest of 1, 2, 4 that the batch fills and whose shared memory,
-    `smem_bytes(qt, d, k)`, fits a block.  Raises NotImplementedError when
-    even qt = 1 does not fit (no (d, k <= 128) does: the kernel streams the
-    depth)."""
+    `smem_bytes(qt, d, k)`, fits a block (the lists take 8 * 16 qt * k
+    bytes: k 400 fits 32 queries, k 1024 16).  Raises NotImplementedError
+    when even qt = 1 does not fit (no (d, k <= MAX_K) does: the kernel
+    streams the depth)."""
     qt = 1 if nq <= 16 else 2 if nq <= 32 else 4
     while qt > 1 and smem_bytes(qt, d, k) > SMEM_LIMIT:
         qt //= 2
@@ -359,7 +363,7 @@ def topk_l2(q: torch.Tensor, x: torch.Tensor, k: int, *, valid=None):
     `valid` (N,) bool is the tombstone mask: masked rows never surface.
     Slots past the live rows underflow as +inf / -1, k > N included (both
     devices return k columns).  On CUDA the (Q, N) distance matrix never
-    reaches device memory; k <= 128 (larger k raises NotImplementedError).
+    reaches device memory; k <= MAX_K (larger k raises NotImplementedError).
     The kernel's lists start as +inf / -1 and only finite distances enter
     them, so a merged id is -1 exactly where its distance is +inf, with or
     without `valid`.  A catalog whose width is not a multiple of 4, or that
@@ -448,7 +452,7 @@ def ivf_scan_topk(q: torch.Tensor, x: torch.Tensor, cand: torch.Tensor, k: int,
     (dists (B, k), ids (B, k) int32); underflowing slots (fewer than k
     valid candidates, including k > P) come back as +inf / -1.  `valid`
     (N,) bool folds tombstoned ids into -1 before the scan.  On CUDA,
-    k <= 128 (larger k raises NotImplementedError)."""
+    k <= MAX_K (larger k raises NotImplementedError)."""
     if valid is not None:
         cand = _fold_tombstones(cand, valid, x.shape[0])
     if not _on_cuda(q, x, cand):
@@ -498,6 +502,17 @@ def invlist_lengths(invlists: torch.Tensor) -> torch.Tensor:
                       dim=1).to(torch.int32).contiguous()
 
 
+def ivf_scan_lists_smem_bytes_host(d: int, vec4: int, k: int) -> int:
+    """A host copy of ivf_scan_lists.cu's `smem_bytes`: the 2-stage ring of
+    32-row tiles (rows padded to an odd count of 16-byte pieces, or of
+    floats), 8 queries, the warps' partial sums, the tiles' ids, and 8
+    lists of k rounded up to a power of two (at least 32) pairs.
+    chip_smoke.py holds it equal to the library's."""
+    ld = 4 * ((d // 4) | 1) if vec4 else (d | 1)
+    kpow = max(32, 1 << max(k - 1, 0).bit_length())
+    return 4 * (2 * 32 * ld + 8 * d + 8 * 8 * 32) + 4 * 2 * 32 + 8 * 8 * kpow
+
+
 def ivf_lists_plan(nlist: int, cap: int, nprobe: int, k: int) -> tuple[int, int]:
     """(nruns, run) of an `ivf_scan_lists` launch: each list is cut into
     nruns runs of `run` slots, for about _LISTS_TARGET_BLOCKS blocks (a
@@ -545,7 +560,7 @@ def ivf_scan_lists(q: torch.Tensor, x: torch.Tensor, invlists: torch.Tensor,
     CUDA: `ivf_probe_kernel_for` picks the kernel from the shape:
     `ivf_scan_lists` (a block a run of a list, reading its rows once for
     every query that probes it), or at D > IVF_LISTS_MAX_D the per-query
-    `ivf_scan` over the gathered table.  k <= 128."""
+    `ivf_scan` over the gathered table.  k <= MAX_K."""
     b = q.shape[0]
     if not _on_cuda(q, x, invlists, probe, *([] if valid is None else [valid]),
                     *([] if lens is None else [lens])):
@@ -577,9 +592,9 @@ def ivf_scan_lists(q: torch.Tensor, x: torch.Tensor, invlists: torch.Tensor,
     lib = _build.load("ivf_scan_lists")
     nruns, run = ivf_lists_plan(nlist, cap, nprobe, k)
     vec4 = int(d % 4 == 0 and x.data_ptr() % 16 == 0)
-    if lib.ivf_scan_lists_smem_bytes(d, vec4) > SMEM_LIMIT:
-        raise NotImplementedError(f"ivf_scan_lists: D = {d} needs more shared memory "
-                                  f"than a block has")
+    if lib.ivf_scan_lists_smem_bytes(d, vec4, k) > SMEM_LIMIT:
+        raise NotImplementedError(f"ivf_scan_lists: D = {d}, k = {k} need more shared "
+                                  f"memory than a block has")
     if nlist * nruns >= 2 ** 31:
         raise NotImplementedError(f"ivf_scan_lists: {nlist} lists exceed the grid")
     width = nprobe * nruns * k
@@ -891,6 +906,49 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         _raise_on(rc, "flash_attention")
         _count("flash_attention", key)
     return out
+
+
+# the profiler range of FlashAttentionFn's backward
+FLASH_BACKWARD_RANGE = "flash_attention_backward"
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """`flash_attention` with a gradient, for the training forward.
+
+    Forward: `flash_attention` (the kernel on a CUDA tensor, the plain
+    version on the CPU); the kernel writes its output through a pointer,
+    so without this Function the output has no grad_fn and q, k, v (and
+    the weights before them) would get no gradient.  Backward: the
+    reference has no backward kernel (it differentiates `_sdpa_flash`, a
+    scan whose body is under `jax.checkpoint`), so neither does the port:
+    the plain version is recomputed from the saved q, k, v with grad on,
+    one KV chunk at a time under `torch.utils.checkpoint`, and
+    differentiated by autograd, in float32 (IEEE float32 products on the
+    card: `_ieee_fp32`).  The backward runs inside the profiler range
+    FLASH_BACKWARD_RANGE, so a trace can attribute its device time.
+
+    apply(q, k, v, causal, window, q_offset, written_upto, chunk)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int, q_offset: int,
+                written_upto: int | None, chunk: int):
+        ctx.save_for_backward(q, k, v)
+        ctx.opts = dict(causal=causal, window=window, q_offset=q_offset,
+                        written_upto=written_upto, chunk=chunk)
+        return flash_attention(q, k, v, causal=causal, window=window, q_offset=q_offset,
+                               written_upto=written_upto)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        q, k, v = ctx.saved_tensors
+        if q.is_cuda:
+            _ieee_fp32()
+        with torch.enable_grad(), torch.autograd.profiler.record_function(
+                FLASH_BACKWARD_RANGE):
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            out = ref.flash_attention_ref(*leaves, checkpoint_chunks=True, **ctx.opts)
+            dq, dk, dv = torch.autograd.grad(out, leaves, grad_out)
+        return dq, dk, dv, None, None, None, None, None
 
 
 # the index layer's names: the dispatch is by tensor device, so the

@@ -11,6 +11,7 @@ promises no order for ties).
 from __future__ import annotations
 
 import torch
+import torch.utils.checkpoint
 
 
 def smallest_k(d: torch.Tensor, k: int):
@@ -185,10 +186,36 @@ def pq_shortlist_ref(lut: torch.Tensor, codes_lists: torch.Tensor,
     return _underflow(vals, torch.gather(table, 1, pos), kk)
 
 
+def _flash_chunk(qg, k_blk, v_blk, m, l, acc, q_pos, k0: int, causal: bool, window: int,
+                 written_upto, scale: float):
+    """One KV chunk of the online softmax: the running (max, denominator,
+    accumulator) after keys k0 .. k0 + len(k_blk) (the reference's scan
+    body)."""
+    s = qg.shape[1]
+    logits = torch.einsum("bskgd,btkd->bkgst", qg, k_blk.float()) * scale
+    k_pos = k0 + torch.arange(k_blk.shape[1], device=qg.device)
+    ok = torch.ones((s, k_blk.shape[1]), dtype=torch.bool, device=qg.device)
+    if causal:
+        ok &= k_pos[None, :] <= q_pos[:, None]
+    if window:
+        ok &= k_pos[None, :] > q_pos[:, None] - window
+    if written_upto is not None:
+        ok &= k_pos[None, :] < written_upto
+    logits = logits.masked_fill(~ok, float("-inf"))
+    m_new = torch.maximum(m, logits.amax(dim=-1))
+    # rows with no kept key yet keep m = -inf; guard the exp shift
+    shift = torch.where(torch.isfinite(m_new), m_new, torch.zeros_like(m_new))
+    p = torch.exp(logits - shift[..., None]).masked_fill(~ok, 0.0)
+    rescale = torch.where(torch.isfinite(m), torch.exp(m - shift), torch.zeros_like(m))
+    l = l * rescale + p.sum(dim=-1)
+    acc = acc * rescale[..., None] + torch.einsum("bkgst,btkd->bkgsd", p, v_blk.float())
+    return m_new, l, acc
+
+
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True, window: int = 0, q_offset: int = 0,
                         written_upto: int | None = None,
-                        chunk: int = 2048) -> torch.Tensor:
+                        chunk: int = 2048, checkpoint_chunks: bool = False) -> torch.Tensor:
     """Chunked online-softmax attention (port of the reference's
     `_sdpa_flash`, f32 throughout): q (B, S, H, D), k / v (B, T, KV, D) ->
     (B, S, H, Dv) in q's dtype.
@@ -198,7 +225,13 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (None = T).  GQA maps q head h onto kv head h // (H // KV).  Masked
     logits are -inf and add p = 0; the running max is guarded by isfinite,
     so a row with no kept key returns 0 (acc / max(l, 1e-30)).  T need not
-    be a multiple of `chunk`: the last chunk is short."""
+    be a multiple of `chunk`: the last chunk is short.
+
+    checkpoint_chunks: run each chunk under `torch.utils.checkpoint`, as
+    the reference wraps its scan body in `jax.checkpoint`: a backward
+    keeps only the running (max, denominator, accumulator) of each chunk
+    and recomputes its logits, O(S * chunk) live logits instead of
+    O(S * T)."""
     b, s, h, dd = q.shape
     t, kvh, dv = k.shape[1], k.shape[2], v.shape[3]
     g = h // kvh
@@ -209,27 +242,13 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     l = torch.zeros((b, kvh, g, s), device=q.device)
     acc = torch.zeros((b, kvh, g, s, dv), device=q.device)
     for j in range(0, t, chunk):
-        k_blk = k[:, j:j + chunk].float()
-        v_blk = v[:, j:j + chunk].float()
-        logits = torch.einsum("bskgd,btkd->bkgst", qg, k_blk) * scale
-        k_pos = j + torch.arange(k_blk.shape[1], device=q.device)
-        ok = torch.ones((s, k_blk.shape[1]), dtype=torch.bool, device=q.device)
-        if causal:
-            ok &= k_pos[None, :] <= q_pos[:, None]
-        if window:
-            ok &= k_pos[None, :] > q_pos[:, None] - window
-        if written_upto is not None:
-            ok &= k_pos[None, :] < written_upto
-        logits = logits.masked_fill(~ok, float("-inf"))
-        m_new = torch.maximum(m, logits.amax(dim=-1))
-        # rows with no kept key yet keep m = -inf; guard the exp shift
-        shift = torch.where(torch.isfinite(m_new), m_new, torch.zeros_like(m_new))
-        p = torch.exp(logits - shift[..., None]).masked_fill(~ok, 0.0)
-        rescale = torch.where(torch.isfinite(m), torch.exp(m - shift),
-                              torch.zeros_like(m))
-        l = l * rescale + p.sum(dim=-1)
-        acc = acc * rescale[..., None] + torch.einsum("bkgst,btkd->bkgsd", p, v_blk)
-        m = m_new
+        args = (qg, k[:, j:j + chunk], v[:, j:j + chunk], m, l, acc, q_pos, j, causal,
+                window, written_upto, scale)
+        if checkpoint_chunks:
+            m, l, acc = torch.utils.checkpoint.checkpoint(_flash_chunk, *args,
+                                                          use_reentrant=False)
+        else:
+            m, l, acc = _flash_chunk(*args)
     out = acc / torch.clamp_min(l, 1e-30)[..., None]
     out = out.permute(0, 3, 1, 2, 4)  # (b, kvh, g, s, d) -> (b, s, kvh, g, d)
     return out.reshape(b, s, h, dv).to(q.dtype)

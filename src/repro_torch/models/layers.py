@@ -19,7 +19,7 @@ from torch import nn
 from repro_torch.kernels import ops
 from repro_torch.models.config import ModelConfig
 
-# Above this KV length, prefill attention switches to the flash path:
+# Above this KV length, prefill and training attention switch to the flash path:
 # O(S * tile) live logits instead of O(S * T).
 FLASH_THRESHOLD = 8192
 FLASH_CHUNK = 2048
@@ -131,12 +131,18 @@ def attention_core(q, k, v, q_offset: int, cfg: ModelConfig, kv_positions=None,
     """Dispatch between the dense-mask and flash paths, on the reference's
     condition.  The flash path is `ops.flash_attention`: the CUDA kernel
     on a CUDA tensor (whatever `use_pallas_attention` says), its plain
-    version on the CPU."""
+    version on the CPU; where autograd records (the training forward), it
+    goes through `ops.FlashAttentionFn`, whose backward recomputes the
+    plain version chunk by chunk (chunk cfg.flash_chunk)."""
     s, t = q.shape[1], k.shape[1]
     thresh = cfg.flash_threshold or FLASH_THRESHOLD
-    use_flash = (s > 1 and t >= thresh and t % (cfg.flash_chunk or FLASH_CHUNK) == 0
-                 and kv_positions is None)
+    chunk = cfg.flash_chunk or FLASH_CHUNK
+    use_flash = (s > 1 and t >= thresh and t % chunk == 0 and kv_positions is None)
     if use_flash:
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad):
+            return ops.FlashAttentionFn.apply(q, k, v, cfg.causal, cfg.sliding_window,
+                                              int(q_offset), written_upto, chunk)
         return ops.flash_attention(q, k, v, causal=cfg.causal,
                                    window=cfg.sliding_window, q_offset=int(q_offset),
                                    written_upto=written_upto)

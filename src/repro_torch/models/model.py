@@ -10,9 +10,12 @@ in order: body slot j of unit u is layer n_prefix + u * len(kinds) + j.
 A layer is (mixer, ffn): mixer "attn" (GQA), "mla" or "mamba", ffn
 "dense", "moe" or "none" (pure mamba2 blocks).
 
-deepseek-v3's MTP parameters (`mtp`: proj, block, norm) are held; the
-serving forward never reads them.  No training path (no remat, no
-losses): `train/` is ROADMAP A10's training half.
+deepseek-v3's MTP parameters (`mtp`: proj, block, norm) feed `mtp_loss`;
+the serving forward never reads them.  Training: `LM.train_mode()` makes
+the parameters trainable, `forward(..., train=True)` records autograd
+(with cfg.remat each unit runs under `torch.utils.checkpoint`, as the
+reference's `jax.checkpoint(unit_body)`; the prefix layers outside it),
+and `cross_entropy` / `mtp_loss` are the reference's losses.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ from __future__ import annotations
 from typing import NamedTuple, Optional
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch import resolve_device
@@ -120,7 +124,13 @@ class LM(nn.Module):
                                     for i in range(cfg.n_layers))
         if cfg.mtp_depth:
             self.mtp = MTP(cfg, generator, device)
-        self.requires_grad_(False)  # serving only: no autograd graph
+        self.requires_grad_(False)  # serving: no autograd graph until train_mode()
+
+    def train_mode(self, on: bool = True) -> "LM":
+        """Make every parameter trainable (or frozen again, on=False);
+        returns the model."""
+        self.requires_grad_(on)
+        return self
 
     def forward(self, **kw) -> "ForwardResult":
         return forward(self, self.cfg, **kw)
@@ -200,10 +210,9 @@ def _apply_layer(layer: Layer, x, positions, cfg: ModelConfig, cache, cache_len:
     return x + y, aux
 
 
-@torch.no_grad()
 def forward(params: LM, cfg: ModelConfig, tokens=None, embeds=None,
             positions=None, positions3=None, cache=None,
-            cache_len: int | None = None) -> ForwardResult:
+            cache_len: int | None = None, train: bool = False) -> ForwardResult:
     """tokens (B, S) integer and / or embeds (B, P, d): the prefix (patch
     or frame embeddings) goes first.
 
@@ -212,7 +221,21 @@ def forward(params: LM, cfg: ModelConfig, tokens=None, embeds=None,
     M-RoPE, positions3 (3, B, S) defaults to the 1-D positions on all
     three axes, Qwen2-VL's ids for text (the reference needs it passed).
     The logits are (B, S, vocab) float32; aux_loss sums the MoE layers'
-    in the reference's order (the prefix's, then each unit's sum)."""
+    in the reference's order (the prefix's, then each unit's sum).
+
+    train=False (serving) runs under no_grad.  train=True records autograd
+    (no cache); with cfg.remat each unit of the body runs under
+    `torch.utils.checkpoint` (non-reentrant), so its activations are
+    recomputed in the backward, the flash kernel among them."""
+    if train and cache is not None:
+        raise ValueError("forward(train=True) takes no cache")
+    with torch.set_grad_enabled(train):
+        return _forward(params, cfg, tokens, embeds, positions, positions3, cache,
+                        cache_len, remat=train and cfg.remat)
+
+
+def _forward(params: LM, cfg: ModelConfig, tokens, embeds, positions, positions3, cache,
+             cache_len, remat: bool) -> ForwardResult:
     parts = []
     if embeds is not None:
         parts.append(embeds.to(L.dtype_of(cfg)))
@@ -227,18 +250,60 @@ def forward(params: LM, cfg: ModelConfig, tokens=None, embeds=None,
         positions3 = positions[None].expand(3, b, s)
     spec = unit_spec(cfg)
     aux_total = torch.zeros((), device=x.device)
-    aux_unit = None
-    for i, layer in enumerate(params.layers):
-        x, aux = _apply_layer(layer, x, positions, cfg, None if cache is None else cache[i],
-                              cl, positions3)
-        if i < spec.n_prefix:
-            aux_total = aux_total + aux
-            continue
-        slot = (i - spec.n_prefix) % len(spec.kinds)
-        aux_unit = aux if slot == 0 else aux_unit + aux
-        if slot == len(spec.kinds) - 1:
-            aux_total = aux_total + aux_unit
+    for i in range(spec.n_prefix):
+        x, aux = _apply_layer(params.layers[i], x, positions, cfg,
+                              None if cache is None else cache[i], cl, positions3)
+        aux_total = aux_total + aux
+
+    def unit(x, first: int):
+        """Layers first .. first + len(kinds) - 1: x and their aux sum."""
+        aux_unit = None
+        for i in range(first, first + len(spec.kinds)):
+            x, aux = _apply_layer(params.layers[i], x, positions, cfg,
+                                  None if cache is None else cache[i], cl, positions3)
+            aux_unit = aux if aux_unit is None else aux_unit + aux
+        return x, aux_unit
+
+    for u in range(spec.n_units):
+        first = spec.n_prefix + u * len(spec.kinds)
+        if remat:
+            x, aux_unit = torch.utils.checkpoint.checkpoint(unit, x, first,
+                                                            use_reentrant=False)
+        else:
+            x, aux_unit = unit(x, first)
+        aux_total = aux_total + aux_unit
     x = L.rms_norm(x, params.final_norm, cfg.norm_eps)
     head = params.embed.T if cfg.tie_embeddings else params.lm_head
     logits = (x @ head).float()
     return ForwardResult(logits=logits, cache=cache, aux_loss=aux_total, hidden=x)
+
+
+# --------------------------------------------------------------------------
+# Losses
+# --------------------------------------------------------------------------
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean next-token negative log-likelihood of float32 logits (..., V)
+    at integer labels; with a mask, the masked mean (denominator at least
+    1).  The reference's one-hot form under a mesh is not ported."""
+    logp = torch.log_softmax(logits, dim=-1)
+    ll = torch.gather(logp, -1, labels.long()[..., None])[..., 0]
+    if mask is None:
+        return -torch.mean(ll)
+    return -torch.sum(ll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
+
+
+def mtp_loss(params: LM, cfg: ModelConfig, hidden: torch.Tensor, tokens: torch.Tensor,
+             positions: torch.Tensor) -> torch.Tensor:
+    """DeepSeek MTP (depth 1): predict token t+2 from [h_t ; emb(x_{t+1})]
+    through the MTP block and the shared head."""
+    if not cfg.mtp_depth:
+        return torch.zeros((), device=hidden.device)
+    p = params.mtp
+    emb_next = embed_lookup(params.embed, tokens[:, 1:])            # (B, S-1, d)
+    inp = torch.cat([hidden[:, :-1], emb_next], dim=-1) @ p.proj
+    out, _ = _apply_layer(p.block, inp, positions[:, :-1], cfg, None, 0, None)
+    out = L.rms_norm(out, p.norm, cfg.norm_eps)
+    logits = (out @ params.embed.T).float()                         # shared head
+    return cross_entropy(logits[:, :-1], tokens[:, 2:])

@@ -136,13 +136,18 @@ def test_ivf_scan_tombstones_fold_to_minus_one():
 
 
 def test_cuda_wrappers_refuse_what_the_kernels_do_not_take():
-    """The dispatch is by tensor device; on the card k > 128 raises instead
-    of hiding the kernel behind a plain-version fallback.  Checked without
-    a card through the argument checks that run before any launch."""
+    """The dispatch is by tensor device; on the card k above the kernels'
+    cap (ops.MAX_K, 1024) raises instead of hiding the kernel behind a
+    plain-version fallback, and every k up to it (129 among them) is taken.
+    Checked without a card through the argument checks that run before any
+    launch."""
     with pytest.raises(ValueError):
         tops._on_cuda(torch.zeros(1), torch.zeros(1, device="meta"))
-    with pytest.raises(NotImplementedError):
-        tops._check_k("topk_l2", 129)
+    assert tops.MAX_K == 1024
+    for k in (129, 160, 400, tops.MAX_K):
+        tops._check_k("topk_l2", k)
+    with pytest.raises(NotImplementedError, match="1024"):
+        tops._check_k("topk_l2", tops.MAX_K + 1)
     with pytest.raises(ValueError):
         tops._check_k("topk_l2", 0)
     with pytest.raises(TypeError):
