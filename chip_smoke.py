@@ -14,7 +14,12 @@ Phases, each of which raises on failure (the script then exits non-zero):
              `pq_adc_lists` must be bitwise equal to their plain versions
              (`pq_adc_lists`, the IVF-PQ shortlist, also at ragged cases and
              on duplicate code rows whose ties straddle the kk-th slot),
-             `ivf_scan_lists` equal to it on small-integer ties;
+             `ivf_scan_lists` equal to it on small-integer ties; `ivf_scan`
+             (one clustered launch a call, ids out) at the IVF-PQ re-rank's
+             B 8 and 64 with 10% tombstoned and at k 64 / 160 / 400 / 1024,
+             on an LSH table at n 2000 and on the probe table of a batch (a
+             cluster of 16 blocks), and, in the shapes phase, one device
+             kernel a call with and without `valid` (torch.profiler);
              every kernel gets one row for each main-path shape
              (scripts/kernel_shapes.py's cases; the per-query `pq_adc`,
              off the main path now, keeps its rows for comparison), with the
@@ -113,8 +118,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
              launch the wgmma flash kernel once a layer, and the FMA one
              never;
 10. lm archs — the other six architectures card against CPU at SMOKE, the
-             flash kernels at their widths, and each at full width with its
-             depth cut;
+             flash kernels at their widths (hubert's (80, 80) in bf16 on the
+             wgmma kernel, in float32 on the FMA one), and each at full
+             width with its depth cut (hubert's encoder: its two flash
+             launches on the wgmma kernel at its key, none on the FMA one);
 11. train  — (c) the C5 checks: `topk_l2` (10% tombstoned), `ivf_scan_topk`
              and `ivf_scan_lists` at k 160, 400 and 1024 against their plain
              versions at k + 1, and ServerOracle(kmax=160) at 1M x 128 (4
@@ -234,12 +241,10 @@ KERNEL_META = {
                         "src/repro/kernels/flash_attention.py:100"),
 }
 # the row of each launch counter, where it is not the counter's name: the LM
-# path's flash_attention is the bf16 wgmma kernel; its float32 FMA sibling
-# (csrc/flash_attention.cu) takes float32 and D 16 / 32
+# path's flash_attention is the bf16 wgmma kernel (hubert-xlarge's (80, 80)
+# included); its float32 FMA sibling (csrc/flash_attention.cu) takes float32
+# at every width and bf16 at the check widths 16 / 24 / 32, off the main path
 ROW_OF = {"flash_attention_wgmma": "flash_attention"}
-# a row's source where the counter's kernel is not KERNEL_META's: the FMA
-# flash kernel's rows (hubert-xlarge's head width 80 in bf16)
-SOURCE_OF = {"flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu"}
 
 # the LM tier: qwen1.5-0.5b (src/repro/configs/qwen1_5_0_5b.py) at full
 # width, random weights from seed 0; an 8192-token cache takes the flash
@@ -423,6 +428,98 @@ def check_equal(torch, what, got, want) -> float:
     return 0.0
 
 
+# ivf_scan at the IVF-PQ re-rank's shapes: k beyond the main path's 64 (the
+# reference's benchmarks' 160 and 400, the cap), with 10% of the rows
+# tombstoned; an LSH table at n 2000 (the parity phase's settings); the
+# probe table (P ~66k) of a batch, which takes a cluster of 16 blocks
+IVF_SCAN_K = (64, 160, 400, 1024)
+
+
+def ivf_scan_checks(torch, ops, ref, catalog, reqs, ivf_index, pq_index, dev, g) -> float:
+    """`ivf_scan_topk` against its plain version at k + 1: the re-rank
+    tables of B 8 and 64 at IVF_SCAN_K with and without tombstones, an LSH
+    table at n 2000 (and LSHIndex.query equal to the direct call), and the
+    clustered probe table at B 8 with tombstones at k 64 and 1024.  Returns
+    the max abs error."""
+    from repro_torch.core import trace
+    from repro_torch.index.lsh import LSHIndex, dedup_to_minus_one
+    from repro_torch.kernels import _build
+
+    lib = _build.load("ivf_scan")
+    for d in (8, 16, 33, 128, 1024, 4096):
+        if lib.ivf_scan_smem_bytes(d) != ops.ivf_scan_smem_bytes_host(d):
+            raise AssertionError(f"ivf_scan smem at d={d}: host copy "
+                                 f"{ops.ivf_scan_smem_bytes_host(d)}, ivf_scan.cu "
+                                 f"{lib.ivf_scan_smem_bytes(d)}")
+    log("  ivf_scan's smem formula, host copy equal to the library's")
+    err = 0.0
+    valid = torch.rand(catalog.shape[0], device=dev, generator=g) > 0.1
+    for b in (8, 64):
+        q = reqs[:b].contiguous()
+        short = pq_index.shortlist(q, C_REMOTE)[1].contiguous()
+        for k in IVF_SCAN_K:
+            for v in (None, valid):
+                gd, gi = ops.ivf_scan_topk(q, catalog, short, k, valid=v)
+                wd, wi = ref.ivf_scan_ref(q, catalog, short, k + 1, v)
+                err = max(err, compare(
+                    torch, f"ivf_scan re-rank B={b} P={short.shape[1]} k={k}"
+                           f"{' 10% tombstoned' if v is not None else ''} (plan "
+                           f"{ops.ivf_scan_plan(b, short.shape[1], k)})", gd, wd, (gi, wi)))
+                if v is not None and bool((~v[gi.clamp_min(0).long()] & (gi >= 0)).any()):
+                    raise AssertionError(f"ivf_scan re-rank B={b} k={k}: a tombstone surfaced")
+    q = reqs[:8].contiguous()
+    cand = ivf_index.probe_table(q)
+    for k in (C_REMOTE, 1024):
+        gd, gi = ops.ivf_scan_topk(q, catalog, cand, k, valid=valid)
+        wd, wi = ref.ivf_scan_ref(q, catalog, cand, k + 1, valid)
+        err = max(err, compare(
+            torch, f"ivf_scan probe table B=8 P={cand.shape[1]} k={k} 10% tombstoned (plan "
+                   f"{ops.ivf_scan_plan(8, cand.shape[1], k)})", gd, wd, (gi, wi)))
+    cat, rq, _ = trace.sift_like(n=2000, d=16, t=64, seed=0)
+    lsh = LSHIndex(cat, **PARITY_SPECS["lsh"], device=dev)
+    for b in (8, 64):
+        q = torch.from_numpy(rq[:b]).to(dev).contiguous()
+        sig = torch.einsum("tbd,nd->ntb", lsh.planes, q) > 0
+        codes = (sig.long() * lsh._weights).sum(-1)
+        tab = torch.arange(lsh.tables, device=dev)[None, :]
+        cand = dedup_to_minus_one(lsh.buckets[tab, codes].reshape(b, -1)).contiguous()
+        for k in (10, C_REMOTE):
+            gd, gi = ops.ivf_scan_topk(q, lsh.embeddings, cand, k)
+            wd, wi = ref.ivf_scan_ref(q, lsh.embeddings, cand, k + 1)
+            err = max(err, compare(
+                torch, f"ivf_scan LSH table n=2000 B={b} P={cand.shape[1]} k={k} (plan "
+                       f"{ops.ivf_scan_plan(b, cand.shape[1], k)})", gd, wd, (gi, wi)))
+            qd, qi = lsh.query(q, k)
+            if not (torch.equal(qd, gd) and torch.equal(qi, gi)):
+                raise AssertionError(f"LSHIndex.query B={b} k={k}: differs from ivf_scan_topk")
+    return err
+
+
+def ivf_scan_kernels_a_call(torch, ops, catalog, reqs, pq_index, dev) -> None:
+    """torch.profiler: one device kernel (the ivf_scan kernel) per
+    `ivf_scan_topk` call at the re-rank shapes, with and without `valid`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    valid = torch.ones(catalog.shape[0], dtype=torch.bool, device=dev)
+    for b in (8, 64):
+        q = reqs[:b].contiguous()
+        short = pq_index.shortlist(q, C_REMOTE)[1].contiguous()
+        for v in (None, valid):
+            ops.ivf_scan_topk(q, catalog, short, C_REMOTE, valid=v)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(10):
+                    ops.ivf_scan_topk(q, catalog, short, C_REMOTE, valid=v)
+                torch.cuda.synchronize()
+            names = [e.name for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA]
+            what = f"ivf_scan_topk B={b}{' with valid' if v is not None else ''}"
+            log(f"  {what}: {len(names)} device kernels in 10 calls: {sorted(set(names))}")
+            if len(names) != 10 or not all("ivf_scan_kernel" in n for n in names):
+                raise AssertionError(f"{what}: {len(names)} device kernels in 10 calls, "
+                                     f"expected 10 ivf_scan kernels")
+
+
 # ivf_scan_lists' ragged cases: (n, d, nlist, B, nprobe, k), each run with
 # list 3 empty, ids tombstoned mid-list, the last query's last probe entry
 # naming no list, then with every query (and probe)
@@ -562,6 +659,7 @@ def shapes_phase(torch, ops, ref, catalog, reqs, ivf_index, pq_index, dev, churn
                                      f"{host}, pq_adc_lists.cu "
                                      f"{lib.pq_adc_lists_smem_bytes(gmax, m, c, run, kp)}")
     log("shapes: pq_adc_lists' smem formula, host copy equal to the library's")
+    ivf_scan_kernels_a_call(torch, ops, catalog, reqs, pq_index, dev)
     cases = kernel_shapes.cases(torch, ops, ref, catalog, reqs, ivf_index, pq_index, dev)
     n_main = len(cases)
     cases = cases + list(churn_cases)
@@ -592,8 +690,7 @@ def shapes_phase(torch, ops, ref, catalog, reqs, ivf_index, pq_index, dev, churn
         if c["row"]:
             counter, dims = c["key"]
             name = ROW_OF.get(counter, counter)
-            rows.append({"name": name, "route": "cuda",
-                         "source": SOURCE_OF.get(counter, KERNEL_META[name][0]),
+            rows.append({"name": name, "route": "cuda", "source": KERNEL_META[name][0],
                          "replaces": KERNEL_META[name][1], "launches": 0,
                          "max_abs_err": err, "ms": r["device_ms"], "call_ms": r["call_ms"],
                          "device_all_kernels_ms": r["device_all_ms"],
@@ -713,6 +810,8 @@ def kernel_phase(torch, ops, ref, catalog, reqs, ivf_index, pq_index, dev):
         if not (torch.equal(gd, wd) and torch.equal(gi, wi)):
             raise AssertionError(f"ivf_scan ties k={k}: differs from the plain version")
     log("  ivf_scan ties 3x9000 k=1,10,64,128: equal to the plain version")
+    errs["ivf_scan"] = max(errs["ivf_scan"], ivf_scan_checks(torch, ops, ref, catalog, reqs,
+                                                             ivf_index, pq_index, dev, g))
     errs["ivf_scan_lists"] = lists_checks(torch, ops, ref, dev, g)
     pq_lists_checks(torch, ops, ref, dev, g)
     # pq_adc at tests/test_kernels.py's four shapes, dense and gathered
@@ -746,10 +845,12 @@ def kernel_phase(torch, ops, ref, catalog, reqs, ivf_index, pq_index, dev):
         wd, wi = ref.ivf_scan_ref(q, catalog, cand, C_REMOTE + 1)
         errs["ivf_scan_lists"] = max(errs["ivf_scan_lists"], compare(
             torch, f"ivf_scan_lists B={b} P={cand.shape[1]}", gd, wd, (gi, wi)))
+        # the per-query kernel over the same (B, P) table: a cluster of 16
+        # blocks whose runs take five passes each
         hd, hi = ops.ivf_scan_topk(q, catalog, cand, C_REMOTE)
-        log(f"  ivf_scan_lists B={b}: ids equal to the per-query ivf_scan's for "
-            f"{float((gi == hi).float().mean())} of slots, max distance difference "
-            f"{float((gd - hd).abs().max())}")
+        errs["ivf_scan"] = max(errs["ivf_scan"], compare(
+            torch, f"ivf_scan probe table B={b} P={cand.shape[1]} (plan "
+                   f"{ops.ivf_scan_plan(b, cand.shape[1], C_REMOTE)})", hd, wd, (hi, wi)))
 
         # pq_adc_lists: the IVF-PQ index's shortlist (kk = refine * k), bitwise
         probe = pq_index.probe_lists(q)
@@ -769,8 +870,8 @@ def kernel_phase(torch, ops, ref, catalog, reqs, ivf_index, pq_index, dev):
         gd, gi = ops.ivf_scan_topk(q, catalog, short, C_REMOTE)
         wd, wi = ref.ivf_scan_ref(q, catalog, short, C_REMOTE + 1)
         errs["ivf_scan"] = max(errs["ivf_scan"], compare(
-            torch, f"ivf_scan re-rank B={b} P={short.shape[1]} (chunks "
-                   f"{ops.ivf_scan_chunks(b, short.shape[1], C_REMOTE)})", gd, wd, (gi, wi)))
+            torch, f"ivf_scan re-rank B={b} P={short.shape[1]} (plan "
+                   f"{ops.ivf_scan_plan(b, short.shape[1], C_REMOTE)})", gd, wd, (gi, wi)))
 
         # pq_adc: the per-query ADC scan over the probe table (off the main
         # path since the list-major shortlist; still bitwise)
@@ -2406,14 +2507,18 @@ LM_ARCHS = ("deepseek-v3-671b", "mixtral-8x22b", "mamba2-130m", "jamba-1.5-large
 LM_ARCHS_TOL = 1e-4
 # flash checks at the new widths against the plain version (name, B, S, T, H,
 # KV, Dk, Dv, bf16, causal, window, q_offset, written_upto): the wgmma kernel
-# at deepseek-v3's (192, 128), the FMA kernel at hubert's (80, 80) in bf16
-# and at deepseek's SMOKE (24, 16) in float32; S and T off the tiles
+# at deepseek-v3's (192, 128) and hubert's (80, 80) in bf16 (rows of 80 as two
+# 64-column TMA boxes, the second zero past column 80), the FMA kernel at
+# (80, 80), deepseek's SMOKE (24, 16) and (192, 128) in float32; S and T off
+# the tiles
 FLASH_DKDV_CHECKS = [
     ("MLA causal written_upto", 1, 333, 1000, 8, 8, 192, 128, True, True, 0, 500, 833),
     ("MLA B 2 GQA", 2, 257, 513, 8, 2, 192, 128, True, True, 0, 0, 300),
     ("MLA window", 1, 200, 700, 4, 4, 192, 128, True, True, 128, 300, 700),
     ("width 80 bidirectional", 2, 300, 1000, 4, 4, 80, 80, True, False, 0, 0, None),
     ("width 80 causal offset", 1, 130, 400, 4, 2, 80, 80, True, True, 0, 270, 400),
+    ("width 80 window written_upto", 1, 257, 700, 4, 4, 80, 80, True, True, 128, 300, 650),
+    ("width 80 float32", 1, 130, 400, 4, 2, 80, 80, False, True, 0, 270, 400),
     ("SMOKE MLA float32", 2, 100, 300, 4, 4, 24, 16, False, True, 0, 200, 290),
     ("MLA float32", 1, 100, 300, 4, 4, 192, 128, False, True, 0, 200, 290),
 ]
@@ -2657,6 +2762,15 @@ def lm_archs_rest(torch, ops, dev, card: str) -> None:
         if sum(flash.values()) != n_attn:
             raise AssertionError(f"lm_archs {arch}: {sum(flash.values())} flash launches for "
                                  f"{n_attn} attention layers")
+        if cfg.modality == "audio":
+            # hubert's (80, 80) encoder on the wgmma kernel, the FMA one never
+            key = ops.flash_key((1, s, cfg.n_heads, cfg.head_dim),
+                                (1, s, cfg.n_kv_heads, cfg.head_dim), False, 0, s)
+            at_key = flash.get(("flash_attention_wgmma", key), 0)
+            if ops.LAUNCHES["flash_attention"] or at_key != n_attn:
+                raise AssertionError(f"lm_archs {arch}: {ops.LAUNCHES['flash_attention']} FMA "
+                                     f"flash launches and {at_key} wgmma ones at {key}, "
+                                     f"expected 0 and {n_attn}")
         del params
         torch.cuda.empty_cache()
 

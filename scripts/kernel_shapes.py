@@ -43,7 +43,8 @@ semantic tier's prompts) and at 4096 tokens (the engine's 2048-8000), and
 at the other architectures' prefills (FLASH_LM): deepseek-v3's MLA (Dk
 192, Dv 128, 128 heads, 8000 tokens into an 8192-token cache), mixtral's
 sliding window, qwen2-vl's patch prefix and hubert's bidirectional
-encoder at head width 80 (the FMA kernel).
+encoder at head width 80 (the wgmma kernel; the float32 FMA kernel it ran
+on before is timed beside it, off the main path).
 The churn path's shapes (`churn_cases`, over `churn_state`: the flat, IVF
 and IVF-PQ indexes of the first half of the catalog after 205 one-row
 inserts and the expiry of the 205 oldest rows, the state a rolling window
@@ -65,7 +66,9 @@ all the call's kernels beside its own (the merge's sort included), the
 designs the wrappers choose between by shape: `pairwise_l2`'s 64 x 64 and
 32 x 32 tiles at the shapes that take the 64 x 64 tile, the IVF probe at
 B 1 to 64 by the per-query kernel, by the list-major one as planned, and
-by the list-major one at 1 to 5 runs a list, and the IVF-PQ shortlist at
+by the list-major one at 1 to 5 runs a list, the IVF-PQ re-rank at B 1 to
+64 by `ivf_scan` as planned and over clusters of 1, 2, 4 and 8 blocks a
+query, and the IVF-PQ shortlist at
 B 1 to 64 by `pq_adc_lists` at each group size (gmax 8, 4, 2) and split
 of a list's groups over blocks (qsplit 1, 2, 4, 8); names after
 `--designs` keep those kernels' designs only.  Needs a CUDA card.
@@ -481,9 +484,10 @@ def cases(torch, ops, ref, catalog, reqs, ivf_index, pq_index, dev, wide=True):
 def lm_flash_cases(torch, ops, ref, dev) -> list:
     """The flash kernels at the other architectures' prefills (FLASH_LM),
     as `cases` dicts: bf16 inputs drawn from a generator, the kernel the
-    wrapper picks (wgmma, or the FMA kernel at hubert's width 80), the
-    plain version on float32 copies, masked scaled_dot_product_attention
-    on k / v expanded to every head as the library yardstick."""
+    wrapper picks (the wgmma one at every FLASH_LM width), the plain
+    version on float32 copies, masked scaled_dot_product_attention on k /
+    v expanded to every head as the library yardstick; and hubert's shape
+    once more on the float32 FMA kernel it ran on before (no row)."""
     out = []
     for i, (label, b, s_len, t, h, kv, dk, dv, causal, window, wu) in enumerate(FLASH_LM):
         g = torch.Generator(device=dev).manual_seed(11 + i)
@@ -522,6 +526,29 @@ def lm_flash_cases(torch, ops, ref, dev) -> list:
                               2.0 * (dk + dv) * h * pairs, BF16_FLOPS),
             "main": True, "row": True, "check": "bf16", "all_kernels": False,
             "iters": 5})
+        if dk == 80 and counter == "flash_attention_wgmma":
+            out.append(dict(out[-1], kernel="flash_attention_fma", key=None, main=False,
+                            row=False, label=f"{label}, on the FMA kernel (before)",
+                            fn=lambda qf=qf, kf=kf, vf=vf, wuu=wuu, c=causal, w=window:
+                            _fma_flash(torch, qf, kf, vf, c, w, wuu)))
+    return out
+
+
+def _fma_flash(torch, q, k, v, causal, window, written_upto):
+    """The float32 FMA flash kernel (csrc/flash_attention.cu) on bf16
+    inputs, called straight through its library: the kernel bf16 took at
+    widths the wgmma kernel did not."""
+    from repro_torch.kernels import _build
+
+    b, s, h, dk = q.shape
+    t, kv, dv = k.shape[1], k.shape[2], v.shape[3]
+    out = torch.empty((b, s, h, dv), dtype=q.dtype, device=q.device)
+    rc = _build.load("flash_attention").flash_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, t, h, kv, dk, dv,
+        int(causal), window, 0, written_upto, 1.0 / dk ** 0.5, 1,
+        torch.cuda.current_stream().cuda_stream)
+    if rc:
+        raise RuntimeError(f"flash_attention (FMA) failed with CUDA error {rc}")
     return out
 
 
@@ -676,6 +703,23 @@ def _forced_probe(ops, nruns):
     return ctx()
 
 
+def _forced_scan(ops, cluster):
+    """A context in which `ivf_scan_topk` splits every table over a cluster
+    of `cluster` blocks (None: as planned)."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def ctx():
+        saved = ops.ivf_scan_plan
+        if cluster is not None:
+            ops.ivf_scan_plan = lambda b, p, k: (cluster, -(-p // cluster), cluster)
+        try:
+            yield
+        finally:
+            ops.ivf_scan_plan = saved
+    return ctx()
+
+
 def _forced_pq(ops, gmax, qsplit):
     """A context in which `pq_shortlist_lists` holds gmax queries a group
     and splits a list's groups over qsplit blocks (the runs as planned)."""
@@ -735,6 +779,16 @@ def design_cases(torch, ops, catalog, reqs, ivf_index, pq_index, dev):
             runs = "as planned" if nruns is None else f"{nruns} runs a list"
             out.append({"kernel": "ivf_scan", "label": f"IVF probe B {b} list-major {runs}",
                         "shape": shape, "fn": fn, "iters": 20})
+        short = pq_index.shortlist(q, K_REMOTE)[1].contiguous()
+        for cluster in (None, 1, 2, 4, 8):
+            def fn(q=q, short=short, cluster=cluster):
+                with _forced_scan(ops, cluster):
+                    return ops.ivf_scan_topk(q, catalog, short, K_REMOTE)
+            how = (f"as planned {ops.ivf_scan_plan(b, short.shape[1], K_REMOTE)}"
+                   if cluster is None else f"cluster {cluster}")
+            out.append({"kernel": "ivf_scan", "label": f"IVF-PQ re-rank B {b} {how}",
+                        "shape": f"B={b} P={short.shape[1]} k={K_REMOTE}", "fn": fn,
+                        "iters": 50})
         kk = REFINE * K_REMOTE
         probe = pq_index.probe_lists(q)
         lut = pq_index.codec.adc_lut(q)

@@ -35,9 +35,8 @@ _SIGNATURES = {
         "l2_topk_smem_bytes": (ctypes.c_longlong, [_I, _I, _I]),
     },
     "ivf_scan": {
-        "ivf_scan_partial": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                  _I, _I, _P]),
-        "ivf_scan_smem_bytes": (ctypes.c_longlong, [_I, _I]),
+        "ivf_scan_topk": (_I, [_P] * 6 + [_I] * 8 + [_P]),
+        "ivf_scan_smem_bytes": (_L, [_I]),
     },
     "ivf_scan_lists": {
         "ivf_scan_lists": (_I, [_P] * 9 + [_I] * 10 + [_P]),

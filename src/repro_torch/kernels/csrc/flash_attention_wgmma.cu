@@ -1,15 +1,15 @@
 // flash_attention_wgmma: FlashAttention-2 forward in bf16 on Hopper's tensor
 // cores: wgmma products, Q, K and V fed by TMA through a ring of shared-
 // memory stages, the online softmax in registers.  Head widths (DK, DV) of
-// q / k and of v: (64, 64), (128, 128) and (192, 128).
+// q / k and of v: (64, 64), (80, 80), (128, 128) and (192, 128).
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py:
 // flash_attention_pallas / _flash_kernel (and the reference's XLA flash
 // path `_sdpa_flash`) for bf16 inputs at those widths: the main path's
-// types and widths (qwen1.5-0.5b D 64; yi-6b, minitron-8b, qwen2-72b,
-// mixtral-8x22b, qwen2-vl-7b, jamba D 128; deepseek-v3's MLA prefill
-// DK 192 = nope 128 + rope 64, DV 128).  float32 inputs and the other
-// widths (hubert-xlarge's 80) keep flash_attention.cu.
+// types and widths (qwen1.5-0.5b D 64; hubert-xlarge D 80; yi-6b,
+// minitron-8b, qwen2-72b, mixtral-8x22b, qwen2-vl-7b, jamba D 128;
+// deepseek-v3's MLA prefill DK 192 = nope 128 + rope 64, DV 128).  float32
+// inputs and the small check widths keep flash_attention.cu.
 //
 // Contract: as flash_attention.cu.  q (B, S, H, DK), k (B, T, KV, DK), v
 // (B, T, KV, DV) contiguous bf16, 16-byte aligned; out (B, S, H, DV) bf16.
@@ -31,17 +31,23 @@
 //     (one thread issues TMA; setmaxnreg gives its registers away) and two
 //     consumer warpgroups of 64 rows each;
 //   - the producer loads the Q tile once and K / V tiles of BK keys (128 at
-//     DK 64, 64 at DK 128 and 192) into a 3-stage ring, each stage guarded
-//     by a full and an empty mbarrier.  k and v are (B, T, KV, D): a tile's
-//     rows are KV * D apart, so the loads go through 4-d tensor maps (built
-//     on the host per call), with 128-byte swizzle; a row wider than 64 is
+//     DK 64 and 80, 64 at DK 128 and 192) into a 3-stage ring, each stage
+//     guarded by a full and an empty mbarrier.  k and v are (B, T, KV, D):
+//     a tile's rows are KV * D apart, so the loads go through 4-d tensor
+//     maps (built on the host per call), with 128-byte swizzle; a row wider
+//     than 64 is
 //     loaded as 64-column parts (three for DK 192: Q 48 KB, a stage of K
-//     24 KB and of V 16 KB, 169 KB in all with the ring).  The K / V maps
-//     end at written_upto, so keys past it read as zeros, never as
-//     whatever the cache holds there;
-//   - S = Q K^T is wgmma m64nBKk16 over DK / 16 k-steps (12 at DK 192),
-//     bf16 operands from shared memory (both K-major, as loaded), float32
-//     accumulator;
+//     24 KB and of V 16 KB, 169 KB in all with the ring).  A row of 80
+//     takes two parts, the second 16 real columns and 48 zeros: the maps
+//     end at the row's width and TMA fills columns past it with zeros, and
+//     the transaction count of a box is its full bytes, zeros included
+//     (Q 32 KB, a stage of K and of V 32 KB each, 225 KB in all).  The
+//     K / V maps end at written_upto, so keys past it read as zeros, never
+//     as whatever the cache holds there;
+//   - S = Q K^T is wgmma m64nBKk16 over DK / 16 k-steps (12 at DK 192; 5
+//     at DK 80, four in part 0 and one in part 1: the zero columns are
+//     never multiplied), bf16 operands from shared memory (both K-major, as
+//     loaded), float32 accumulator;
 //   - the online softmax runs on the accumulator fragment: each thread
 //     holds two rows, row max by quad shuffles, the row sum kept per thread
 //     and reduced once at the end.  Masks are computed from positions, and
@@ -53,7 +59,9 @@
 //     - p2), whose sum is p to float32's 24 bits, and three wgmma m64nDVk16
 //     per 16 keys take them as A from registers (the accumulator fragment
 //     is the A fragment's layout) against the V tile in shared memory,
-//     read N-major through the transpose bit, into a per-tile accumulator
+//     read N-major through the transpose bit (at DV 80, n80 reads part 0
+//     and the first 16 columns of part 1 through the descriptor n128
+//     uses), into a per-tile accumulator
 //     that float32 FMAs add to o (o = o * rescale + pv): wgmma's float32
 //     accumulation truncates, so accumulating across tiles in it drifted
 //     by ~1e-6 on outputs near 0 over deepseek-v3's 8000-key rows (on an
@@ -81,15 +89,18 @@ constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;  // 128*24 + 256*240 <= 6
 constexpr int LINE = 128;     // bytes of one swizzled shared-memory row: 64 bf16
 constexpr float LOG2E = 1.4426950408889634f;
 
-// q and k rows of DK columns, v and out rows of DV
+// q and k rows of DK columns, v and out rows of DV; a row is held as
+// 64-column parts of LINE bytes, the last part's columns past the width
+// zero (TMA's out-of-bounds fill), and the byte counts are the parts' full
+// boxes, which is what each TMA box's transaction count adds
 template <int DK, int DV>
 struct Tile {
-  static constexpr int BK = DK == 64 ? 128 : 64;  // keys a tile
-  static constexpr int QK_PARTS = DK / 64;        // 64-column parts of a q / k row
-  static constexpr int V_PARTS = DV / 64;         // 64-column parts of a v row
-  static constexpr int Q_BYTES = BM * DK * 2;
-  static constexpr int K_BYTES = BK * DK * 2;     // one K stage
-  static constexpr int V_BYTES = BK * DV * 2;     // one V stage
+  static constexpr int BK = DK <= 80 ? 128 : 64;     // keys a tile
+  static constexpr int QK_PARTS = (DK + 63) / 64;    // 64-column parts of a q / k row
+  static constexpr int V_PARTS = (DV + 63) / 64;     // 64-column parts of a v row
+  static constexpr int Q_BYTES = BM * QK_PARTS * LINE;
+  static constexpr int K_BYTES = BK * QK_PARTS * LINE;  // one K stage
+  static constexpr int V_BYTES = BK * V_PARTS * LINE;   // one V stage
   // 1024-byte alignment slack (the swizzle atom), the tiles, 1 + 2 * STAGES
   // mbarriers
   static constexpr int SMEM =
@@ -165,6 +176,26 @@ __device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d (64 x 80, f32) += A (64 x 16, bf16 fragments in registers) . B (16 x 80,
+// bf16 in shared memory, N-major: the transpose bit is set), 128-byte
+// swizzle: columns 0-63 from the first 64-column part, 64-79 from the next
+__device__ __forceinline__ void wgmma_rs_n80(float* d, const uint32_t* a,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39}, "
+      "{%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // d (64 x 128, f32) += A (64 x 16, bf16 fragments in registers) . B (16 x 128,
 // bf16 in shared memory, N-major: the transpose bit is set), 128-byte swizzle
 __device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a,
@@ -198,6 +229,7 @@ __device__ __forceinline__ void wgmma_qk(float* d, uint64_t da, uint64_t db, int
 template <int DV>
 __device__ __forceinline__ void wgmma_pv(float* d, const uint32_t* a, uint64_t db) {
   if constexpr (DV == 64) wgmma_rs_n64(d, a, db);
+  else if constexpr (DV == 80) wgmma_rs_n80(d, a, db);
   else wgmma_rs_n128(d, a, db);
 }
 
@@ -457,7 +489,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int S,
 
 // q (B, S, H, DK), k (B, T, KV, DK), v (B, T, KV, DV), out (B, S, H, DV):
 // contiguous bf16 on the device, 16-byte aligned.  (DK, DV) in {(64, 64),
-// (128, 128), (192, 128)}, H % KV == 0, written_upto <= T (the wrapper
+// (80, 80), (128, 128), (192, 128)}, H % KV == 0, written_upto <= T (the wrapper
 // passes T for None).  Launches on `stream` and returns a CUDA error code as
 // an int (0 on success).
 extern "C" int flash_attention_wgmma(const void* q, const void* k, const void* v, void* out,
@@ -472,6 +504,7 @@ extern "C" int flash_attention_wgmma(const void* q, const void* k, const void* v
     return launch<dk, dv>(q, k, v, out, B, S, T, H, KV, causal, window, q_offset, written_upto, \
                           scale, s);
   FLASH_CASE(64, 64)
+  FLASH_CASE(80, 80)
   FLASH_CASE(128, 128)
   FLASH_CASE(192, 128)
 #undef FLASH_CASE

@@ -18,8 +18,8 @@ from repro_torch.kernels import _build, ref
 
 # kernel launches since the last reset_launches(), by kernel; flash_attention
 # has two: "flash_attention" (float32 FMA products: float32 inputs, and bf16
-# at the head widths TMA's 64-column boxes do not tile) and
-# "flash_attention_wgmma" (bf16 on the tensor cores at FLASH_WGMMA_HEAD_DIMS);
+# at the small check widths) and "flash_attention_wgmma" (bf16 on the
+# tensor cores at FLASH_WGMMA_HEAD_DIMS);
 # the IVF probe's list-major scan counts as "ivf_scan_lists", apart from the
 # per-query "ivf_scan"; the IVF-PQ shortlist's list-major scan as
 # "pq_adc_lists", apart from the per-query "pq_adc"; pairwise_l2_batched
@@ -49,8 +49,10 @@ _TOPK_TARGET_BLOCKS = 132
 # (`topk_l2_bound`), from catalogs of TOPK_SAMPLE_MIN_N rows on: on
 # smaller ones the sample is too large a share of the catalog to pay
 TOPK_SAMPLE, TOPK_SAMPLE_MIN_N = 16384, 131072
-IVF_MIN_RUN = 32     # an ivf_scan block selects k of at least this many x k
-_IVF_WARPS = 8       # warps of an ivf_scan block
+# ivf_scan: slots a block scores before it selects (csrc/ivf_scan.cu's
+# PASS), the shortest run a block takes (its 8 warps' 8 slots in flight),
+# and the most blocks a query's cluster holds (non-portable above 8)
+IVF_PASS, IVF_MIN_RUN, IVF_MAX_CLUSTER = 1024, 64, 16
 # ivf_scan_lists: rows of up to 256 floats (32-row tiles in a 2-stage ring
 # and 8 queries in shared memory); lists cut into runs of at least
 # _LISTS_MIN_RUN * k slots for about _LISTS_TARGET_BLOCKS blocks
@@ -69,8 +71,9 @@ PQ_MAX_C = 256       # pq_adc codes are uint8
 # small widths of the kernel checks
 FLASH_HEAD_DIMS = ((16, 16), (24, 16), (32, 32), (64, 64), (80, 80), (128, 128),
                    (192, 128))
-# of which bf16 takes flash_attention_wgmma (64-column TMA boxes tile them)
-FLASH_WGMMA_HEAD_DIMS = ((64, 64), (128, 128), (192, 128))
+# of which bf16 takes flash_attention_wgmma (rows as 64-column TMA boxes;
+# hubert's 80 as two, the second zero past column 80)
+FLASH_WGMMA_HEAD_DIMS = ((64, 64), (80, 80), (128, 128), (192, 128))
 TOPK_BN = 128        # catalog rows of an l2_topk tile
 _TOPK_DK, _TOPK_STAGES = 64, 2  # l2_topk's chunk depth and ring (l2_topk.cu)
 _PQ_THREADS = 256    # threads of a pq_adc block, one slot each at a time
@@ -417,31 +420,29 @@ def topk_l2_fused(q: torch.Tensor, x: torch.Tensor, k: int, *, chunk: int,
     return topk_l2(q, x, k, valid=valid)
 
 
-def _fold_tombstones(cand: torch.Tensor, valid: torch.Tensor, n: int):
-    """Candidate ids whose row is tombstoned become -1 slots, so a removed
-    object never surfaces from a stale list (one gather + where)."""
-    safe = torch.clamp(cand, 0, n - 1).long()
-    return torch.where((cand >= 0) & valid[safe], cand,
-                       torch.full_like(cand, -1))
+def ivf_scan_smem_bytes_host(d: int) -> int:
+    """A host copy of ivf_scan.cu's `smem_bytes`: 2 * IVF_PASS 64-bit keys
+    (the kept k and a pass's new ones), a pass's IVF_PASS ids and the
+    query's D floats.  chip_smoke.py holds it equal to the library's."""
+    return 8 * 2 * IVF_PASS + 4 * IVF_PASS + 4 * d
 
 
-def ivf_scan_chunks(b: int, p: int, k: int) -> tuple[int, int]:
-    """(run of P per block, blocks per query) of an `ivf_scan` launch.
-
-    Enough blocks for a few waves over the SMs, but every run at least
-    IVF_MIN_RUN * k slots long: each block writes its k best, so the kernel
-    keeps about one slot in IVF_MIN_RUN and the merge sorts P / IVF_MIN_RUN
-    partials a query, not P.  A short table (one such run a query, as the
-    IVF-PQ re-rank's 256 slots at k 64) is split instead into runs of at
-    least 16 slots a warp until the batch's blocks cover the SMs: there
-    the time is one block's walk, not the merge."""
-    target = max(1, _TARGET_BLOCKS * 2 // max(b, 1))
-    chunk = max(256, IVF_MIN_RUN * k, -(-p // target))
-    if chunk >= p:
-        per_query = -(-_SMS // max(b, 1))
-        chunk = max(16 * _IVF_WARPS, -(-p // per_query))
-        chunk = -(-chunk // 32) * 32
-    return chunk, -(-p // chunk)
+def ivf_scan_plan(b: int, p: int, k: int) -> tuple[int, int, int]:
+    """(blocks a query, run, cluster size) of an `ivf_scan` launch: the
+    table is split into equal runs of at least IVF_MIN_RUN slots over a
+    cluster of up to IVF_MAX_CLUSTER blocks, one run a block (walked in
+    passes of IVF_PASS slots where it is longer), whose k-lists are merged
+    inside the launch through distributed shared memory.  A block's time is
+    a chain of dependent reads (ids, then rows, IVF_MIN_RUN rows in flight
+    a block), so the IVF-PQ re-rank's 256 slots take 4 blocks of one round
+    each, not one block of four.  Every k up to MAX_K fits a pass's keys
+    beside the kept ones.  Host arithmetic; b does not enter (a cluster is
+    a query's)."""
+    _check_k("ivf_scan_topk", k)
+    if b < 1 or p < 1:
+        raise ValueError(f"ivf_scan_plan: B = {b}, P = {p}")
+    c = min(IVF_MAX_CLUSTER, -(-p // IVF_MIN_RUN))
+    return c, -(-p // c), c
 
 
 def ivf_scan_topk(q: torch.Tensor, x: torch.Tensor, cand: torch.Tensor, k: int,
@@ -449,16 +450,15 @@ def ivf_scan_topk(q: torch.Tensor, x: torch.Tensor, cand: torch.Tensor, k: int,
     """Fused gather + L2 + top-k over per-query candidate ids.
 
     q (B, D), x (N, D), cand (B, P) int32 with -1 = invalid slot.  Returns
-    (dists (B, k), ids (B, k) int32); underflowing slots (fewer than k
-    valid candidates, including k > P) come back as +inf / -1.  `valid`
-    (N,) bool folds tombstoned ids into -1 before the scan.  On CUDA,
-    k <= MAX_K (larger k raises NotImplementedError)."""
-    if valid is not None:
-        cand = _fold_tombstones(cand, valid, x.shape[0])
-    if not _on_cuda(q, x, cand):
-        return ref.ivf_scan_ref(q, x, cand, k)
+    (dists (B, k), ids (B, k) int32), ties to the lowest position;
+    underflowing slots (fewer than k valid candidates, including k > P)
+    come back as +inf / -1.  `valid` (N,) bool marks live rows: a
+    tombstoned id is an invalid slot.  On CUDA one `ivf_scan` launch
+    (`ivf_scan_plan`) returns the final outputs, the tombstones read in the
+    kernel; k <= MAX_K (larger k raises NotImplementedError)."""
+    if not _on_cuda(q, x, cand, *([] if valid is None else [valid])):
+        return ref.ivf_scan_ref(q, x, cand, k, valid)
     _ieee_fp32()
-    _check_k("ivf_scan_topk", k)
     _check("ivf_scan_topk q", q, torch.float32, 2)
     _check("ivf_scan_topk x", x, torch.float32, 2)
     _check("ivf_scan_topk cand", cand, torch.int32, 2)
@@ -471,23 +471,24 @@ def ivf_scan_topk(q: torch.Tensor, x: torch.Tensor, cand: torch.Tensor, k: int,
         raise ValueError(f"ivf_scan_topk: empty input, B = {b}, P = {p}")
     if b > 65535:
         raise NotImplementedError(f"ivf_scan_topk: B = {b} exceeds the grid")
-    lib = _build.load("ivf_scan")
-    if lib.ivf_scan_smem_bytes(d, k) > SMEM_LIMIT:
+    if valid is not None:
+        _check("ivf_scan_topk valid", valid, torch.bool, 1)
+        if valid.shape[0] != x.shape[0]:
+            raise ValueError("ivf_scan_topk: valid must have one entry per row")
+    if ivf_scan_smem_bytes_host(d) > SMEM_LIMIT:
         raise NotImplementedError(
-            f"ivf_scan_topk: D = {d}, k = {k} need more shared memory than "
-            f"a block has")
-    chunk, nchunks = ivf_scan_chunks(b, p, k)
-    pd = torch.empty((b, nchunks * k), dtype=torch.float32, device=q.device)
-    pp = torch.empty(pd.shape, dtype=torch.int32, device=q.device)
-    rc = lib.ivf_scan_partial(
-        q.data_ptr(), x.data_ptr(), cand.data_ptr(), pd.data_ptr(), pp.data_ptr(),
-        b, x.shape[0], d, p, k, chunk, nchunks, _stream())
+            f"ivf_scan_topk: D = {d} needs more shared memory than a block has")
+    _, run, cluster = ivf_scan_plan(b, p, k)
+    dists = torch.empty((b, k), dtype=torch.float32, device=q.device)
+    ids = torch.empty((b, k), dtype=torch.int32, device=q.device)
+    rc = _build.load("ivf_scan").ivf_scan_topk(
+        q.data_ptr(), x.data_ptr(), cand.data_ptr(),
+        None if valid is None else valid.data_ptr(), dists.data_ptr(), ids.data_ptr(),
+        b, x.shape[0], d, p, k, run, cluster, int(d % 4 == 0 and x.data_ptr() % 16 == 0),
+        _stream())
     _raise_on(rc, "ivf_scan")
     _count("ivf_scan", (b, p, d, k))
-    vals, ppos = _merge_partials(pd, pp, k)
-    ids = torch.gather(cand, 1, torch.clamp_min(ppos, 0).long())
-    ids = torch.where(torch.isfinite(vals), ids, torch.full_like(ids, -1))
-    return vals, ids
+    return dists, ids
 
 
 def invlist_lengths(invlists: torch.Tensor) -> torch.Tensor:
@@ -849,14 +850,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     CUDA: contiguous float32 or bf16 tensors of one dtype, (Dk, Dv) in
     FLASH_HEAD_DIMS; anything else raises.  The kernel is chosen by
     (dtype, Dk, Dv), explicitly (`flash_kernel_for`):
-      - bf16 at a pair of FLASH_WGMMA_HEAD_DIMS ((64, 64), (128, 128),
-        (192, 128): the LM path's types and widths): `flash_attention_wgmma`,
-        wgmma on the tensor cores with TMA-fed Q / K / V and p split into
-        three bf16 parts; the tensors must start on 16 bytes (TMA);
+      - bf16 at a pair of FLASH_WGMMA_HEAD_DIMS ((64, 64), (80, 80),
+        (128, 128), (192, 128): the LM path's types and widths):
+        `flash_attention_wgmma`, wgmma on the tensor cores with TMA-fed
+        Q / K / V and p split into three bf16 parts; the tensors must
+        start on 16 bytes (TMA);
       - float32 at any pair of FLASH_HEAD_DIMS, and bf16 at the others
-        (hubert-xlarge's (80, 80) among them): `flash_attention`, float32
-        FMA products (float32 is held to 1e-4, which tensor cores cannot
-        promise).
+        (the SMOKE and check widths (16, 16), (24, 16), (32, 32)):
+        `flash_attention`, float32 FMA products (float32 is held to 1e-4,
+        which tensor cores cannot promise).
     Either kernel raises when its build or launch fails; neither falls
     back to the other."""
     if not _on_cuda(q, k, v):

@@ -122,12 +122,16 @@ def test_ops_dispatches_cpu_tensors_to_the_plain_version():
     assert got16.dtype == torch.bfloat16 and got16.shape == q.shape
 
 
-# The CUDA kernel's numerics for bf16 at D 64 / 128
+# The CUDA kernel's numerics for bf16 at D 64 / 80 / 128
 # (csrc/flash_attention_wgmma.cu), emulated in plain torch: K / V tiles of
 # the kernel's width, logits and the online softmax in float32 as the
 # reference keeps them, and p . V with p cut into `parts` bf16 terms (p1 =
 # bf16(p), p2 = bf16(p - p1), ...) against bf16 V, summed in float32; the
-# output is rounded to bf16.  parts=None keeps the float32 p.  The check
+# output is rounded to bf16.  parts=None keeps the float32 p.  With
+# `ksteps`, rows are held as the kernel's shared-memory tiles, 64-column
+# parts zero past the row's width (TMA's fill), S is summed over `ksteps`
+# products of 16 columns, and p . V reads the first `pv_n` columns of the
+# V parts (wgmma's n).  The check
 # is chip_smoke.py's: within one bf16 rounding of the float32 plain
 # version fed the same bf16 inputs, |got - want| <= 2^-8 |want| + 1e-6.
 BF16_REL, F32_FLOOR = 2.0 ** -8, 1e-6
@@ -135,11 +139,16 @@ GQA_D128 = (1, 256, 512, 8, 2, 128, True, 0)
 
 
 def _kernel_tile(d):
-    return 128 if d <= 64 else 64
+    return 128 if d <= 80 else 64
+
+
+def _parts(a):
+    """a's last dim as the kernel's 64-column parts, zero past its width."""
+    return torch.nn.functional.pad(a, (0, -a.shape[-1] % 64))
 
 
 def _flash_bf16_emulation(q, k, v, parts, *, causal, window, q_offset,
-                          written_upto, round_out=True):
+                          written_upto, round_out=True, ksteps=None, pv_n=None):
     b, s, h, dd = q.shape
     t, kvh, dv = k.shape[1], k.shape[2], v.shape[3]
     bk = _kernel_tile(dd)
@@ -147,10 +156,20 @@ def _flash_bf16_emulation(q, k, v, parts, *, causal, window, q_offset,
     q_pos = q_offset + torch.arange(s)
     m = torch.full((b, kvh, h // kvh, s), float("-inf"))
     l = torch.zeros_like(m)
-    acc = torch.zeros((b, kvh, h // kvh, s, dv))
+    acc = torch.zeros((b, kvh, h // kvh, s, dv if pv_n is None else pv_n))
     for j in range(0, t, bk):
         kb, vb = k[:, j:j + bk].float(), v[:, j:j + bk].float()
-        logits = torch.einsum("bskgd,btkd->bkgst", qg, kb) / dd ** 0.5
+        if ksteps is None:
+            logits = torch.einsum("bskgd,btkd->bkgst", qg, kb)
+        else:
+            qp, kp = _parts(qg), _parts(kb)
+            logits = 0.0
+            for kk in range(16 * ksteps)[::16]:
+                logits = logits + torch.einsum("bskgd,btkd->bkgst", qp[..., kk:kk + 16],
+                                               kp[..., kk:kk + 16])
+        if pv_n is not None:
+            vb = _parts(vb)[..., :pv_n]
+        logits = logits / dd ** 0.5
         k_pos = j + torch.arange(kb.shape[1])
         ok = (k_pos[None, :] < written_upto).expand(s, -1).clone()
         if causal:
@@ -173,7 +192,7 @@ def _flash_bf16_emulation(q, k, v, parts, *, causal, window, q_offset,
                 rest = rest - term
         acc = acc * rescale[..., None] + pv
         m = m_new
-    out = (acc / torch.clamp_min(l, 1e-30)[..., None]).permute(0, 3, 1, 2, 4)
+    out = (acc[..., :dv] / torch.clamp_min(l, 1e-30)[..., None]).permute(0, 3, 1, 2, 4)
     out = out.reshape(b, s, h, dv)
     return out.bfloat16() if round_out else out
 
@@ -248,3 +267,43 @@ def test_bf16_kernel_numerics_at_dk_192_dv_128(shape):
     assert got.shape == want.shape
     assert _ratio(got, want) <= 1.0
     assert _ratio(_flash_bf16_emulation(q, k, v, 1, **kw), want) > 10.0
+
+
+# hubert-xlarge's (80, 80) on the wgmma kernel: q, k and v rows as two
+# 64-column parts, columns 80-127 zero; S over 5 k-steps (four in part 0,
+# one in part 1), p . V by n80 over the two V parts, 128-key tiles; full
+# (hubert's encoder) and causal masks, S and T off the tile
+WIDTH80_BF16 = [(2, 48, 48, 4, 4, 80, False, 0), (1, 130, 200, 4, 2, 80, False, 0),
+                (1, 130, 200, 4, 2, 80, True, 0), (1, 96, 256, 2, 2, 80, True, 64)]
+
+
+@pytest.mark.parametrize("shape", WIDTH80_BF16)
+def test_bf16_kernel_numerics_at_dk_dv_80(shape):
+    """Three bf16 parts of p over the padded tiles within one bf16 rounding
+    (|got - want| <= 2^-8 |want| + 1e-6) of the float32 plain version and
+    of the JAX Pallas kernel in interpret mode, fed the same bf16 values as
+    float32; one part far outside it."""
+    q, k, v, kw, want = _bf16_case(shape, dv=80)
+    got = _flash_bf16_emulation(q, k, v, 3, ksteps=5, pv_n=80, **kw)
+    assert got.shape == want.shape and _ratio(got, want) <= 1.0
+    jw = jops.flash_attention(*(jnp.array(a.float().numpy()) for a in (q, k, v)),
+                              interpret=True, **kw)
+    assert _ratio(got, torch.from_numpy(np.array(jw))) <= 1.0
+    assert _ratio(_flash_bf16_emulation(q, k, v, 1, ksteps=5, pv_n=80, **kw), want) > 10.0
+
+
+@pytest.mark.parametrize("shape", WIDTH80_BF16[1:3])
+def test_zero_columns_past_80_add_nothing(shape):
+    """The kernel stops S at 5 k-steps and p . V at n80: 8 k-steps over both
+    parts (48 zero columns more) and n128 with 48 columns dropped give the
+    same output: the extra k-steps add exact zeros to S (bit for bit), and
+    n128 sums the same products in another order (float32 rounding: 1e-5
+    relative, 1e-6 absolute, the check's floor)."""
+    q, k, v, kw, _ = _bf16_case(shape, dv=80)
+    five = _flash_bf16_emulation(q, k, v, 3, ksteps=5, pv_n=80, round_out=False, **kw)
+    eight = _flash_bf16_emulation(q, k, v, 3, ksteps=8, pv_n=80, round_out=False, **kw)
+    assert torch.equal(eight, five)
+    n128 = _flash_bf16_emulation(q, k, v, 3, ksteps=8, pv_n=128, round_out=False, **kw)
+    plain = _flash_bf16_emulation(q, k, v, 3, round_out=False, **kw)
+    for other in (n128, plain):
+        np.testing.assert_allclose(other.numpy(), five.numpy(), rtol=1e-5, atol=F32_FLOOR)

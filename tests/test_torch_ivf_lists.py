@@ -273,14 +273,12 @@ def test_ivf_probe_takes_its_kernel_by_shape(d, want):
 
 @pytest.mark.parametrize("b", [8, 64, 1, 200])
 def test_short_tables_spread_over_warps_and_blocks(b):
-    """The IVF-PQ re-rank's (B, 256) table at k 64: the long-table rule would
-    give one block a query whose eight warps share 256 slots; the table is
-    cut into runs of at least 16 slots a warp until the batch covers the
-    132 SMs (or each query has runs of 128)."""
-    chunk, nchunks = tops.ivf_scan_chunks(b, 256, 64)
-    assert (nchunks - 1) * chunk < 256 <= nchunks * chunk
-    assert chunk >= 16 * 8 and chunk % 32 == 0
-    assert b * nchunks >= min(132, b * 2)
-    # a long table keeps the long-table rule
-    chunk, nchunks = tops.ivf_scan_chunks(b, 66464, 64)
-    assert chunk >= tops.IVF_MIN_RUN * 64
+    """The IVF-PQ re-rank's (B, 256) table at k 64: one block would walk it
+    in four dependent rounds of 64 rows (8 warps, 8 rows in flight each);
+    the plan spreads it over a cluster of 4 blocks of one round each, at
+    every B (a cluster is a query's).  A long table takes the largest
+    cluster, its runs walked in passes."""
+    assert tops.ivf_scan_plan(b, 256, 64) == (4, 64, 4)
+    blocks, run, cluster = tops.ivf_scan_plan(b, 66464, 64)
+    assert blocks == cluster == tops.IVF_MAX_CLUSTER and run == -(-66464 // cluster)
+    assert run >= tops.IVF_PASS

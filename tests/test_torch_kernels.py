@@ -209,12 +209,14 @@ def test_l2_topk_query_tile_raises_when_no_tile_fits():
     (torch.bfloat16, 32, "flash_attention"), (torch.bfloat16, 16, "flash_attention"),
     (torch.float32, 64, "flash_attention"), (torch.float32, 128, "flash_attention"),
     (torch.bfloat16, (192, 128), "flash_attention_wgmma"),
-    (torch.bfloat16, 80, "flash_attention"), (torch.bfloat16, (24, 16), "flash_attention"),
+    (torch.bfloat16, 80, "flash_attention_wgmma"), (torch.float32, 80, "flash_attention"),
+    (torch.bfloat16, (24, 16), "flash_attention"),
     (torch.float32, (192, 128), "flash_attention")])
 def test_flash_attention_takes_its_kernel_by_dtype_and_width(dtype, d, want):
-    """bf16 at (Dk, Dv) (64, 64), (128, 128) and deepseek-v3's (192, 128)
-    goes to the tensor-core kernel, everything else (hubert-xlarge's 80
-    among them: TMA's 64-column boxes do not tile it) to the float32 FMA
+    """bf16 at (Dk, Dv) (64, 64), hubert-xlarge's (80, 80) (two 64-column
+    TMA boxes, the second zero past column 80), (128, 128) and
+    deepseek-v3's (192, 128) goes to the tensor-core kernel; float32 at
+    every width, and bf16 at the small check widths, to the float32 FMA
     kernel (float32 is held to 1e-4, which tensor cores cannot promise)."""
     dk, dv = d if isinstance(d, tuple) else (d, d)
     assert tops.flash_kernel_for(dtype, dk, dv) == want
@@ -224,13 +226,15 @@ def test_flash_attention_takes_its_kernel_by_dtype_and_width(dtype, d, want):
 @pytest.mark.parametrize("k", [1, 10, 64, 128])
 @pytest.mark.parametrize("b,p", [(1, 66320), (8, 66320), (64, 66320), (3, 9000)])
 def test_ivf_scan_chunks_leave_the_selection_to_the_kernel(b, p, k):
-    """The blocks tile P, and each selects its k from IVF_MIN_RUN * k slots
-    or more, so the merge sorts far fewer partials than P (checked without
-    a card: the launch plan is host arithmetic)."""
-    chunk, nchunks = tops.ivf_scan_chunks(b, p, k)
-    assert (nchunks - 1) * chunk < p <= nchunks * chunk
-    assert chunk >= tops.IVF_MIN_RUN * k
-    assert nchunks * k <= p // tops.IVF_MIN_RUN + k
+    """The launch plan of a long table (`ivf_scan_plan`, host arithmetic):
+    the query's blocks form one cluster of at most IVF_MAX_CLUSTER whose
+    runs tile P, each run at least IVF_MIN_RUN slots, so the kernel selects
+    the final k itself (no partials left for the wrapper to merge)."""
+    blocks, run, cluster = tops.ivf_scan_plan(b, p, k)
+    assert blocks == cluster == tops.IVF_MAX_CLUSTER
+    assert (cluster - 1) * run < p <= cluster * run
+    assert run >= tops.IVF_MIN_RUN
+    assert (run > tops.IVF_PASS) == (p > tops.IVF_MAX_CLUSTER * tops.IVF_PASS)
 
 
 def test_plain_versions_keep_reference_conventions():
