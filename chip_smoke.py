@@ -136,9 +136,36 @@ Phases, each of which raises on failure (the script then exits non-zero):
              launches a step at the training key, every wq / wk / wv / bias
              gradient finite and nonzero, step ms and peak memory; after
              the shapes phase, a profiled step: the attention backward's
-             share of the step (torch.profiler).
+             share of the step (torch.profiler);
+12. sharded — AÇAI's sharded step (repro_torch.core.distributed) on a
+             one-rank NCCL world (file:// store in a temporary directory,
+             the (1, 1) mesh, destroyed at the phase's end) at the slice's
+             1M x 128, h 400, k 10, c_remote 64, c_local 16, projection
+             over the top 2h + 64, B 8 and 64: (a) exact, AcaiCache(mesh=)
+             against AcaiCache (single, mesh, mesh, single; the same
+             uniforms): y, x, t and every StepMetrics field equal bit for
+             bit, {"all_gather": 2, "all_reduce": 1} and one pairwise_l2
+             launch a step, µs/request and NAG of both arms; (b) scan_chunk
+             > 0: one l2_topk launch a step, {"all_gather": 3,
+             "all_reduce": 1}, NAG within 1e-3 of (a), remote ids held to
+             the plain version at k + 1; (c) ivf_sharded at nlist 256,
+             nprobe 16, trained once and loaded into both arms (the other
+             IVFFlatIndex on the same lists): one ivf_scan launch a step
+             and no ivf_scan_lists one, {"all_gather": 3, "all_reduce":
+             1}, NAG within 1e-3, the probe's decided ids equal to
+             ref.ivf_scan_ref's; (d) the churn phase's rolling catalog,
+             its first 512 requests through replay_with_churn on both
+             arms: equal bit for bit; (e) the step's collectives at B 8:
+             call times (CUDA events, host clock) here, device times
+             (torch.profiler) after the shapes phase in a world of their
+             own.  Its shapes that no full-width row has (the exact scan at
+             B 64, the shard's IVF table) join the kernels line, and so
+             does each kernel at a 4-card shard's shape (250000 rows) on
+             one card, with 0 launches.  `--only sharded` runs the build
+             and this phase alone and prints no result.
 
-The churn path's kernel rows (masked `l2_topk` over the slab, AÇAI's exact
+The sharded phase's launches count with the main path's (its churn run's
+with the churn path's).  The churn path's kernel rows (masked `l2_topk` over the slab, AÇAI's exact
 scan over it, the add-time assignment, the masked IVF probe and IVF-PQ
 shortlist on appended lists) count the churn phase's launches; the other
 rows the slice's, policies' and LM slice's.
@@ -632,9 +659,11 @@ def lists_checks(torch, ops, ref, dev, g) -> float:
     return err
 
 
-def shapes_phase(torch, ops, ref, catalog, reqs, ivf_index, pq_index, dev, churn_cases=()):
+def shapes_phase(torch, ops, ref, catalog, reqs, ivf_index, pq_index, dev, churn_cases=(),
+                 sharded_cases=()):
     """Every kernel at each main-path shape (scripts/kernel_shapes.py's
-    cases, then the churn path's): held against the plain version, then
+    cases, the sharded step's, then the churn path's): held against the
+    plain version, then
     timed (device and call) with bound, plain version and library call.
     Returns the JSON rows, launches still 0, each with its launch key,
     whether the main path must launch it and whether it is the churn
@@ -660,7 +689,8 @@ def shapes_phase(torch, ops, ref, catalog, reqs, ivf_index, pq_index, dev, churn
                                      f"{lib.pq_adc_lists_smem_bytes(gmax, m, c, run, kp)}")
     log("shapes: pq_adc_lists' smem formula, host copy equal to the library's")
     ivf_scan_kernels_a_call(torch, ops, catalog, reqs, pq_index, dev)
-    cases = kernel_shapes.cases(torch, ops, ref, catalog, reqs, ivf_index, pq_index, dev)
+    cases = kernel_shapes.cases(torch, ops, ref, catalog, reqs, ivf_index, pq_index,
+                                dev) + list(sharded_cases)
     n_main = len(cases)
     cases = cases + list(churn_cases)
     errs = []
@@ -2228,6 +2258,301 @@ def serving_phase(torch, ops, dev):
         total[name] += v
     log(f"serving: phase {time.perf_counter() - t_phase} s; launches at 1M {dict(total)}")
 
+# ---------------------------------------------------------------------------
+# the sharded phase: AÇAI's sharded step (repro_torch.core.distributed) on a
+# one-rank NCCL world
+# ---------------------------------------------------------------------------
+
+# the slice's sift_like 1M x 128 at h 400, k 10, c_remote 64, c_local 16; the
+# projection over the top 2h + 64, the sharded step's top_a (the bitwise
+# contract with the single-device step); the sharded IVF at the slice's
+# lists and probes; scan_chunk (the card's l2_topk scans the whole shard);
+# the churn run's requests; a four-card shard's rows
+SHARD_TOP_A = 2 * H_FULL + 64
+SHARD_IVF = {"nlist": 256, "nprobe": 16, "train_iters": 4}
+SHARD_CHUNK, SHARD_CHURN_T, SHARD_4 = 65536, 512, N_FULL // 4
+SHARDED_SHAPES: Counter = Counter()
+SHARDED_CHURN_SHAPES: Counter = Counter()
+
+
+def nccl_world(torch):
+    """A one-rank NCCL world on a file store in a temporary directory and
+    its (1, 1) mesh; returns (mesh, store directory)."""
+    import tempfile
+
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+
+    store = tempfile.mkdtemp(prefix="chip_smoke_store_")
+    dist.init_process_group("nccl", init_method=f"file://{store}/s", rank=0, world_size=1)
+    return make_host_mesh("cuda"), store
+
+
+def leave_world(store) -> None:
+    import shutil
+
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
+    shutil.rmtree(store, ignore_errors=True)
+
+
+def serve_arm(torch, ops, D, cache, reqs, b: int):
+    """The trace through `cache` in batches of b, counts from 0: (per-step
+    metrics, seconds, launches, collectives, launches by shape)."""
+    ops.reset_launches()
+    D.reset_collectives()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ms = [cache.serve_update_batch(reqs[i:i + b]) for i in range(0, reqs.shape[0], b)]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    return ms, dt, dict(ops.LAUNCHES), dict(D.COLLECTIVES), Counter(ops.SHAPE_LAUNCHES)
+
+
+def same_run(torch, what, a, b) -> None:
+    """Two runs' per-step metrics (every field) and final states equal bit
+    for bit."""
+    (ms_a, st_a), (ms_b, st_b) = a, b
+    for i, (ma, mb) in enumerate(zip(ms_a, ms_b)):
+        for f, va, vb in zip(ma._fields, ma, mb):
+            same = (torch.equal(va, vb) if isinstance(va, torch.Tensor)
+                    else va == vb)
+            if not same:
+                raise AssertionError(f"{what}: step {i} {f} differs")
+    if not (torch.equal(st_a.y, st_b.y) and torch.equal(st_a.x, st_b.x)
+            and st_a.t == st_b.t):
+        raise AssertionError(f"{what}: final y / x / t differ")
+
+
+def sharded_phase(torch, ops, ref, catalog, reqs, dev):
+    """The sharded step on a (1, 1) NCCL mesh at 1M x 128, against the
+    single-device cache in the same process: (a) exact, bit for bit, (b)
+    scan_chunk on l2_topk, (c) ivf_sharded on ivf_scan against IVFFlatIndex
+    on the same lists, (d) churn through replay_with_churn, bit for bit,
+    (e) the collectives' call times.  Returns the sharded shapes' kernel
+    cases (kernel_shapes.sharded_cases)."""
+    import numpy as np
+
+    import kernel_shapes
+    from repro_torch.core import churn, oma, policy, trace
+    from repro_torch.core import distributed as D
+    from repro_torch.core.costs import calibrate_fetch_cost
+    from repro_torch.index.base import IndexSpec
+    from repro_torch.kernels.ref import probed_table, smallest_k
+
+    t_phase = time.perf_counter()
+    mesh, store = nccl_world(torch)
+    try:
+        c_f = calibrate_fetch_cost(catalog, kth=50, device=dev)
+        cfg = policy.AcaiConfig(h=H_FULL, k=K_FULL, c_f=c_f, c_remote=C_REMOTE,
+                                c_local=C_LOCAL,
+                                oma=oma.OMAConfig(eta=0.05 / c_f, projection_topk=SHARD_TOP_A))
+        state0 = policy.init_state(N_FULL, cfg, seed=0, device=dev)
+        nag_single = {}
+
+        def arm(kind, b, spec=None, **kw):
+            c = dataclasses.replace(cfg, index=spec)
+            cache = (policy.AcaiCache(catalog, c, device=dev, state=policy.copy_state(state0))
+                     if kind == "single" else
+                     policy.AcaiCache(catalog, c, mesh=mesh, state=policy.copy_state(state0),
+                                      **kw))
+            ms, dt, launches, coll, shapes = serve_arm(torch, ops, D, cache, reqs, b)
+            if kind == "mesh":
+                SHARDED_SHAPES.update(shapes)
+            gain = float(torch.cat([m.gain_int for m in ms]).sum())
+            nag = cache.normalized_gain(gain, reqs.shape[0])
+            log(f"  sharded {kind} {c.index.backend if c.index else 'exact'} {kw or ''} "
+                f"B={b}: us/request={dt / reqs.shape[0] * 1e6} NAG={nag} "
+                f"launches={ {k: v for k, v in launches.items() if v} } collectives={coll}")
+            return (ms, cache.state), dt, launches, coll, nag
+
+        # (a) exact: bit for bit, the collectives and launches a step
+        for b in (8, 64):
+            steps = T_FULL // b
+            runs = [(k, arm(k, b)) for k in ("single", "mesh", "mesh", "single")]
+            first = runs[0][1][0]
+            for k, r in runs[1:]:
+                same_run(torch, f"sharded exact B={b} ({k} against single)", first, r[0])
+            us = {k: [r[1] / T_FULL * 1e6 for kk, r in runs if kk == k]
+                  for k in ("single", "mesh")}
+            nag_single[("exact", b)] = runs[0][1][4]
+            for k, r in runs:
+                if k == "mesh" and r[3] != {"all_gather": 2 * steps, "all_reduce": steps}:
+                    raise AssertionError(f"sharded exact B={b}: collectives {r[3]} in "
+                                         f"{steps} steps")
+                if r[2]["pairwise_l2"] != steps:
+                    raise AssertionError(f"sharded exact B={b} {k}: {r[2]['pairwise_l2']} "
+                                         f"pairwise_l2 launches in {steps} steps")
+            log(f"sharded (a) exact B={b}: bit for bit equal to the single-device step "
+                f"(y, x, t, every StepMetrics field); us/request single={us['single']} "
+                f"mesh={us['mesh']}; NAG {runs[0][1][4]}; 2 all_gather + 1 all_reduce and "
+                f"1 pairwise_l2 launch a step")
+
+        # (b) scan_chunk: the l2_topk kernel, one launch a step
+        for b in (8, 64):
+            steps = T_FULL // b
+            r = arm("mesh", b, sharded_kwargs={"scan_chunk": SHARD_CHUNK})
+            if r[3] != {"all_gather": 3 * steps, "all_reduce": steps}:
+                raise AssertionError(f"sharded scan_chunk B={b}: collectives {r[3]}")
+            if r[2]["l2_topk"] != steps:
+                raise AssertionError(f"sharded scan_chunk B={b}: {r[2]['l2_topk']} l2_topk "
+                                     f"launches in {steps} steps")
+            diff = abs(r[4] - nag_single[("exact", b)])
+            log(f"sharded (b) scan_chunk B={b}: NAG {r[4]}, exact {nag_single[('exact', b)]}, "
+                f"|diff| {diff}")
+            if diff > 1e-3:
+                raise AssertionError(f"sharded scan_chunk B={b}: NAG {r[4]} against exact's "
+                                     f"{nag_single[('exact', b)]}")
+            q = reqs[:b].contiguous()
+            gd, gi = ops.topk_l2_fused(q, catalog, C_REMOTE, chunk=SHARD_CHUNK)
+            wd, wi = ref.l2_topk_ref(q, catalog, C_REMOTE + 1)
+            compare(torch, f"sharded scan_chunk remote ids B={b}", gd, wd, (gi, wi))
+
+        # (c) ivf_sharded, trained once and loaded into both arms
+        t0 = time.perf_counter()
+        ivf = D.build_sharded_ivf(catalog, 1, **SHARD_IVF, device=dev)
+        torch.cuda.synchronize()
+        lists = {"nlist": SHARD_IVF["nlist"], "nprobe": SHARD_IVF["nprobe"],
+                 "centroids": ivf.centroids.cpu().numpy(), "invlists": ivf.invlists.cpu().numpy()}
+        table = SHARD_IVF["nprobe"] * ivf.invlists.shape[1]
+        log(f"sharded (c): ShardedIVF nlist {ivf.nlist} nprobe {ivf.nprobe}, longest list "
+            f"{ivf.invlists.shape[1]}, table {table} slots a query (at most "
+            f"{D.IVF_TABLE_MAX}) ({time.perf_counter() - t0} s)")
+        for b in (8, 64):
+            steps = T_FULL // b
+            single = arm("single", b, IndexSpec("ivf", lists))
+            r = arm("mesh", b, IndexSpec("ivf_sharded", lists))
+            if r[3] != {"all_gather": 3 * steps, "all_reduce": steps}:
+                raise AssertionError(f"sharded IVF B={b}: collectives {r[3]}")
+            if r[2]["ivf_scan"] != steps or r[2]["ivf_scan_lists"]:
+                raise AssertionError(f"sharded IVF B={b}: {r[2]['ivf_scan']} ivf_scan and "
+                                     f"{r[2]['ivf_scan_lists']} ivf_scan_lists launches in "
+                                     f"{steps} steps")
+            diff = abs(r[4] - single[4])
+            log(f"sharded (c) ivf_sharded B={b}: NAG {r[4]}, IVFFlatIndex on the same lists "
+                f"{single[4]}, |diff| {diff}")
+            if diff > 1e-3:
+                raise AssertionError(f"sharded IVF B={b}: NAG {r[4]} against {single[4]}")
+            q = reqs[:b].contiguous()
+            probe = smallest_k(ops.pairwise_l2(q, ivf.centroids), ivf.nprobe)[1]
+            cand = probed_table(ivf.invlists, probe).to(torch.int32).contiguous()
+            gd, gi = ops.ivf_scan_topk(q, catalog, cand, C_REMOTE)
+            wd, wi = ref.ivf_scan_ref(q, catalog, cand, C_REMOTE + 1)
+            compare(torch, f"sharded IVF probe B={b} P={cand.shape[1]}", gd, wd, (gi, wi))
+        del single, r
+
+        # (d) churn: the rolling catalog's first SHARD_CHURN_T requests
+        t0 = time.perf_counter()
+        ccat, creqs, _ = trace.rolling_catalog(**CHURN_FULL)
+        events = [e for e in trace.rolling_catalog_events(**CHURN_FULL)
+                  if e[0] < SHARD_CHURN_T]
+        n0 = churn.warm_size(N_FULL, CHURN_FULL["warm"])
+        cc_f = calibrate_fetch_cost(ccat[:n0], kth=50, sample=256, device=dev)
+        ccfg = dataclasses.replace(cfg, c_f=cc_f, oma=dataclasses.replace(
+            cfg.oma, eta=0.05 / cc_f))
+        cstate = policy.init_state(n0, ccfg, seed=0, device=dev)
+        out = {}
+        for kind in ("single", "mesh"):
+            cache = (policy.AcaiCache(ccat[:n0], ccfg, device=dev,
+                                      state=policy.copy_state(cstate)) if kind == "single"
+                     else policy.AcaiCache(ccat[:n0], ccfg, mesh=mesh,
+                                           state=policy.copy_state(cstate)))
+            ops.reset_launches()
+            D.reset_collectives()
+            t1 = time.perf_counter()
+            res = churn.replay_with_churn(cache, ccat, creqs[:SHARD_CHURN_T], events, batch=8)
+            dt = time.perf_counter() - t1
+            if kind == "mesh":
+                SHARDED_CHURN_SHAPES.update(ops.SHAPE_LAUNCHES)
+            out[kind] = (res, cache)
+            log(f"  sharded churn {kind}: us/request={dt / SHARD_CHURN_T * 1e6} "
+                f"NAG={cache.normalized_gain(res['gain'].sum(), res['requests'])} "
+                f"events={res['events_applied']} mutation_ms={res['mutation_s'] * 1e3} "
+                f"capacity={cache.catalog.shape[0]} collectives={dict(D.COLLECTIVES)} "
+                f"sites={dict(D.COLLECTIVE_SITES)} launches="
+                f"{ {k: v for k, v in ops.LAUNCHES.items() if v} }")
+        (ra, ca), (rb, cb) = out["single"], out["mesh"]
+        for k in ("gain", "cost", "served_local", "fetched", "occupancy"):
+            if not np.array_equal(ra[k], rb[k]):
+                raise AssertionError(f"sharded churn: {k} differs from the single-device run")
+        if not (torch.equal(ca.state.y, cb.state.y) and torch.equal(ca.state.x, cb.state.x)
+                and torch.equal(ca.valid, cb.valid) and torch.equal(ca.catalog, cb.catalog)):
+            raise AssertionError("sharded churn: final state or slab differs")
+        if not ops.LAUNCHES["pairwise_l2"]:
+            raise AssertionError("sharded churn: pairwise_l2 never launched")
+        log(f"sharded (d) churn: {SHARD_CHURN_T} requests, {len(events)} events, bit for bit "
+            f"equal to the single-device cache ({time.perf_counter() - t0} s)")
+        del out, ca, cb, ccat, creqs
+        torch.cuda.empty_cache()
+
+        # (e) the step's three collectives at B 8, call times by CUDA events
+        # and on the host (device times: sharded_nccl_profile, after the
+        # profiled phases)
+        for what, fn in collective_calls(torch, D, mesh, dev).items():
+            call = time_ms(torch, fn, 200)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for _ in range(200):
+                fn()
+            host_us = (time.perf_counter() - t1) / 200 * 1e6
+            torch.cuda.synchronize()
+            log(f"sharded (e) {what}: call_ms={call} (CUDA events) host_us={host_us}")
+
+        # the sharded shapes' kernel rows: this run's IVF, and a 4-card
+        # shard's shapes on one card
+        t0 = time.perf_counter()
+        ivf4 = D.build_sharded_ivf(catalog[:SHARD_4], 1, **SHARD_IVF, device=dev)
+        log(f"sharded: a 4-card shard's IVF over {SHARD_4} rows, longest list "
+            f"{ivf4.invlists.shape[1]}, table {ivf4.nprobe * ivf4.invlists.shape[1]} slots "
+            f"({time.perf_counter() - t0} s)")
+        cases = kernel_shapes.sharded_cases(torch, ops, ref, reqs, [
+            ("P = 1, 1M rows", catalog, ivf.shard(0) + (ivf.nprobe,), True),
+            ("one kernel at a 4-card shard's shape, one card", catalog[:SHARD_4],
+             ivf4.shard(0) + (ivf4.nprobe,), False)], dev)
+    finally:
+        leave_world(store)
+    log(f"sharded: phase {time.perf_counter() - t_phase} s")
+    return cases
+
+
+def collective_calls(torch, D, mesh, dev) -> dict:
+    """The sharded exact step's collectives at B 8, by what they carry."""
+    payload = torch.zeros((8, C_REMOTE + C_LOCAL, 4), device=dev)
+    heads = torch.zeros(SHARD_TOP_A + 1, device=dev)
+    sums = torch.zeros(2, device=dev)
+    return {f"merge all_gather {tuple(payload.shape)}":
+            lambda: D.all_gather(payload, mesh, "model", "timing"),
+            f"projection all_gather ({SHARD_TOP_A + 1},)":
+            lambda: D.all_gather(heads, mesh, "model", "timing"),
+            "rounding all_reduce (2,)": lambda: D.all_reduce(sums, mesh, "model", "timing")}
+
+
+def sharded_nccl_profile(torch, dev) -> None:
+    """(e) the collectives' device times (torch.profiler's NCCL kernels),
+    in a one-rank NCCL world of their own; after the profiled phases."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import distributed as D
+
+    mesh, store = nccl_world(torch)
+    try:
+        for what, fn in collective_calls(torch, D, mesh, dev).items():
+            for _ in range(5):
+                fn()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(100):
+                    fn()
+                torch.cuda.synchronize()
+            nccl = [e for e in prof.key_averages() if "nccl" in e.key.lower()]
+            dev_us = sum(getattr(e, "self_device_time_total", 0.0) for e in nccl)
+            log(f"sharded (e) {what}: device_us={dev_us / 100} a call (torch.profiler, "
+                f"NCCL events {sorted(e.key for e in nccl)})")
+    finally:
+        leave_world(store)
+
+
 
 def flash_phase(torch, ops, ref, dev):
     """flash_attention against its plain version, f32 (the FMA kernel) and
@@ -3011,9 +3336,9 @@ def train_profile(torch, ops, card: str) -> None:
 
 
 def main() -> int:
-    only = sys.argv[1:] == ["--only", "serving"]
-    if sys.argv[1:] and not only:
-        print("usage: chip_smoke.py [--only serving]", file=sys.stderr)
+    only = sys.argv[2] if sys.argv[1:2] == ["--only"] and len(sys.argv) == 3 else None
+    if sys.argv[1:] and only not in ("serving", "sharded"):
+        print("usage: chip_smoke.py [--only serving|sharded]", file=sys.stderr)
         return 2
     if not (SRC / "repro_torch").is_dir():
         print(f"chip_smoke: {SRC / 'repro_torch'} not found — run from the "
@@ -3053,8 +3378,14 @@ def main() -> int:
     if only:
         # a quick look at one phase while it is worked on: no kernels line
         # and no result line
-        serving_phase(torch, ops, dev)
-        log(f"total: {time.perf_counter() - t_start} s (--only serving: no result)")
+        if only == "serving":
+            serving_phase(torch, ops, dev)
+        else:
+            cat_np, reqs_np, _ = trace.sift_like(n=N_FULL, d=D_FULL, t=T_FULL, seed=0)
+            sharded_phase(torch, ops, ref, torch.from_numpy(cat_np).to(dev),
+                          torch.from_numpy(reqs_np).to(dev), dev)
+            sharded_nccl_profile(torch, dev)
+        log(f"total: {time.perf_counter() - t_start} s (--only {only}: no result)")
         return 0
 
     t0 = time.perf_counter()
@@ -3094,12 +3425,16 @@ def main() -> int:
     lm_slice_phase(torch, ops, card)
     lm_archs_phase(torch, ops, ref, dev, card)
     train_phase(torch, ops, ref, catalog, reqs, ivf_index, dev, card)
+    sharded_cases = sharded_phase(torch, ops, ref, catalog, reqs, dev)
+    MAIN_SHAPES.update(SHARDED_SHAPES)
+    CHURN_SHAPES.update(SHARDED_CHURN_SHAPES)
     # last: once torch.profiler has traced the card, every later launch in
     # this process pays its callbacks, so no host-clock figure comes after
     rows = shapes_phase(torch, ops, ref, catalog, reqs, ivf_index, pq_index, dev,
-                        churn_cases)
+                        churn_cases, sharded_cases)
     train_profile(torch, ops, card)
-    del ivf_index, pq_index, catalog, reqs, churn_cases
+    sharded_nccl_profile(torch, dev)
+    del ivf_index, pq_index, catalog, reqs, churn_cases, sharded_cases
     for name in sorted({k for k, _ in MAIN_SHAPES}):
         total = sum(n for (k, _), n in MAIN_SHAPES.items() if k == name)
         log(f"main path {name}: {total} launches; by shape: "

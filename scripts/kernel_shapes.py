@@ -55,6 +55,10 @@ unused rows), `pairwise_l2` of AÇAI's exact mutable scan (8 x capacity;
 add-time list assignment (1 x 256 x 128) and of k-means' assignment at a
 refresh (500k x 256 x 128), and the IVF probe
 and the IVF-PQ shortlist, masked, over the lists the inserts appended to.
+The sharded step's shapes (`sharded_cases`, chip_smoke.py's sharded phase):
+the exact scan of a shard at B 64, the per-query `ivf_scan` over a shard's
+IVF table at B 8 and 64, and every kernel at a 4-card shard's shape
+(250000 rows) on one card.
 `--src` imports another checkout's `repro_torch` (its kernels are built
 from its own sources), so two trees can be timed in one call; features a
 tree lacks (the batched PQ tables, the list-major probe, the list-major
@@ -221,6 +225,84 @@ def _valid_sample(torch, cand, width: int, gen):
     return torch.gather(cand, 1, pos).contiguous()
 
 
+def case(kernel, label, shape, key, fn, plain, library, bnd, main=True, iters=50, row=None,
+         check="close", all_kernels=False) -> dict:
+    """One timed shape (the fields `cases` documents)."""
+    return {"kernel": kernel, "label": label, "shape": shape, "key": key, "fn": fn,
+            "plain": plain, "library": library, "bound": bnd, "main": main,
+            "row": main if row is None else row, "check": check,
+            "all_kernels": all_kernels, "iters": iters}
+
+
+def topk_case(torch, ops, ref, label, q, x, k, iters=20, main=True) -> dict:
+    """`l2_topk` at (Q, N, D, k), bound by its TF32 tensor-core products."""
+    nq, nx, dd = q.shape[0], x.shape[0], q.shape[1]
+    return case("l2_topk", label, f"Q={nq} N={nx} D={dd} k={k}", ("l2_topk", (nq, nx, dd, k)),
+                lambda: ops.topk_l2(q, x, k), lambda: ref.l2_topk_ref(q, x, k),
+                lambda: torch.topk(torch.cdist(q, x), k, largest=False),
+                bound_ms(4.0 * (nx * dd + nq * dd) + 8.0 * nq * k, 2.0 * nq * nx * dd,
+                         TF32_FLOPS), iters=iters, main=main)
+
+
+def l2_case(torch, ops, ref, label, q, x, main=True, iters=50) -> dict:
+    """`pairwise_l2` at (Q, N, D)."""
+    nq, nx, dd = q.shape[0], x.shape[0], q.shape[1]
+    return case("pairwise_l2", label, f"Q={nq} N={nx} D={dd}", ("pairwise_l2", (nq, nx, dd)),
+                lambda: ops.pairwise_l2(q, x), lambda: ref.pairwise_l2_ref(q, x),
+                lambda: torch.cdist(q, x),
+                bound_ms(4.0 * (nq * dd + nx * dd + nq * nx), 2.0 * nq * nx * dd), main, iters)
+
+
+def table_case(torch, ops, ref, label, q, x, cand, k, main=True, iters=20) -> dict:
+    """The per-query `ivf_scan` over a (B, P) id table: each distinct row
+    named once, the table, the queries, the output; three operations a
+    valid slot and dimension."""
+    b, p, d = cand.shape[0], cand.shape[1], q.shape[1]
+    nvalid = int((cand >= 0).sum())
+    ndistinct = int(torch.unique(cand[cand >= 0]).numel())
+
+    def library():
+        rows = x[cand.clamp_min(0).long()]
+        dd = torch.cdist(q[:, None, :], rows)[:, 0].masked_fill(cand < 0, float("inf"))
+        return torch.topk(dd, k, largest=False)
+
+    return case("ivf_scan", label,
+                f"B={b} P={p} valid={nvalid} distinct={ndistinct} D={d} k={k}",
+                ("ivf_scan", (b, p, d, k)), lambda: ops.ivf_scan_topk(q, x, cand, k),
+                lambda: ref.ivf_scan_ref(q, x, cand, k), library,
+                bound_ms(4.0 * (ndistinct * d + b * p + b * d) + 8.0 * b * k,
+                         3.0 * nvalid * d), main=main, iters=iters)
+
+
+def sharded_cases(torch, ops, ref, reqs, shards, dev) -> list:
+    """The sharded step's shapes (chip_smoke.py's sharded phase) that no
+    full-width row has: the exact scan of a shard at B 64, the per-query
+    IVF table of a shard's probe at B 8 and 64, and each shape at a 4-card
+    shard's size.  `shards`: [(label, catalog shard, its sharded IVF (the
+    shard's centroids, lists, nprobe), main), ...]; B 8's exact scan of
+    the whole catalog is the full-width "AÇAI exact candidates B 8" row,
+    the scan_chunk path's l2_topk the flat index's rows."""
+    from repro_torch.kernels.ref import probed_table, smallest_k
+
+    out = []
+    for label, x, (centroids, invlists, nprobe), main in shards:
+        for b in (8, 64):
+            q = reqs[:b].contiguous()
+            if b == 64 or not main:
+                out.append(l2_case(torch, ops, ref, f"{label}: sharded exact scan B {b}", q,
+                                   x, main=main, iters=20))
+            if not main:
+                out.append(topk_case(torch, ops, ref, f"{label}: scan_chunk B {b}", q, x,
+                                     K_REMOTE, main=False))
+            probe = smallest_k(ops.pairwise_l2(q, centroids), nprobe)[1]
+            cand = probed_table(invlists, probe).to(torch.int32).contiguous()
+            out.append(table_case(torch, ops, ref, f"{label}: sharded IVF probe B {b}", q, x,
+                                  cand, K_REMOTE, main=main))
+    for c in out:  # each a row of chip_smoke.py's kernels line, 4-card ones at 0 launches
+        c["row"] = True
+    return out
+
+
 def cases(torch, ops, ref, catalog, reqs, ivf_index, pq_index, dev, wide=True):
     """The main-path shapes as dicts: kernel (the wrapper family timed),
     label, shape, key ((counter, dims) of the launch in
@@ -237,28 +319,14 @@ def cases(torch, ops, ref, catalog, reqs, ivf_index, pq_index, dev, wide=True):
     codebooks = pq_index.codec.codebooks
     out = []
 
-    def add(kernel, label, shape, key, fn, plain, library, bnd, main=True, iters=50,
-            row=None, check="close", all_kernels=False):
-        out.append({"kernel": kernel, "label": label, "shape": shape, "key": key, "fn": fn,
-                    "plain": plain, "library": library, "bound": bnd, "main": main,
-                    "row": main if row is None else row, "check": check,
-                    "all_kernels": all_kernels, "iters": iters})
+    def add(*a, **kw):
+        out.append(case(*a, **kw))
 
     def topk(label, q, x, k, iters=20, main=True):
-        nq, nx, dd = q.shape[0], x.shape[0], q.shape[1]
-        add("l2_topk", label, f"Q={nq} N={nx} D={dd} k={k}", ("l2_topk", (nq, nx, dd, k)),
-            lambda: ops.topk_l2(q, x, k), lambda: ref.l2_topk_ref(q, x, k),
-            lambda: torch.topk(torch.cdist(q, x), k, largest=False),
-            # operations at the TF32 tensor-core rate the kernel runs them on
-            bound_ms(4.0 * (nx * dd + nq * dd) + 8.0 * nq * k, 2.0 * nq * nx * dd,
-                     TF32_FLOPS), iters=iters, main=main)
+        out.append(topk_case(torch, ops, ref, label, q, x, k, iters, main))
 
     def l2(label, q, x, main=True, iters=50):
-        nq, nx, dd = q.shape[0], x.shape[0], q.shape[1]
-        add("pairwise_l2", label, f"Q={nq} N={nx} D={dd}", ("pairwise_l2", (nq, nx, dd)),
-            lambda: ops.pairwise_l2(q, x), lambda: ref.pairwise_l2_ref(q, x),
-            lambda: torch.cdist(q, x),
-            bound_ms(4.0 * (nq * dd + nx * dd + nq * nx), 2.0 * nq * nx * dd), main, iters)
+        out.append(l2_case(torch, ops, ref, label, q, x, main, iters))
 
     def pq_cases(b, q):
         """The IVF-PQ shortlist (kk = refine * k) of batch b: by
@@ -404,16 +472,8 @@ def cases(torch, ops, ref, catalog, reqs, ivf_index, pq_index, dev, wide=True):
             short = pq_index.shortlist(q, K_REMOTE)[1].to(torch.int32).contiguous()
         else:
             short = _valid_sample(torch, cand, REFINE * K_REMOTE, gen)
-        nvalid = int((short >= 0).sum())
-        ndistinct = int(torch.unique(short[short >= 0]).numel())
-        add("ivf_scan", f"IVF-PQ re-rank B {b}",
-            f"B={b} P={short.shape[1]} valid={nvalid} distinct={ndistinct} D={d} "
-            f"k={K_REMOTE}", ("ivf_scan", (b, short.shape[1], d, K_REMOTE)),
-            lambda q=q, short=short: ops.ivf_scan_topk(q, catalog, short, K_REMOTE),
-            lambda q=q, short=short: ref.ivf_scan_ref(q, catalog, short, K_REMOTE),
-            lambda q=q, short=short: lib_scan(q, short),
-            bound_ms(4.0 * (ndistinct * d + short.numel() + b * d) + 8.0 * b * K_REMOTE,
-                     3.0 * nvalid * d))
+        out.append(table_case(torch, ops, ref, f"IVF-PQ re-rank B {b}", q, catalog, short,
+                              K_REMOTE, iters=50))
         topk(f"flat index B {b}", q, catalog, K_REMOTE)
         pq_cases(b, q)
     # the online engine's partial batches (its batch window forms 1 to 7

@@ -1,7 +1,8 @@
 """Carry state, index structures and LM weights into the port as numpy
 arrays.
 
-A cache state, an index (flat, IVF, IVF-PQ, LSH, NSW) or an LM's
+A cache state (whole, or a rank's block of it for the sharded step), an
+index (flat, IVF, IVF-PQ, LSH, NSW, the sharded IVF) or an LM's
 parameters built elsewhere, for instance by the JAX reference, are handed
 over as plain arrays, so the port never reads a framework-specific object
 such as a JAX key.
@@ -38,6 +39,43 @@ def cache_state_from_numpy(y, x, t: int = 0, seed: int = 0, device=None) -> Cach
     x = torch.from_numpy(np.array(x, np.float32)).to(device)
     return CacheState(y=y, x=x, t=int(t),
                       gen=torch.Generator(device=device).manual_seed(seed))
+
+
+def cache_state_block(y, x, mesh, t: int = 0, seed: int = 0, model_axis: str = "model",
+                      device=None) -> CacheState:
+    """This rank's block of a whole (N,) state given as numpy y and x (the
+    sharded step's state); the generator as `cache_state_from_numpy`'s,
+    on the mesh's device by default."""
+    from repro_torch.core.distributed import block_of, mesh_device
+
+    device = mesh_device(mesh) if device is None else device
+    return cache_state_from_numpy(block_of(np.asarray(y), mesh, model_axis),
+                                  block_of(np.asarray(x), mesh, model_axis), t, seed, device)
+
+
+def gather_state(state: CacheState, mesh, model_axis: str = "model"):
+    """(y, x) of the whole state as numpy arrays, gathered from every
+    rank's block (a collective: every rank of the mesh calls it)."""
+    from repro_torch.core.distributed import gather_rows
+
+    return tuple(gather_rows(t, mesh, model_axis).cpu().numpy() for t in (state.y, state.x))
+
+
+def sharded_ivf_from_numpy(centroids, invlists, nlist: int, nprobe: int, device=None):
+    """ShardedIVF from the reference's stacked per-shard structures:
+    centroids (P nlist, d) and invlists (P nlist, cap) of local row ids,
+    -1 padded (`repro.core.distributed.build_sharded_ivf`'s layout)."""
+    from repro_torch.core.distributed import ShardedIVF
+
+    device = resolve_device(device)
+    centroids = np.array(centroids, np.float32)
+    invlists = np.array(invlists, np.int32)
+    if centroids.shape[0] % nlist or invlists.shape[0] != centroids.shape[0]:
+        raise ValueError(f"sharded IVF: centroids {centroids.shape} and invlists "
+                         f"{invlists.shape} are not whole shards of nlist {nlist}")
+    return ShardedIVF(torch.from_numpy(centroids).to(device).contiguous(),
+                      torch.from_numpy(invlists).to(device).contiguous(), int(nlist),
+                      int(nprobe))
 
 
 def _mutated(index, valid, n_slots):

@@ -389,9 +389,6 @@ def copy_state(state: CacheState, seed: int = 0) -> CacheState:
     return CacheState(state.y.clone(), state.x.clone(), state.t, gen)
 
 
-_NOT_PORTED = "not ported yet (ROADMAP A{item}: {what})"
-
-
 def host_rows(rs):
     """A (B, d) float32 numpy copy of a request batch that lies on the host
     (numpy, a list or a CPU tensor), else None: the answer tier hashes
@@ -434,18 +431,28 @@ class AcaiCache:
     (`repro_torch.serve.answer_cache.CachedIndex`), and the cache then
     serves through the mutable step from step 0 (the step that queries
     the index eagerly, where the memo sits).  `remote` / `resilience`
-    attach the resilient remote tier (`attach_remote`).  The mesh (ROADMAP
-    A11) raises NotImplementedError.  `state` starts the cache from a
-    given CacheState (it must lie on `device`) instead of running
-    `init_state`."""
+    attach the resilient remote tier (`attach_remote`).  `state` starts
+    the cache from a given CacheState (it must lie on `device`) instead of
+    running `init_state`.
+
+    `mesh` (a DeviceMesh with a `model` axis, `repro_torch.launch.mesh`)
+    serves through the sharded step (`repro_torch.core.distributed`): each
+    rank keeps its block of the catalog and of y and x (`catalog` and a
+    given `state` are the whole ones, cut here), and every rank of the
+    world calls every method with the same arguments.  `cfg.index` may
+    name the sharded backend (`ivf_sharded`) or be None for the exact
+    sharded scan; `sharded_kwargs` (e.g. `scan_chunk`, `top_a`) configure
+    the step; `device` defaults to the mesh's.  On a mesh the catalog
+    mutates through the exact masked scan only; the answer tier and the
+    resilient tier raise NotImplementedError, as in the reference.  The
+    cache's `catalog`, `valid` and `state` are then this rank's blocks;
+    ids in and out stay global."""
 
     def __init__(self, catalog, cfg, seed: int = 0, device=None,
                  state: CacheState | None = None, mesh=None, remote=None,
                  resilience=None, answer_cache=None, candidate_fn=None,
-                 candidate_fn_batched=None, c_f: float | None = None):
-        if mesh is not None:
-            raise NotImplementedError(_NOT_PORTED.format(
-                item=11, what="the sharded step over a mesh"))
+                 candidate_fn_batched=None, c_f: float | None = None,
+                 sharded_kwargs: dict | None = None):
         if not isinstance(cfg, AcaiConfig):
             from repro_torch.core.costs import CostModel
             from repro_torch.core.policy_api import (acai_config_from_spec,
@@ -465,26 +472,37 @@ class AcaiCache:
         if resolved is not cfg.index:
             cfg = dataclasses.replace(cfg, index=resolved)
         self.cfg = cfg
-        self.device = resolve_device(device)
-        self.catalog = torch.as_tensor(catalog, dtype=torch.float32).to(
-            self.device).contiguous()
-        n = self.catalog.shape[0]
+        self.mesh = mesh
+        self._sharded_kwargs = dict(sharded_kwargs or {})
         self.index = None  # the spec-built index (None: exact or escape hatch)
         # mutable-catalog bookkeeping: the cache serves the static step
         # until the first mutation, then the mutable one (make_mutable_step)
-        self.valid = torch.ones(n, dtype=torch.bool, device=self.device)
-        self._live = self._n_slots = n
         self._mutated = False
         self._mut_fn: Callable | None = None
         self._mut_steps: dict[int, Callable] = {}
+        self._bsteps: dict[int, Callable] = {}
+        self._res = None  # the resilient mode: None until a remote is attached
         explicit = candidate_fn is not None or candidate_fn_batched is not None
         self._custom_fn = explicit
         if explicit and cfg.index is not None:
             import warnings
 
-            warnings.warn("AcaiCache: cfg.index is set but explicit candidate_fn/"
-                          "candidate_fn_batched overrides it — drop the kwargs or "
-                          "the spec", DeprecationWarning, stacklevel=2)
+            warnings.warn("AcaiCache: cfg.index is set but " + (
+                "a mesh was given — the sharded step ignores explicit candidate fns "
+                "and serves from the spec-built index" if mesh is not None else
+                "explicit candidate_fn/candidate_fn_batched overrides it — drop the "
+                "kwargs or the spec"), DeprecationWarning, stacklevel=2)
+        if mesh is not None:
+            self._init_sharded(catalog, device, seed, state, answer_cache)
+            if remote is not None or resilience is not None:
+                self.attach_remote(remote, resilience)
+            return
+        self.device = resolve_device(device)
+        self.catalog = torch.as_tensor(catalog, dtype=torch.float32).to(
+            self.device).contiguous()
+        n = self.catalog.shape[0]
+        self.valid = torch.ones(n, dtype=torch.bool, device=self.device)
+        self._live = self._n_slots = n
         if candidate_fn_batched is not None:
             self._fn_batched = candidate_fn_batched
         elif candidate_fn is not None:
@@ -498,7 +516,6 @@ class AcaiCache:
         else:
             self._fn_batched = exact_candidate_fn_batched(
                 self.catalog, cfg.c_remote, cfg.c_local)
-        self._bsteps: dict[int, Callable] = {}
         # the answer tier: a CachedIndex around the spec-built index, served
         # through the mutable step, whose eager `index.query` is where the
         # memo sits
@@ -524,10 +541,98 @@ class AcaiCache:
             raise ValueError("state must lie on the cache's device and match "
                              "the catalog size")
         self.state = state
-        # the resilient mode: None until a remote backend is attached
-        self._res = None
         if remote is not None or resilience is not None:
             self.attach_remote(remote, resilience)
+
+    def _init_sharded(self, catalog, device, seed: int, state, answer_cache) -> None:
+        """The mesh half of the constructor: the sharded index (built over
+        the whole catalog before anything else), then this rank's blocks
+        of the catalog and of the state."""
+        from repro_torch.core import distributed as dist_lib
+        from repro_torch.index.base import registered_backends
+        from repro_torch.serve.answer_cache import resolve_answer_cache_spec
+
+        mesh, cfg = self.mesh, self.cfg
+        # the configuration is checked before the mesh is touched and
+        # before any build
+        if cfg.index is not None and cfg.index.backend not in registered_backends(
+                sharded=True):
+            raise ValueError(
+                f"cfg.index backend {cfg.index.backend!r} is not a sharded layout; with "
+                f"mesh= use one of {registered_backends(sharded=True)} (or index=None "
+                f"for the exact sharded scan)")
+        if resolve_answer_cache_spec(answer_cache) is not None:
+            raise NotImplementedError(
+                "answer_cache= on a sharded mesh is not implemented (the sharded step "
+                "owns candidate generation) — use a single-device cache")
+        self.device = (dist_lib.mesh_device(mesh) if device is None
+                       else resolve_device(device))
+        if self.device.type != mesh.device_type:
+            raise ValueError(f"device {self.device} is not the mesh's "
+                             f"({mesh.device_type})")
+        axis = self._model_axis()
+        full = torch.as_tensor(catalog, dtype=torch.float32)
+        n = full.shape[0]
+        p = dist_lib._axis_size(mesh, axis)
+        if n % p:
+            raise ValueError(f"catalog rows ({n}) must divide by the mesh's {axis} "
+                             f"axis ({p})")
+        if cfg.index is not None:
+            if "ivf" in self._sharded_kwargs:
+                import warnings
+
+                warnings.warn("AcaiCache: sharded_kwargs['ivf'] overrides cfg.index — "
+                              "drop one of them", DeprecationWarning, stacklevel=3)
+            else:
+                self.index = build_index(cfg.index, full, device=self.device, mesh=mesh)
+                self._sharded_kwargs["ivf"] = self.index
+        if self._sharded_kwargs.get("ivf") is not None:
+            self._sharded_kwargs["ivf"] = self._sharded_kwargs["ivf"].to(self.device)
+        self.catalog = dist_lib.block_of(full, mesh, axis).to(self.device).contiguous()
+        self.valid = torch.ones(self.catalog.shape[0], dtype=torch.bool,
+                                device=self.device)
+        # the whole liveness mask on the host: every rank applies the same
+        # mutations, so each validates and renumbers without an exchange
+        self._valid_host = np.ones(n, dtype=bool)
+        self._live = self._n_slots = n
+        self.answer_cache = None
+        if state is None:
+            state = init_state(n, cfg, seed=seed, device=self.device)
+        elif state.y.device != self.device or state.y.shape[0] != n:
+            raise ValueError("state must lie on the cache's device and match the "
+                             "catalog size (the whole state: it is cut here)")
+        self.state = CacheState(dist_lib.block_of(state.y, mesh, axis).clone(),
+                                dist_lib.block_of(state.x, mesh, axis).clone(),
+                                state.t, state.gen)
+
+    def _model_axis(self) -> str:
+        return self._sharded_kwargs.get("model_axis", "model")
+
+    def _mesh_model_size(self) -> int:
+        from repro_torch.core.distributed import _axis_size
+
+        return _axis_size(self.mesh, self._model_axis())
+
+    def _block_lo(self) -> int:
+        """This rank's first global row."""
+        from repro_torch.core.distributed import _axis_rank
+
+        return _axis_rank(self.mesh, self._model_axis()) * self.catalog.shape[0]
+
+    def _batch_step(self, b: int) -> Callable:
+        """The static step of batch b: the sharded one on a mesh, else the
+        batched one over the candidate generator."""
+        step = self._bsteps.get(b)
+        if step is None:
+            if self.mesh is not None:
+                from repro_torch.core.distributed import make_step_sharded
+
+                step = make_step_sharded(self.cfg, self.mesh, self.catalog, b,
+                                         **self._sharded_kwargs)
+            else:
+                step = make_step_batched(self.cfg, self._fn_batched, b)
+            self._bsteps[b] = step
+        return step
 
     def attach_remote(self, remote=None, resilience=None):
         """Switch serving to the resilient mode: each request first runs
@@ -540,6 +645,10 @@ class AcaiCache:
         controller (counters, breaker log, reports)."""
         from repro_torch.serve.resilience import AcaiResilience
 
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "resilient serving on a sharded mesh is not implemented yet — attach "
+                "the remote to a single-device cache")
         self._res = AcaiResilience(self, remote, resilience)
         return self._res
 
@@ -568,6 +677,19 @@ class AcaiCache:
         (also the all-ok path of the resilient mode, which keeps fault rate
         0 bitwise identical); `host` is its host copy, if any."""
         b = rs.shape[0]
+        if self._mutated and self.mesh is not None:
+            # candidates, OMA and the live-mask projection in the sharded
+            # step; the slab block and its mask are arguments
+            step = self._mut_steps.get(b)
+            if step is None:
+                from repro_torch.core.distributed import make_mutable_step_sharded
+
+                kw = {k: v for k, v in self._sharded_kwargs.items()
+                      if k in ("eta_scale", "model_axis", "batch_axes", "top_a")}
+                step = self._mut_steps[b] = make_mutable_step_sharded(
+                    self.cfg, self.mesh, b, **kw)
+            self.state, metrics = step(self.state, rs, self.catalog, self.valid, u)
+            return metrics
         if self._mutated:
             if self.answer_cache is not None:
                 self.answer_cache.stage(host)
@@ -579,18 +701,24 @@ class AcaiCache:
             if self.answer_cache is not None:
                 metrics = metrics._replace(**self.answer_cache.step_counters(b))
             return metrics
-        step = self._bsteps.get(b)
-        if step is None:
-            step = make_step_batched(self.cfg, self._fn_batched, b)
-            self._bsteps[b] = step
-        self.state, metrics = step(self.state, rs, u)
+        self.state, metrics = self._batch_step(b)(self.state, rs, u)
         return metrics
 
     # -- online catalog mutation ----------------------------------------------
 
     def _check_mutable_supported(self) -> None:
         """Reject mutation where the cache cannot serve it, before anything
-        changes (a mesh never gets this far: the constructor raises, A11)."""
+        changes."""
+        if not self._mutated and self.mesh is not None:
+            if self.index is not None or self._sharded_kwargs.get("ivf") is not None:
+                raise NotImplementedError(
+                    "online catalog mutation on a sharded index backend is not "
+                    "implemented — the sharded mutable path serves through the exact "
+                    "masked scan; build the mesh cache with index=None")
+            if self._sharded_kwargs.get("scan_chunk"):
+                raise NotImplementedError(
+                    "online catalog mutation on a sharded mesh serves through the "
+                    "exact masked scan — drop sharded_kwargs['scan_chunk']")
         if not self._mutated and self._custom_fn:
             raise ValueError(
                 "AcaiCache was built with an explicit candidate_fn*: the cache "
@@ -600,6 +728,10 @@ class AcaiCache:
     def _enter_mutable(self) -> None:
         """Switch to the mutable serving step after the first mutation."""
         if self._mutated:
+            return
+        if self.mesh is not None:
+            # the sharded mutable step generates its own candidates
+            self._mutated = True
             return
         if self.index is not None:
             from repro_torch.index.candidates import mutable_index_candidate_fn
@@ -634,6 +766,8 @@ class AcaiCache:
         self._check_mutable_supported()
         vectors = torch.atleast_2d(torch.as_tensor(vectors, dtype=torch.float32)).to(
             self.device)
+        if self.mesh is not None:
+            return self._add_sharded(vectors)
         if self.index is not None:
             ids = self.index.add(vectors)
             self.catalog, self.valid = self.index.embeddings, self.index.valid
@@ -646,11 +780,94 @@ class AcaiCache:
         self._enter_mutable()
         return ids
 
+    def _add_sharded(self, vectors: torch.Tensor) -> np.ndarray:
+        """add_objects on a mesh: the append's runs written by their owners,
+        y and x moved with the rows when the slab grows."""
+        from repro_torch.core.distributed import sharded_slab_append
+
+        self.catalog, self.valid, ids, (y, x) = sharded_slab_append(
+            self.catalog, self.valid, self._n_slots, vectors, self.mesh,
+            carry=(self.state.y, self.state.x), model_axis=self._model_axis())
+        cap = self.catalog.shape[0] * self._mesh_model_size()
+        if cap != self._valid_host.shape[0]:
+            self._valid_host = np.concatenate(
+                [self._valid_host, np.zeros(cap - self._valid_host.shape[0], bool)])
+        self._valid_host[ids] = True
+        self._n_slots += len(ids)
+        self._live += len(ids)
+        self.state = CacheState(y, x, self.state.t, self.state.gen)
+        # the uniform prior on this rank's new rows
+        lo = self._block_lo()
+        mine = ids[(ids >= lo) & (ids < lo + self.catalog.shape[0])] - lo
+        self._sync_capacity(mine)
+        self._enter_mutable()
+        return ids
+
+    def _remove_sharded(self, ids) -> None:
+        """remove_objects on a mesh: validated against the whole mask (the
+        same on every rank), each owner tombstones its rows and zeroes
+        their y and x."""
+        from repro_torch.core.distributed import route_ids_by_owner
+
+        ids = np.atleast_1d(np.asarray(ids, np.int32))
+        if len(ids):
+            if ids.min() < 0 or ids.max() >= self._n_slots:
+                raise ValueError(f"remove_objects: ids must be assigned rows in "
+                                 f"[0, {self._n_slots}); got range [{ids.min()}, "
+                                 f"{ids.max()}]")
+            if len(np.unique(ids)) != len(ids):
+                raise ValueError("remove_objects: duplicate ids in one batch")
+            alive = self._valid_host[ids]
+            if not alive.all():
+                raise ValueError(f"remove_objects: rows {ids[~alive].tolist()} are "
+                                 f"already dead (tombstoned or never assigned)")
+        self._valid_host[ids] = False
+        self._live -= len(ids)
+        self._enter_mutable()
+        lo, block = self._block_lo(), self.catalog.shape[0]
+        for p, gids in route_ids_by_owner(ids, self._valid_host.shape[0],
+                                          self._mesh_model_size()):
+            if p * block != lo:
+                continue
+            idx = torch.from_numpy((gids - lo).astype(np.int64)).to(self.device)
+            run_device(lambda v, y, x, i: (v.index_fill_(0, i, False),
+                                           y.index_fill_(0, i, 0.0),
+                                           x.index_fill_(0, i, 0.0)),
+                       self.valid, self.state.y, self.state.x, idx)
+
+    def _compact_sharded(self) -> np.ndarray:
+        """compact on a mesh: the live rows renumbered in ascending order
+        over a capacity rounded up to a multiple of P, moved to their new
+        owners with y and x by one gather (`regrid`)."""
+        from repro_torch.core.distributed import regrid
+        from repro_torch.index.base import MIN_WRITE, grow_capacity
+
+        p = self._mesh_model_size()
+        old_cap = self._valid_host.shape[0]
+        live = np.nonzero(self._valid_host)[0]
+        remap = np.full(old_cap, -1, np.int32)
+        remap[live] = np.arange(live.shape[0], dtype=np.int32)
+        cap = grow_capacity(0, live.shape[0] + MIN_WRITE, 1)
+        cap += (-cap) % p
+        self.catalog, y, x = regrid(
+            [self.catalog, self.state.y, self.state.x], old_cap, cap, self.mesh,
+            self._model_axis(), rows=torch.from_numpy(live).to(self.device))
+        self._valid_host = np.arange(cap) < live.shape[0]
+        lo = self._block_lo()
+        self.valid = torch.from_numpy(
+            self._valid_host[lo:lo + self.catalog.shape[0]].copy()).to(self.device)
+        self._n_slots = self._live
+        self.state = CacheState(y, x, self.state.t, self.state.gen)
+        self._enter_mutable()
+        return remap
+
     def remove_objects(self, ids) -> None:
         """Drop catalog objects online: tombstone them and zero their y and
         x (a removed object is never served nor fetched, and frees its
         slot at once; the mutable step keeps the rows at zero)."""
         self._check_mutable_supported()
+        if self.mesh is not None:
+            return self._remove_sharded(ids)
         if self.index is not None:
             self.index.remove(ids)
             ids = np.atleast_1d(np.asarray(ids, np.int32))
@@ -688,6 +905,8 @@ class AcaiCache:
         order; y and x move with their rows.  Returns the (old capacity,)
         int32 remap (new id, -1 for dead rows) for every other id holder."""
         self._check_mutable_supported()
+        if self.mesh is not None:
+            return self._compact_sharded()
         live, remap = live_remap(self.valid)
         if self.index is not None:
             remap = self.index.compact()
@@ -711,7 +930,9 @@ class AcaiCache:
 
     @property
     def cached_ids(self) -> torch.Tensor:
-        return torch.nonzero(self.state.x > 0.5).flatten()
+        """The cached objects' ids (on a mesh, this rank's, as global ids)."""
+        ids = torch.nonzero(self.state.x > 0.5).flatten()
+        return ids if self.mesh is None else ids + self._block_lo()
 
     def normalized_gain(self, total_gain: float, t: int) -> float:
         """NAG of Eq. (11)."""

@@ -33,8 +33,8 @@ AÇAI's `answer_cache=` fronts its index with the exact answer memo
 reference.  `replay_trace_online` drives any policy through the online
 serving engine (`repro_torch.serve.queue`).  Every policy's catalog
 mutates online (`add_objects`, `remove_objects`, `refresh`, `compact`; the
-churn replay is `repro_torch.core.churn`).  `mesh=` (ROADMAP A11) raises
-NotImplementedError.
+churn replay is `repro_torch.core.churn`).  `mesh=` serves AÇAI through
+the sharded step (`repro_torch.core.distributed`).
 """
 
 from __future__ import annotations
@@ -216,8 +216,9 @@ def build_policy(spec, catalog, cost_model: CostModel, *, oracle=None,
     built online on `device` when omitted); AÇAI ignores it.  index_spec:
     AÇAI's remote-catalog index; baselines reject it.  answer_cache:
     AÇAI's answer memo in front of that index (an AnswerCacheSpec, its
-    dict, a capacity int or True; baselines reject it).  mesh: not ported
-    (AÇAI raises naming A11; baselines reject it as in the reference).
+    dict, a capacity int or True; baselines reject it).  mesh: serve AÇAI
+    through the sharded step (`repro_torch.core.distributed`) over a
+    DeviceMesh with a `model` axis; baselines reject it.
     seed: rounding / randomized-policy
     seed (a spec param `seed` wins).  device: where AÇAI runs and an
     online oracle scans, the card by default.
@@ -370,7 +371,7 @@ class AcaiPolicy:
         reqs = torch.as_tensor(reqs, dtype=torch.float32).to(dev).contiguous()
         t, b = reqs.shape[0], self.batch
         tt = (t // b) * b
-        step = acai.make_step_batched(self.cfg, self.cache._fn_batched, b)
+        step = self.cache._batch_step(b)  # the sharded step on a mesh
         state0 = self.cache.state  # replay from the cache's current state
         step(acai.copy_state(state0), reqs[:b])  # warm-up (builds kernels)
         times = []
@@ -381,8 +382,7 @@ class AcaiPolicy:
             step(s, reqs[:b])
             _sync(dev)
             times.append(time.perf_counter() - t0)
-        replay = acai.make_replay_batched(self.cfg, self.cache._fn_batched, b)
-        state, m = replay(state0, reqs[:tt], uniforms)
+        state, m = acai.make_replay_from_step(step, b)(state0, reqs[:tt], uniforms)
         self.cache.state = state
         return {
             "gain": _np(m.gain_int, np.float64),

@@ -1,8 +1,10 @@
 """Index API: protocol, spec and backend registry (port of `repro.index.base`).
 
 The batched `Index` protocol, the serializable `IndexSpec`, the registry
-that builds a backend from a spec (`flat`, `ivf`, `ivfpq`, `lsh`, `nsw`),
-and the mutable-catalog slab machinery every backend shares:
+that builds a backend from a spec (`flat`, `ivf`, `ivfpq`, `lsh`, `nsw`,
+and the sharded `ivf_sharded`, which also takes the device mesh and
+returns the structure the sharded step consumes), and the mutable-catalog
+slab machinery every backend shares:
 
 * `add(vectors (B, d)) -> (B,) int32 row ids` appends rows at the slab's
   high-water mark; ids are monotonic and never recycled.
@@ -398,23 +400,32 @@ class IndexSpec:
         return cls(backend, d)
 
 
-_REGISTRY: Dict[str, Callable] = {}
+@dataclasses.dataclass(frozen=True)
+class _Backend:
+    build: Callable
+    sharded: bool  # build takes (catalog, mesh, device=None, **params)
 
 
-def register_backend(name: str):
-    """Decorator registering `fn(catalog, device=None, **params)` under `name`."""
+_REGISTRY: Dict[str, _Backend] = {}
+
+
+def register_backend(name: str, *, sharded: bool = False):
+    """Decorator registering `fn(catalog, device=None, **params)` (or
+    `fn(catalog, mesh, device=None, **params)` when sharded) under `name`."""
 
     def deco(fn: Callable) -> Callable:
         if name in _REGISTRY:
             raise ValueError(f"index backend {name!r} already registered")
-        _REGISTRY[name] = fn
+        _REGISTRY[name] = _Backend(fn, sharded)
         return fn
 
     return deco
 
 
-def registered_backends() -> Tuple[str, ...]:
-    return tuple(sorted(_REGISTRY))
+def registered_backends(*, sharded: bool | None = None) -> Tuple[str, ...]:
+    """Sorted backend names; filtered by shardedness when given."""
+    return tuple(sorted(name for name, b in _REGISTRY.items()
+                        if sharded is None or b.sharded == sharded))
 
 
 def parse_index_opts(opts) -> Dict[str, Any]:
@@ -441,16 +452,23 @@ def _unknown_backend_msg(name: str) -> str:
             f"{', '.join(registered_backends())}")
 
 
-def build_index(spec, catalog, device=None):
+def build_index(spec, catalog, device=None, mesh=None):
     """Construct the index a spec (or its flat-dict form) describes over
-    `catalog`, on `device` (the CUDA card by default)."""
+    `catalog`, on `device` (the CUDA card by default).  Single-device
+    backends ignore `mesh`; sharded ones need it (their layout follows the
+    mesh's `model` axis)."""
     if isinstance(spec, Mapping):
         spec = IndexSpec.from_dict(spec)
     try:
-        build = _REGISTRY[spec.backend]
+        backend = _REGISTRY[spec.backend]
     except KeyError:
         raise ValueError(_unknown_backend_msg(spec.backend))
-    return build(catalog, device=device, **spec.params)
+    if backend.sharded:
+        if mesh is None:
+            raise ValueError(f"index backend {spec.backend!r} is sharded: build_index "
+                             f"needs the device mesh (mesh=...)")
+        return backend.build(catalog, mesh, device=device, **spec.params)
+    return backend.build(catalog, device=device, **spec.params)
 
 
 # Reserved spec-less name: "exact" means no index — the policy's
@@ -523,3 +541,28 @@ def _build_nsw(catalog, device=None, **kw):
     from repro_torch.index.nsw import NSWIndex
 
     return NSWIndex(catalog, device=device, **kw)
+
+
+@register_backend("ivf_sharded", sharded=True)
+def _build_ivf_sharded(catalog, mesh, device=None, *, model_axis: str = "model",
+                       centroids=None, invlists=None, **kw):
+    """One IVF coarse quantizer and list table per catalog shard on the
+    mesh's `model` axis (`repro_torch.core.distributed.ShardedIVF`, what
+    `make_step_sharded(ivf=...)` and `AcaiCache(mesh=...)` consume).
+    Prebuilt `centroids` (P nlist, d) and `invlists` (P nlist, cap; local
+    ids) load instead of training (`convert.sharded_ivf_from_numpy`)."""
+    from repro_torch.core.distributed import _axis_size, build_sharded_ivf
+
+    if model_axis not in mesh.mesh_dim_names:
+        raise ValueError(
+            f"ivf_sharded shards over mesh axis {model_axis!r}, but the mesh has axes "
+            f"{tuple(mesh.mesh_dim_names)} — pass model_axis=<axis name> in the spec "
+            f"params or rename the mesh axis")
+    if centroids is not None or invlists is not None:
+        from repro_torch.convert import sharded_ivf_from_numpy
+
+        if "nlist" not in kw:
+            raise ValueError("ivf_sharded: prebuilt centroids / invlists need nlist")
+        return sharded_ivf_from_numpy(centroids, invlists, kw["nlist"],
+                                      kw.get("nprobe", 8), device=device)
+    return build_sharded_ivf(catalog, _axis_size(mesh, model_axis), device=device, **kw)

@@ -70,13 +70,27 @@ model's capacity; admission control sheds on `--queue-cap` and
   ... --arrival flash_crowd --offered-load 1.2 --queue-cap 64
   ... --arrival closed_loop --slo-ms 25
 
-`--mesh-shards` above 1 raises naming ROADMAP A11.  `main(argv)` prints
-one line a tier and returns the figures as a dict.
+`--mesh-shards P` (P > 1) shards the semantic tier's catalog and AÇAI's
+state over a (1, P) mesh, one process a shard, as torchrun starts them:
+
+  torchrun --nproc-per-node 2 -m repro_torch.launch.serve --smoke \
+      --device cpu --mesh-shards 2 [--remote-index ivf_sharded]
+
+The world's size must be P.  `--device cpu` runs a gloo world; on the
+card each rank takes `cuda:$LOCAL_RANK` in an NCCL world.  Every rank
+runs the whole launcher on the same seeds; rank 0 prints.  A caller that
+has initialised the world itself (`torch.distributed.init_process_group`)
+keeps it; otherwise the launcher joins torchrun's and leaves it at the end.
+
+`main(argv)` prints one line a tier and returns the figures as a dict.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
+import os
 import sys
 import time
 
@@ -215,7 +229,7 @@ def semantic_traffic(params, cfg, n: int, prompt_len: int, n_req: int, rng,
 
 
 def run_semantic(params, cfg, args, rng, device, index_spec, policy_spec,
-                 answer_cache=None, remote=None, resilience=None) -> dict:
+                 answer_cache=None, remote=None, resilience=None, mesh=None) -> dict:
     """The semantic tier over a --catalog x d_model catalog of earlier
     prompts' embeddings (`semantic_traffic`): --requests single queries,
     then --query-batches batches of --batch, then (with --arrival)
@@ -245,7 +259,7 @@ def run_semantic(params, cfg, args, rng, device, index_spec, policy_spec,
     lm = SemanticCachedLM(params, cfg, catalog[:n_warm], payloads[:n_warm], gen_timer,
                           h=args.cache_size, k=4, index_spec=index_spec,
                           policy_spec=policy_spec, remote=remote,
-                          resilience=resilience, answer_cache=answer_cache)
+                          resilience=resilience, answer_cache=answer_cache, mesh=mesh)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     build_s = time.perf_counter() - t0
@@ -296,6 +310,8 @@ def run_semantic(params, cfg, args, rng, device, index_spec, policy_spec,
     tier = f"policy={out['policy']}"
     if lm.policy_spec.name == "acai":
         tier += f", index={out['index']}"
+    if mesh is not None:
+        tier += f", mesh=(1, {args.mesh_shards})"
     if args.churn_rate > 0:
         tier += (f", churn={args.churn_rate:g} ({churn['events']} insert/expire events, "
                  f"{churn['seconds']:.3f} s)")
@@ -399,7 +415,9 @@ def main(argv=None) -> dict:
                     help="share of --catalog live at the start under churn (the "
                          "rest is inserted over the run)")
     ap.add_argument("--mesh-shards", type=int, default=1,
-                    help="model shards of the semantic tier (above 1: not ported)")
+                    help="shard the semantic tier over a (1, P) mesh, one process a "
+                         "shard under torchrun --nproc-per-node P (1 = the "
+                         "single-device tier)")
     ap.add_argument("--answer-cache", type=int, default=None, metavar="CAP",
                     help="answer-cache entry budget: memoize exact top-k index "
                          "answers in front of the index scan (0 = pass-through; "
@@ -457,40 +475,106 @@ def main(argv=None) -> dict:
                      help="extra attempts after the first (default 2)")
     args = ap.parse_args(argv)
 
+    sharded = args.mesh_shards > 1
     if args.churn_rate < 0 or not 0.0 < args.churn_warm <= 1.0:
         raise SystemExit("--churn-rate must be >= 0 and --churn-warm in (0, 1]")
-    if args.mesh_shards > 1:
-        raise SystemExit("--mesh-shards: the sharded semantic tier (and its mutable "
-                         "catalog) is not ported yet (ROADMAP A11)")
     try:
         policy_spec = PolicySpec(args.policy, parse_policy_opts(args.policy_opt))
     except ValueError as e:
         raise SystemExit(str(e))
-    if args.policy != "acai" and args.remote_index != "exact":
-        raise SystemExit(f"--policy {args.policy} serves from the exact server "
-                         f"oracle; --remote-index only applies to acai")
+    if args.policy != "acai":
+        if args.remote_index != "exact":
+            raise SystemExit(f"--policy {args.policy} serves from the exact server "
+                             f"oracle; --remote-index only applies to acai")
+        if sharded:
+            raise SystemExit(f"--policy {args.policy} is a sequential baseline; "
+                             f"--mesh-shards only applies to acai")
     index_spec = None
     if args.remote_index != "exact":
         try:
             index_spec = IndexSpec(args.remote_index, parse_index_opts(args.index_opt))
         except ValueError as e:
             raise SystemExit(str(e))
+        if args.remote_index in registered_backends(sharded=True) and not sharded:
+            raise SystemExit(f"--remote-index {args.remote_index} is a sharded backend: "
+                             f"pass --mesh-shards P (P > 1)")
+        if args.remote_index not in registered_backends(sharded=True) and sharded:
+            raise SystemExit(f"--remote-index {args.remote_index} is single-device; with "
+                             f"--mesh-shards use one of "
+                             f"{('exact',) + registered_backends(sharded=True)}")
     elif args.index_opt:
         raise SystemExit("--index-opt needs --remote-index")
+    if sharded and args.answer_cache is not None:
+        raise SystemExit("--answer-cache needs the single-device cache (the sharded step "
+                         "owns candidate generation)")
     answer_cache = _answer_cache_spec(args, index_spec)
+    if args.churn_rate > 0 and sharded and index_spec is not None:
+        raise SystemExit("--churn-rate on a sharded mesh serves through the exact masked "
+                         "scan: drop --remote-index (mutating a sharded index backend "
+                         "online is not implemented)")
     remote, resilience = _resilience(args)
+    if sharded and remote is not None:
+        raise SystemExit("the resilient serving path needs the single-device cache (a "
+                         "fault-aware sharded step is not implemented)")
+    if sharded and args.catalog % args.mesh_shards:
+        raise SystemExit("--catalog must divide by --mesh-shards")
     cfg = get_config(args.arch, smoke=args.smoke)
     if not cfg.has_decode:
         raise SystemExit(f"{cfg.name} is encoder-only: no decode serving")
-    device = resolve_device(args.device)
-    params = init_params(cfg, seed=SEED, device=device)
-    rng = np.random.default_rng(SEED)
-    figures = {"arch": cfg.name, "device": str(device),
-               "engine": run_engine(params, cfg, args, rng, device)}
-    if args.catalog > 0:
-        figures["semantic"] = run_semantic(params, cfg, args, rng, device, index_spec,
-                                           policy_spec, answer_cache, remote, resilience)
+    own_world = False
+    mesh = None
+    if sharded:
+        own_world = _join_world(args)
+        device = resolve_device("cuda" if args.device in (None, "cuda") else args.device)
+        from repro_torch.launch.mesh import make_mesh
+
+        mesh = make_mesh((1, args.mesh_shards), device_type=device.type)
+    else:
+        device = resolve_device(args.device)
+    quiet = mesh is not None and torch.distributed.get_rank() != 0
+    try:
+        with contextlib.redirect_stdout(io.StringIO()) if quiet else contextlib.nullcontext():
+            params = init_params(cfg, seed=SEED, device=device)
+            rng = np.random.default_rng(SEED)
+            figures = {"arch": cfg.name, "device": str(device),
+                       "engine": run_engine(params, cfg, args, rng, device)}
+            if mesh is not None:
+                figures["mesh_shards"] = args.mesh_shards
+            if args.catalog > 0:
+                figures["semantic"] = run_semantic(params, cfg, args, rng, device,
+                                                   index_spec, policy_spec, answer_cache,
+                                                   remote, resilience, mesh)
+    finally:
+        if own_world:
+            torch.distributed.destroy_process_group()
     return figures
+
+
+def _join_world(args) -> bool:
+    """Make sure this process is a rank of a world of --mesh-shards ranks:
+    the caller's, or torchrun's (joined here, the card's device by
+    LOCAL_RANK).  Returns whether the launcher joined it (and so leaves it)."""
+    dist = torch.distributed
+    p = args.mesh_shards
+    joined = False
+    if not dist.is_initialized():
+        if "WORLD_SIZE" not in os.environ:
+            raise SystemExit(
+                f"--mesh-shards {p} runs one process a shard: start the launcher under "
+                f"torchrun --nproc-per-node {p} (this process is in no "
+                f"torch.distributed world)")
+        cuda = args.device in (None, "cuda")
+        if cuda:
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+        dist.init_process_group("nccl" if cuda else "gloo")
+        joined = True
+    if dist.get_world_size() != p:
+        world = dist.get_world_size()
+        if joined:
+            dist.destroy_process_group()
+        raise SystemExit(f"--mesh-shards {p} needs a world of {p} ranks, one a shard; "
+                         f"this one has {world} (torchrun --nproc-per-node {p})")
+    return joined
 
 
 def _answer_cache_spec(args, index_spec):

@@ -114,8 +114,8 @@ def _combine(out_buf, fe, pos, keep, gate, dtype):
 def _moe_two_stage(p: MoE, xf: torch.Tensor, cfg: ModelConfig):
     """The reference's per-data-shard dispatch (cfg.moe_dp blocks of
     tokens, positions and capacity counted within each block), taken when
-    moe_dp > 1 and no mesh is active: the port has no mesh, so this is
-    its moe_dp > 1 path.  xf (T, d) -> ((T, d), aux)."""
+    moe_dp > 1 and no mesh is active: the port's MoE takes no mesh, so
+    this is its moe_dp > 1 path.  xf (T, d) -> ((T, d), aux)."""
     t, d = xf.shape
     dp = cfg.moe_dp
     e, k = cfg.n_experts, cfg.experts_per_token
@@ -147,7 +147,7 @@ def _moe_two_stage(p: MoE, xf: torch.Tensor, cfg: ModelConfig):
 def _moe_shard_map(p: MoE, xf: torch.Tensor, cfg: ModelConfig):
     """The reference's expert-parallel form over a mesh: not ported."""
     raise NotImplementedError("the sharded MoE (shard_map over a mesh) is not "
-                              "ported yet (ROADMAP A11)")
+                              "ported yet (ROADMAP A11b)")
 
 
 def moe_ffn(p: MoE, x: torch.Tensor, cfg: ModelConfig):

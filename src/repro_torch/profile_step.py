@@ -1,23 +1,27 @@
 """Where the time of the batched serving step goes, on the CUDA card.
 
     PYTHONPATH=src python -m repro_torch.profile_step [--steps 8] [--n 1000000]
-        [--index flat ivf ivfpq] [--batch 8 64]
+        [--index exact flat ivf ivfpq] [--batch 8 64] [--mesh]
     PYTHONPATH=src python -m repro_torch.profile_step --lm [--steps 8]
     PYTHONPATH=other/src python src/repro_torch/profile_step.py [...]
 
 Builds the slice's 1M x 128 configuration (the one chip_smoke.py serves),
 then for each of flat, IVF and IVF-PQ at B = 8 and 64 runs a few warm
 steps and profiles `--steps` more with torch.profiler (`--index` and
-`--batch` pick a subset; run as a file with another checkout's `src` on
-PYTHONPATH, it profiles that checkout's code).  With `--lm` it
+`--batch` pick a subset, `exact` adds the exact candidates; run as a file
+with another checkout's `src` on PYTHONPATH, it profiles that checkout's
+code).  `--mesh` profiles the sharded step too, on a one-rank NCCL mesh
+(repro_torch.core.distributed; exact, and IVF as `ivf_sharded` over the
+same lists), beside the single-device step.  With `--lm` it
 profiles the LM tier instead, qwen1.5-0.5b at full width as chip_smoke.py
 serves it: a 4096-token prefill into an 8192-token cache (the flash
 path), and decode steps of a batch of 4 over that cache.  Prints, per
 run, the wall time per step, the device busy time per step (the union of
 kernel intervals on the card's timeline), the idle share (1 - busy /
 wall), the device operations a step (kernels, copies and fills: each one a
-launch the host paid for) and the device time by kernel name.  Needs a
-CUDA card; it does not fall back.
+launch the host paid for), the device time by kernel name and the host
+operations taking the most host time of their own.  Needs a CUDA card; it
+does not fall back.
 """
 
 from __future__ import annotations
@@ -66,6 +70,10 @@ def _profile(label: str, fn, steps: int) -> None:
             for e in prof.key_averages() if e.device_time_total > 0]
     for key, us, count in sorted(rows, key=lambda r: -r[1])[:20]:
         print(f"   {us:10.1f} us/step  x{count:<3d} {key[:90]}")
+    host = [(e.key, e.self_cpu_time_total / steps, e.count // steps)
+            for e in prof.key_averages() if e.self_cpu_time_total > 0]
+    for key, us, count in sorted(host, key=lambda r: -r[1])[:12]:
+        print(f"   host {us:10.1f} us/step  x{count:<3d} {key[:85]}")
 
 
 def profile_lm(steps: int, dev: torch.device) -> None:
@@ -101,8 +109,9 @@ def main() -> None:
     ap.add_argument("--n", type=int, default=1_000_000)
     ap.add_argument("--lm", action="store_true")
     ap.add_argument("--index", nargs="+", default=["flat", "ivf", "ivfpq"],
-                    choices=["flat", "ivf", "ivfpq"])
+                    choices=["exact", "flat", "ivf", "ivfpq"])
     ap.add_argument("--batch", type=int, nargs="+", default=[8, 64])
+    ap.add_argument("--mesh", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_step: needs a CUDA card")
@@ -122,19 +131,51 @@ def main() -> None:
                             oma=oma.OMAConfig(eta=0.05 / c_f))
     state0 = policy.init_state(args.n, cfg, seed=0, device=dev)
     rq = torch.from_numpy(reqs).to(dev)
-    specs = {"flat": IndexSpec("flat"),
+    specs = {"exact": None, "flat": IndexSpec("flat"),
              "ivf": IndexSpec("ivf", {"nlist": 256, "nprobe": 16, "train_iters": 4}),
              "ivfpq": IndexSpec("ivfpq", {"nlist": 256, "nprobe": 16, "m": 8, "refine": 4})}
-    for spec in (specs[name] for name in args.index):
+    mesh = store = None
+    if args.mesh:
+        import tempfile
+
+        import torch.distributed as dist
+        from repro_torch.core.distributed import build_sharded_ivf
+        from repro_torch.launch.mesh import make_host_mesh
+
+        store = tempfile.mkdtemp(prefix="profile_step_store_")
+        dist.init_process_group("nccl", init_method=f"file://{store}/s", rank=0,
+                                world_size=1)
+        mesh = make_host_mesh("cuda")
+        cfg = dataclasses.replace(cfg, oma=dataclasses.replace(
+            cfg.oma, projection_topk=2 * cfg.h + 64))  # the sharded step's top_a
+        if "ivf" in args.index:  # one trained structure for both arms
+            ivf = build_sharded_ivf(cat, 1, nlist=256, nprobe=16, train_iters=4, device=dev)
+            lists = {"nlist": 256, "nprobe": 16, "centroids": ivf.centroids.cpu().numpy(),
+                     "invlists": ivf.invlists.cpu().numpy()}
+            specs["ivf"] = IndexSpec("ivf", lists)
+            specs["ivf_sharded"] = IndexSpec("ivf_sharded", lists)
+    arms = []
+    for name in args.index:
+        arms.append((name, specs[name], None))
+        if mesh is not None and name in ("exact", "ivf"):
+            arms.append((f"{name} sharded", specs["ivf_sharded" if name == "ivf" else name],
+                         mesh))
+    for name, spec, m in arms:
         for b in args.batch:
+            kw = {"device": dev} if m is None else {"mesh": m}
             cache = policy.AcaiCache(cat, dataclasses.replace(cfg, index=spec),
-                                     device=dev, state=policy.copy_state(state0))
+                                     state=policy.copy_state(state0), **kw)
             warm = 4
             for i in range(warm):
                 cache.serve_update_batch(rq[i * b:(i + 1) * b])
-            _profile(f"{spec.backend} B={b}",
+            _profile(f"{name} B={b}",
                      lambda i: cache.serve_update_batch(rq[(warm + i) * b:(warm + i + 1) * b]),
                      args.steps)
+    if store is not None:
+        import shutil
+
+        torch.distributed.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
     print(f"card: {torch.cuda.get_device_name(0)}")
 
 

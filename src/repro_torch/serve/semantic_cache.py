@@ -21,8 +21,10 @@ mutation included (`add_documents`, `remove_documents`, `compact`).
 `answer_cache` fronts AÇAI's index with the exact answer memo
 (`repro_torch.serve.answer_cache`); `remote` / `resilience` route every
 request through the resilient remote tier (`ResilientPolicy`: retries,
-hedging, deadline, circuit breaker, degradation), for any policy.  The
-mesh (ROADMAP A11) raises NotImplementedError.
+hedging, deadline, circuit breaker, degradation), for any policy.  `mesh`
+(a DeviceMesh with a `model` axis) shards AÇAI's catalog scan and OMA step
+over the mesh (`repro_torch.core.distributed`); every rank of the world
+builds the tier over the same catalog and serves the same prompts.
 """
 
 from __future__ import annotations
@@ -36,9 +38,6 @@ from repro_torch.core import policy_api
 from repro_torch.core.costs import CostModel, calibrate_fetch_cost
 from repro_torch.index.base import resolve_spec
 from repro_torch.models.config import ModelConfig
-
-_NOT_PORTED = "{what} is not ported yet (ROADMAP A{item})"
-
 
 def embed_prompt(params, tokens: torch.Tensor) -> torch.Tensor:
     """(S,) integer tokens -> (d,) normalised mean-pooled float32 embedding;
@@ -66,9 +65,6 @@ class SemanticCachedLM:
                  eta: Optional[float] = None, seed: int = 0, mesh=None,
                  index_spec=None, policy_spec=None, remote=None,
                  resilience=None, answer_cache=None):
-        if mesh is not None:
-            raise NotImplementedError(_NOT_PORTED.format(
-                what="the sharded semantic tier (mesh)", item=11))
         self.params, self.cfg = params, cfg
         self.device = params.embed.device
         self.payloads = list(catalog_payloads)
@@ -95,14 +91,14 @@ class SemanticCachedLM:
             raise ValueError(f"eta only applies to the 'acai' policy, not "
                              f"{spec.name!r}")
         spec = policy_api.PolicySpec(spec.name, {**base, **spec.params})
-        if spec.name != "acai" and (index_spec is not None
+        if spec.name != "acai" and (index_spec is not None or mesh is not None
                                     or answer_cache is not None):
             raise ValueError(
                 f"policy {spec.name!r} serves from the exact server oracle; "
                 f"index_spec/mesh/answer_cache only apply to 'acai'")
         self.policy = policy_api.build_policy(
             spec, catalog, CostModel(c_f=float(c_f)), index_spec=index_spec,
-            seed=seed, answer_cache=answer_cache, device=self.device)
+            mesh=mesh, seed=seed, answer_cache=answer_cache, device=self.device)
         # resilient serving: with a remote backend and / or a resilience
         # config, every request first runs its remote interaction, and
         # failures fall down the degradation ladder, for any policy

@@ -7,7 +7,7 @@
   `threshold x` the window's median.  The resilient serving tier
   (`repro_torch.serve.resilience`) reuses it per request.
 * `reshard`: move a whole state tree to a device (the reference's mesh
-  form is ROADMAP A11).
+  form is ROADMAP A11b).
 """
 
 from __future__ import annotations

@@ -163,7 +163,10 @@ def test_candidate_slabs_match_reference(clustered, backend):
 
 
 def test_every_single_device_backend_is_registered():
-    assert set(tbase.registered_backends()) == {"flat", "ivf", "ivfpq", "lsh", "nsw"}
+    assert set(tbase.registered_backends()) == {"flat", "ivf", "ivfpq", "lsh", "nsw",
+                                                "ivf_sharded"}
+    assert set(tbase.registered_backends(sharded=False)) == {"flat", "ivf", "ivfpq", "lsh",
+                                                             "nsw"}
     cat = np.random.default_rng(0).random((200, 8), np.float32)
     for name, kw in {"ivfpq": {"nlist": 4, "nprobe": 2, "m": 2},
                      "lsh": {"tables": 2, "bits": 4},

@@ -290,8 +290,8 @@ def test_launcher_churn_on_the_cpu():
     fig = serve.main(["--smoke", "--device", "cpu", "--requests", "4", "--batch", "4",
                       "--catalog", "32"])
     assert fig["semantic"]["churn_events"] == 0 and fig["semantic"]["warm"] == 32
-    with pytest.raises(SystemExit, match="A11"):
+    with pytest.raises(SystemExit, match="exact masked scan"):
         serve.main(["--smoke", "--device", "cpu", "--mesh-shards", "2",
-                    "--churn-rate", "0.1"])
+                    "--churn-rate", "0.1", "--remote-index", "ivf_sharded"])
     with pytest.raises(SystemExit, match="churn"):
         serve.main(["--smoke", "--device", "cpu", "--churn-rate", "-1"])

@@ -121,9 +121,13 @@ def test_index_candidate_slabs_match_reference(clustered, backend, b):
 
 
 def test_registry_and_specs():
-    assert tbase.registered_backends() == ("flat", "ivf", "ivfpq", "lsh", "nsw")
+    assert set(tbase.registered_backends()) == {"flat", "ivf", "ivfpq", "lsh", "nsw",
+                                                "ivf_sharded"}
+    assert tbase.registered_backends(sharded=True) == ("ivf_sharded",)
+    assert tbase.registered_backends(sharded=False) == ("flat", "ivf", "ivfpq", "lsh", "nsw")
     with pytest.raises(ValueError, match=r"unknown index backend 'nope'; "
-                                         r"registered: flat, ivf, ivfpq, lsh, nsw"):
+                                         r"registered: flat, ivf, ivf_sharded, ivfpq, lsh, "
+                                         r"nsw"):
         tbase.resolve_spec("nope")
     assert tbase.resolve_spec("exact") is None
     assert tbase.resolve_spec({"backend": "exact"}) is None

@@ -174,7 +174,9 @@ def test_acai_cache_static_api():
     # the catalog mutates online (the parity tests: tests/test_torch_mutable.py)
     assert cache.add_objects(np.zeros((1, 8), np.float32)).tolist() == [400]
     assert cache.live_count == 401
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+    # on a mesh cfg.index must be a sharded layout, refused before the mesh
+    # is touched (the sharded cache: tests/test_torch_distributed.py)
+    with pytest.raises(ValueError, match="not a sharded layout"):
         tpol.AcaiCache(cat, cfg, device="cpu", mesh=object())
     with pytest.raises(TypeError, match="answer_cache"):
         tpol.AcaiCache(cat, cfg, device="cpu", answer_cache=object())

@@ -275,9 +275,10 @@ def test_spec_errors(setup):
     with pytest.raises(ValueError, match="mesh"):
         build_policy(PolicySpec("qcache", {"h": 8}), catalog, cm, mesh=object(),
                      device="cpu")
-    # what is not ported yet names its ROADMAP item
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        build_policy(PolicySpec("acai", {"h": 8}), catalog, cm, mesh=object(), device="cpu")
+    # AÇAI on a mesh takes the exact sharded scan or a sharded index only
+    with pytest.raises(ValueError, match="not a sharded layout"):
+        build_policy(PolicySpec("acai", {"h": 8}), catalog, cm, mesh=object(),
+                     index_spec="flat", device="cpu")
     # the answer tier (ported) fronts an index: without one it is refused,
     # as in the reference (tests/test_torch_answer_cache.py holds the rest)
     with pytest.raises(ValueError, match="cfg.index"):

@@ -224,8 +224,11 @@ def test_semantic_cached_lm_refuses_what_is_not_ported(lm):
     _, _, tcfg, port = lm
     cat = np.eye(8, tcfg.d_model, dtype=np.float32)
     kw = dict(h=2, k=1, c_f=1.0)
-    with pytest.raises(NotImplementedError, match="A11"):
-        TSemantic(port, tcfg, cat, list(range(8)), lambda p: None, **kw, mesh=object())
+    # the sharded tier takes the exact scan or a sharded index
+    # (tests/test_torch_distributed.py runs it on two ranks)
+    with pytest.raises(ValueError, match="not a sharded layout"):
+        TSemantic(port, tcfg, cat, list(range(8)), lambda p: None, **kw, mesh=object(),
+                  index_spec="flat")
     # the remote / resilience tiers and the answer cache are ported
     # (test_semantic_tier_resilience_and_answer_cache_match_reference); the
     # answer cache needs an index, as in the reference
@@ -436,7 +439,7 @@ def test_launcher_a9_flags_on_the_cpu(flags):
     (["--index-opt", "nlist=8"], "--index-opt needs --remote-index"),
     (["--remote-fault-rate", "1.5"], "error_rate"),
     (["--remote-fault-outage", "9:3"], "outage window"),
-    (["--mesh-shards", "2"], "A11"),
+    (["--mesh-shards", "2"], "torchrun"),
 ])
 def test_launcher_a9_validation_errors(flags, msg):
     """The reference's validation errors, raised before any model is built."""

@@ -1,0 +1,385 @@
+"""Spawned torch.distributed worlds for the port's sharded tests, and the
+work their ranks do.
+
+`run_world(fn, shape, tmp_path, *args)` starts one process a rank of a
+(data, model) = `shape` mesh: a gloo world on the CPU whose store is a
+file under `tmp_path` (so concurrent test workers never share a port),
+calls `fn(mesh, rank, *args)` in each and returns the ranks' results.  A
+world that has not finished within its time limit is killed and the test
+fails; a rank that raises fails it with the rank's traceback.
+
+The rank functions live here, not in the test modules, so a rank imports
+torch and the port only (never JAX: the parent computes the reference's
+side and passes numpy arrays in).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import io
+import multiprocessing
+import pickle
+import time
+import traceback
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+WORLD_TIMEOUT_S = 120.0
+
+
+@pytest.fixture(scope="module")
+def host_mesh(tmp_path_factory):
+    """A one-rank gloo world in the test's own process and its (1, 1) mesh,
+    left at the module's end."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+
+    store = tmp_path_factory.mktemp("store") / "s"
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=0, world_size=1)
+    try:
+        yield make_host_mesh()
+    finally:
+        dist.destroy_process_group()
+
+
+def _entry(fn, rank: int, world: int, shape, store: str, out: str, args) -> None:
+    import torch
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    try:
+        dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                                world_size=world)
+        from repro_torch.launch.mesh import make_mesh
+
+        res = ("ok", fn(make_mesh(shape), rank, *args))
+        dist.destroy_process_group()
+    except (Exception, SystemExit):  # the parent reports it
+        res = ("error", traceback.format_exc())
+    with open(f"{out}/rank{rank}.tmp", "wb") as f:
+        pickle.dump(res, f)
+    Path(f"{out}/rank{rank}.tmp").rename(f"{out}/rank{rank}.pkl")
+
+
+def run_world(fn, shape, tmp_path, *args, timeout: float = WORLD_TIMEOUT_S) -> list:
+    world = int(np.prod(shape))
+    base = Path(tmp_path) / f"world_{fn.__name__}_{'x'.join(map(str, shape))}"
+    base.mkdir(parents=True, exist_ok=False)
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_entry, args=(fn, r, world, tuple(shape),
+                                              str(base / "store"), str(base), args),
+                         daemon=True) for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + timeout
+    results: dict = {}
+    try:
+        while len(results) < world:
+            for r in range(world):
+                f = base / f"rank{r}.pkl"
+                if r not in results and f.exists():
+                    with open(f, "rb") as fh:
+                        results[r] = pickle.load(fh)
+                    if results[r][0] == "error":
+                        raise AssertionError(f"rank {r} of the {shape} world:\n"
+                                             f"{results[r][1]}")
+            if len(results) == world:
+                break
+            dead = [r for r, p in enumerate(procs)
+                    if not p.is_alive() and r not in results
+                    and not (base / f"rank{r}.pkl").exists()]
+            if dead:
+                raise AssertionError(f"ranks {dead} of the {shape} world exited "
+                                     f"({[procs[r].exitcode for r in dead]}) without a "
+                                     f"result")
+            if time.monotonic() > deadline:
+                raise AssertionError(f"the {shape} world did not finish within "
+                                     f"{timeout} s")
+            time.sleep(0.05)
+    finally:
+        for p in procs:
+            p.join(timeout=5)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    return [results[r][1] for r in range(world)]
+
+
+# ---------------------------------------------------------------------------
+# rank functions
+# ---------------------------------------------------------------------------
+
+def jobs_rank(mesh, rank, jobs) -> dict:
+    """Several rank functions in one world (a world costs a torch import a
+    rank): [(name, data), ...] -> {name: result}."""
+    fns = {"retrieval": retrieval_rank, "budgets": budgets_rank, "replay": replay_rank,
+           "slab": slab_rank, "serving": serving_rank, "churn": churn_rank}
+    return {name: fns[name](mesh, rank, data) for name, data in jobs}
+
+def _np(t):
+    return t.detach().cpu().numpy()
+
+
+def retrieval_rank(mesh, rank, data: dict) -> dict:
+    """make_retrieval_step plain, at scan_chunk 50 and (given the
+    reference's structures) on the sharded IVF; y gathered whole."""
+    import torch
+
+    from repro_torch import convert
+    from repro_torch.core import distributed as D
+
+    cat, y0, reqs = (torch.from_numpy(data[k]) for k in ("cat", "y0", "reqs"))
+    kw = data["kw"]
+    n_model = D._axis_size(mesh, "model")
+    blk, yb = D.block_of(cat, mesh), D.block_of(y0, mesh)
+    out = {}
+    variants = {"plain": {}, "chunk": {"scan_chunk": 50}}
+    if data.get("ivf") is not None:
+        c, inv, nlist, nprobe = data["ivf"]
+        variants["ivf"] = {"ivf": convert.sharded_ivf_from_numpy(c, inv, nlist, nprobe,
+                                                                 device="cpu")}
+    for name, extra in variants.items():
+        step = D.make_retrieval_step(mesh, n_shard=cat.shape[0] // n_model, **kw, **extra)
+        D.reset_collectives()
+        y1, ans, m = step(blk, yb, reqs)
+        counts = dict(D.COLLECTIVES)
+        out[name] = {"y": _np(D.gather_rows(y1, mesh)), "ans": _np(ans),
+                     "gain": float(m["gain"]), "counts": counts}
+    return out
+
+
+def _budget(fn, *args):
+    from repro_torch.core import distributed as D
+
+    return D.collectives_per_step(fn, *args)
+
+
+def budgets_rank(mesh, rank, data: dict) -> dict:
+    """Collectives a step of every sharded step on this mesh (the
+    reference's tests/test_collectives.py cases)."""
+    import torch
+
+    from repro_torch.core import distributed as D
+    from repro_torch.core import oma, policy
+
+    n, d, b = data["n"], data["d"], 8
+    cat = torch.from_numpy(data["cat"])
+    cfg = policy.AcaiConfig(h=16, k=4, c_f=1.0, c_remote=16, c_local=8,
+                            oma=oma.OMAConfig(eta=0.01, projection_topk=48))
+    wide = policy.AcaiConfig(h=16, k=4, c_f=1.0, c_remote=48, c_local=24,
+                             oma=oma.OMAConfig(eta=0.01, projection_topk=48))
+    p = D._axis_size(mesh, "model")
+    blk = D.block_of(cat, mesh)
+    whole = policy.init_state(n, cfg, device="cpu")
+    state = policy.CacheState(D.block_of(whole.y, mesh).clone(),
+                              D.block_of(whole.x, mesh).clone(), 0, whole.gen)
+    rs = torch.zeros((b, d))
+    out = {"exact": _budget(D.make_step_sharded(cfg, mesh, blk, b), state, rs),
+           "wide": _budget(D.make_step_sharded(wide, mesh, blk, b), state, rs),
+           "chunk": _budget(D.make_step_sharded(cfg, mesh, blk, b, scan_chunk=64), state,
+                            rs),
+           "mutable": _budget(D.make_mutable_step_sharded(cfg, mesh, b), state, rs, blk,
+                              torch.ones(blk.shape[0], dtype=torch.bool))}
+    ivf = D.build_sharded_ivf(cat, p, nlist=8, nprobe=4, device="cpu")
+    out["ivf"] = _budget(D.make_step_sharded(cfg, mesh, blk, b, ivf=ivf), state, rs)
+    step = D.make_retrieval_step(mesh, n_shard=n // p, d=d, c=16, k=4, c_f=1.0, h=16,
+                                 eta=0.01, top_a=32)
+    out["retrieval"] = _budget(step, blk, torch.full((n // p,), 0.1), rs)
+    return out
+
+
+def replay_rank(mesh, rank, data: dict) -> dict:
+    """make_replay_sharded against the single-device batched replay (the
+    reference's (2, 4) NAG check), and the sharded step on the IVF."""
+    import torch
+
+    from repro_torch.core import distributed as D
+    from repro_torch.core import oma, policy, trace
+
+    n, d, t, h, k = data["n"], data["d"], data["t"], data["h"], data["k"]
+    cat, reqs, _ = trace.sift_like(n=n, d=d, t=t, seed=0)
+    cat, reqs = torch.from_numpy(cat), torch.from_numpy(reqs)
+    cfg = policy.AcaiConfig(h=h, k=k, c_f=1.0, c_remote=24, c_local=8,
+                            oma=oma.OMAConfig(eta=0.05, projection_topk=2 * h + 64))
+    s0 = policy.init_state(n, cfg, device="cpu")
+    fnb = policy.exact_candidate_fn_batched(cat, cfg.c_remote, cfg.c_local)
+    _, m_b = policy.make_replay_batched(cfg, fnb, 8)(policy.copy_state(s0), reqs)
+    blk = D.block_of(cat, mesh)
+    sb = policy.CacheState(D.block_of(s0.y, mesh).clone(), D.block_of(s0.x, mesh).clone(),
+                           0, torch.Generator().manual_seed(0))
+    _, m_s = D.make_replay_sharded(cfg, mesh, blk, 8)(sb, reqs)
+    out = {"nag_batched": float(m_b.gain_int.sum()) / (k * t),
+           "nag_sharded": float(m_s.gain_int.sum()) / (k * t),
+           "metrics_shape": tuple(m_s.gain_int.shape)}
+    # the serving step on the sharded IVF (the reference's structures)
+    from repro_torch import convert
+
+    c, inv, nlist, nprobe = data["ivf"]
+    ivf = convert.sharded_ivf_from_numpy(c, inv, nlist, nprobe, device="cpu")
+    step = D.make_step_sharded(cfg, mesh, blk, 8, ivf=ivf)
+    st = sb
+    for i in range(0, 64, 8):
+        st, m = step(st, reqs[i:i + 8])
+    out["ivf_y_sum"] = float(D.gather_rows(st.y, mesh).sum())
+    out["ivf_gain_finite"] = bool(torch.isfinite(m.gain_int).all())
+    return out
+
+
+def slab_rank(mesh, rank, data: dict) -> dict:
+    """sharded_slab_append on this rank's blocks, gathered whole (growth
+    included)."""
+    import torch
+
+    from repro_torch.core import distributed as D
+
+    emb, valid = torch.from_numpy(data["emb"]), torch.from_numpy(data["valid"])
+    eb, vb = D.block_of(emb, mesh).clone(), D.block_of(valid, mesh).clone()
+    y = torch.arange(emb.shape[0], dtype=torch.float32)
+    e2, v2, ids, (y2,) = D.sharded_slab_append(eb, vb, data["n_slots"],
+                                               torch.from_numpy(data["vecs"]), mesh,
+                                               carry=(D.block_of(y, mesh).clone(),))
+    return {"emb": _np(D.gather_rows(e2, mesh)), "valid": _np(D.gather_rows(v2, mesh)),
+            "ids": ids, "y": _np(D.gather_rows(y2, mesh)), "sites": dict(D.COLLECTIVE_SITES)}
+
+
+def serving_rank(mesh, rank, data: dict) -> dict:
+    """SemanticCachedLM on the mesh beside the single-device tier, and the
+    launcher's --mesh-shards in this world (rank 0 prints)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import init_params
+    from repro_torch.serve import SemanticCachedLM, embed_prompt
+
+    out = {}
+    cfg = get_config("qwen1.5-0.5b", smoke=True)
+    params = init_params(cfg, seed=0, device="cpu")
+    g = torch.Generator().manual_seed(3)
+    toks = torch.randint(0, cfg.vocab, (64, 8), generator=g)
+    cat = embed_prompt(params, toks)
+    reqs = [toks[int(i)] for i in torch.randint(0, 64, (32,), generator=g)]
+    nags = {}
+    for name, mesh_arg in (("mesh", mesh), ("single", None)):
+        lm = SemanticCachedLM(params, cfg, cat, list(range(64)), lambda p: None, h=8, k=2,
+                              c_f=0.5, seed=0, mesh=mesh_arg)
+        served = []
+        for i in range(0, 32, 8):
+            m = lm.query_batch(reqs[i:i + 8])
+            served.append(_np(m.served_local))
+        lm.query(reqs[0])
+        nags[name] = lm.nag
+        out[f"{name}_served"] = np.concatenate(served)
+        out[f"{name}_requests"] = lm.stats.requests
+    out["nags"] = nags
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        figs = {}
+        for label, extra in data["launcher_runs"].items():
+            figs[label] = serve.main(["--smoke", "--device", "cpu", "--mesh-shards", "2",
+                                      "--requests", "4", "--batch", "4", "--query-batches",
+                                      "2", "--catalog", "64", "--cache-size", "8", *extra])
+    out["launcher"] = {k: {"nag": f["semantic"]["nag"], "requests":
+                           f["semantic"]["requests"], "shards": f["mesh_shards"],
+                           "churn_events": f["semantic"]["churn_events"],
+                           "index": f["semantic"]["index"]} for k, f in figs.items()}
+    out["printed"] = buf.getvalue()
+    return out
+
+
+def churn_rank(mesh, rank, data: dict) -> dict:
+    """The sharded churn invariants on this mesh (the reference's
+    multi-device tests/test_sharded_churn.py cases)."""
+    import torch
+
+    from repro_torch.core import churn, oma, policy
+    from repro_torch.core.distributed import owner_shard
+    from repro_torch.serve.answer_cache import AnswerCache, AnswerCacheSpec
+
+    cfg = policy.AcaiConfig(h=16, k=4, c_f=1.0, c_remote=16, c_local=8,
+                            oma=oma.OMAConfig(eta=0.01, projection_topk=48))
+    d = 8
+    out = {}
+    # removed rows from both shards hold zero y / x through every update
+    rng = np.random.default_rng(5)
+    cat = rng.standard_normal((128, d)).astype(np.float32)
+    rq = torch.from_numpy(rng.standard_normal((40, d)).astype(np.float32))
+    cache = policy.AcaiCache(cat, cfg, seed=0, mesh=mesh)
+    removed = data["removed"]
+    out["owners"] = sorted(set(owner_shard(removed, 128, 2).tolist()))
+    cache.remove_objects(removed)
+    lo = cache._block_lo()
+    mine = torch.tensor([r - lo for r in removed if lo <= r < lo + 64], dtype=torch.long)
+    zero = True
+    for s in range(0, 40, 8):
+        m = cache.serve_update_batch(rq[s:s + 8])
+        zero &= float(cache.state.y[mine].abs().sum()) == 0.0
+        zero &= float(cache.state.x[mine].abs().sum()) == 0.0
+    out["removed_zero"] = zero
+    out["occupancy"] = float(m.occupancy[0])
+    out["live"] = cache.live_count
+    out["cached"] = _np(cache.cached_ids)
+    # one shard all tombstoned, the other below top-A
+    rng = np.random.default_rng(7)
+    cat = rng.standard_normal((128, d)).astype(np.float32)
+    rq = torch.from_numpy(rng.standard_normal((16, d)).astype(np.float32))
+    cache = policy.AcaiCache(cat, cfg, seed=0, mesh=mesh)
+    cache.remove_objects(list(range(56, 128)))
+    cache.remove_objects(list(range(8, 56)))
+    out["edge_live"] = cache.live_count
+    for s in range(0, 16, 8):
+        m = cache.serve_update_batch(rq[s:s + 8])
+    from repro_torch.convert import gather_state
+
+    y, _ = gather_state(cache.state, mesh)
+    out["edge_y"] = y
+    out["edge_gain_finite"] = bool(torch.isfinite(m.gain_int).all())
+    out["edge_occupancy"] = float(m.occupancy[0])
+    # the rolling-catalog churn replay with compaction
+    catalog, reqs, events, n0 = data["rolling"]
+    cache = policy.AcaiCache(catalog[:n0], cfg, seed=0, mesh=mesh)
+    res = churn.replay_with_churn(cache, catalog, reqs, events, batch=8, compact_every=24)
+    out["replay"] = {"events_applied": res["events_applied"],
+                     "compactions": res["compactions"], "live": cache.live_count,
+                     "cap": cache.catalog.shape[0] * 2,
+                     "gain_finite": bool(np.isfinite(res["gain"]).all()),
+                     "gain": res["gain"]}
+    # compaction's remap through the answer cache's inverted map
+    rng = np.random.default_rng(11)
+    cat = rng.standard_normal((128, d)).astype(np.float32)
+    cache = policy.AcaiCache(cat, cfg, seed=0, mesh=mesh)
+    ac = AnswerCache(AnswerCacheSpec(capacity=16))
+    qs = rng.standard_normal((3, d)).astype(np.float32)
+    stored = np.array([[2, 90, 31], [64, 5, 100], [31, 2, 127]], np.int32)
+    ac.store_batch(qs, 3, np.ones((3, 3), np.float32), stored)
+    removed = [0, 7, 40, 70, 111]
+    cache.remove_objects(removed)
+    out["ac_invalidated"] = ac.invalidate_removed(removed)
+    from repro_torch.core.distributed import gather_rows
+
+    old_emb = _np(gather_rows(cache.catalog, mesh))
+    remap = cache.compact()
+    ac.remap_ids(remap)
+    new_emb = _np(gather_rows(cache.catalog, mesh))
+    entries = list(ac._store.values())
+    out["ac_ok"] = all(np.array_equal(remap[e_old], e_new.ids)
+                       and np.array_equal(old_emb[e_old], new_emb[e_new.ids])
+                       for e_old, e_new in zip(stored, entries))
+    out["ac_inv_ok"] = (all(all(oid in ac._store[k].ids for k in keys)
+                            for oid, keys in ac._inv.items())
+                        and set(ac._inv) == {int(i) for e in entries for i in e.ids})
+    out["compact_cap"] = cache.catalog.shape[0] * 2
+    # mutation guards: the scan_chunk path refuses mutation, untouched
+    chunked = policy.AcaiCache(cat, cfg, seed=0, mesh=mesh, sharded_kwargs={"scan_chunk": 64})
+    try:
+        chunked.add_objects(np.zeros((2, d), np.float32))
+        out["guard"] = None
+    except NotImplementedError as e:
+        out["guard"] = str(e)
+    out["guard_untouched"] = not chunked._mutated
+    # sharded_slab_append at P = 2 on the reference's case
+    out["slab"] = slab_rank(mesh, rank, data["slab"])
+    return out
