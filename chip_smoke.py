@@ -162,10 +162,28 @@ Phases, each of which raises on failure (the script then exits non-zero):
              B 64, the shard's IVF table) join the kernels line, and so
              does each kernel at a 4-card shard's shape (250000 rows) on
              one card, with 0 launches.  `--only sharded` runs the build
-             and this phase alone and prints no result.
+             and this phase alone and prints no result;
+13. moe_ep — the expert-parallel MoE (repro_torch.models.moe under
+             repro_torch.sharding.ctx.mesh_context) on a one-rank NCCL
+             world: (a) mixtral-8x22b at its published widths, 2 of 56
+             layers, weights from seed 0, moe_dp 16, through ServeEngine at
+             batch 2 (two 8192-token prompts, 32 decode steps) under the
+             (1, 1) mesh against the same engine with no mesh and moe_dp 0:
+             every prefill's logits equal bit for bit (the shard_map
+             branch), every decode token equal (the single-stage branch),
+             4 all-gathers and 2 all-reduces a MoE layer and call, two
+             wgmma flash launches a prefill; (b) jamba-1.5-large's MoE
+             layer at full width in bf16 (16 experts x 3 x 8192 x 24576,
+             drawn on the card), 8192 tokens, capacity factor 1.25: the
+             (1, 1)-mesh layer and the four shares of a (1, 4) mesh
+             (`moe_local` on views of the same weights, summed in rank
+             order) each equal to the single-stage layer bit for bit, each
+             share timed (CUDA events), peak memory.  `--only moe_ep` runs
+             the build and this phase alone and prints no result.
 
 The sharded phase's launches count with the main path's (its churn run's
-with the churn path's).  The churn path's kernel rows (masked `l2_topk` over the slab, AÇAI's exact
+with the churn path's), and so do the moe_ep phase's mesh arm's.  The
+churn path's kernel rows (masked `l2_topk` over the slab, AÇAI's exact
 scan over it, the add-time assignment, the masked IVF probe and IVF-PQ
 shortlist on appended lists) count the churn phase's launches; the other
 rows the slice's, policies' and LM slice's.
@@ -2554,6 +2572,219 @@ def sharded_nccl_profile(torch, dev) -> None:
 
 
 
+# the moe_ep phase: mixtral-8x22b at its published widths with 2 of its 56
+# layers (lm_archs' cut), moe_dp 16 (the reference's single-pod
+# apply_variant), two prompts of 8192 tokens (the window prefill reaches the
+# flash kernel at T >= flash_threshold 8192) into a ring cache, 32 decode
+# steps at batch 2; jamba-1.5-large's MoE layer at full width over 8192
+# tokens, whole and as the shares of a (1, 4) mesh's four ranks
+EP_LAYERS, EP_PROMPT, EP_STEPS, EP_MOE_DP = 2, 8192, 32, 16
+EP_JAMBA_TOKENS, EP_JAMBA_MODEL = 8192, 4
+
+
+def _event_ms(torch, fn):
+    """(fn(), its device time in ms between two CUDA events)."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def moe_ep_mixtral(torch, ops, D, mesh, dev, card: str) -> None:
+    """(a) mixtral through ServeEngine under the (1, 1) NCCL mesh against
+    the same engine with no mesh and moe_dp 0: prefill logits and every
+    decode token equal; the collectives of a prefill (the shard_map
+    branch) and a decode step (the single-stage branch) counted."""
+    import contextlib
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.serve import ServeEngine
+    from repro_torch.sharding.ctx import mesh_context
+
+    full = get_config("mixtral-8x22b")
+    base = dataclasses.replace(full, n_layers=EP_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    params, init_ms = _timed(torch, lambda: init_params(base, seed=0, device=dev))
+    n_params = sum(p.numel() for p in params.parameters())
+    log(f"moe_ep (a) mixtral-8x22b [{card}]: full width, n_layers {full.n_layers} -> "
+        f"{EP_LAYERS}, fsdp {base.fsdp}, {n_params} parameters drawn in {init_ms} ms")
+    rng = np.random.default_rng(0)
+    prompts = [torch.from_numpy(rng.integers(0, base.vocab, EP_PROMPT)) for _ in range(2)]
+    # a warm-up request (unmeshed, not timed): the first prefill and decode
+    # steps of a process pay one-time set-up on the card
+    warm = ServeEngine(params, base, batch=2, s_max=EP_PROMPT + EP_STEPS)
+    warm.submit(0, prompts[0], max_tokens=2)
+    _timed(torch, lambda: sum(1 for _ in iter(warm.step, False)))
+    del warm
+    # and NCCL's communicator, set up at the world's first collective
+    D.all_reduce(torch.zeros(1, device=dev), mesh, "model", "warm-up")
+    plain_logits, same_logits, done, figs = [], [], {}, {}
+    for arm in ("plain", "mesh"):
+        cfg = dataclasses.replace(base, moe_dp=EP_MOE_DP if arm == "mesh" else 0)
+        each_ms = []
+
+        def wrap(kind, fn, arm=arm, each_ms=each_ms):
+            if kind != "prefill":
+                return fn
+
+            def prefill(*args):
+                (logits, cache), ms = _timed(torch, lambda: fn(*args))
+                each_ms.append(ms)
+                if arm == "plain":
+                    plain_logits.append(logits.clone())
+                else:
+                    same_logits.append(torch.equal(logits, plain_logits[len(same_logits)]))
+                return logits, cache
+            return prefill
+
+        eng = ServeEngine(params, cfg, batch=2, s_max=EP_PROMPT + EP_STEPS, wrap=wrap)
+        for i, prompt in enumerate(prompts):
+            eng.submit(i, prompt, max_tokens=EP_STEPS)
+        ctx = mesh_context(mesh, ("data",)) if arm == "mesh" else contextlib.nullcontext()
+        with ctx:
+            ops.reset_launches()
+            D.reset_collectives()
+            admitted, prefill_ms = _timed(torch, eng._admit)
+            pre = (dict(D.COLLECTIVES), dict(ops.LAUNCHES), Counter(ops.SHAPE_LAUNCHES))
+            ops.reset_launches()
+            D.reset_collectives()
+            steps, decode_ms = _timed(torch, lambda: sum(1 for _ in iter(eng.step, False)))
+            dec = (dict(D.COLLECTIVES), dict(ops.LAUNCHES), Counter(ops.SHAPE_LAUNCHES))
+        done[arm] = {k: list(v) for k, v in eng.done.items()}
+        figs[arm] = (prefill_ms / admitted, decode_ms / steps)
+        log(f"  moe_ep mixtral {arm}: moe_dp {cfg.moe_dp}, prefill_ms={prefill_ms / admitted} "
+            f"({admitted} prompts of {EP_PROMPT} into {EP_PROMPT + EP_STEPS}; each "
+            f"prefill {each_ms} ms) "
+            f"decode_steps={steps} decode_tokens_per_s={2 * steps / (decode_ms / 1e3)} "
+            f"step_ms={decode_ms / steps}; prefill launches={pre[1]} collectives={pre[0]}; "
+            f"decode launches={dec[1]} collectives={dec[0]} "
+            f"max_memory_allocated={torch.cuda.max_memory_allocated()}")
+        if arm == "mesh":
+            MAIN_SHAPES.update(pre[2])
+            MAIN_SHAPES.update(dec[2])
+            want_pre = {"all_gather": 4 * EP_LAYERS * admitted,
+                        "all_reduce": 2 * EP_LAYERS * admitted}
+            want_dec = {"all_gather": 4 * EP_LAYERS * steps,
+                        "all_reduce": 2 * EP_LAYERS * steps}
+            if pre[0] != want_pre or dec[0] != want_dec:
+                raise AssertionError(f"moe_ep mixtral: collectives {pre[0]} a prefill run and "
+                                     f"{dec[0]} a decode run, expected {want_pre} and "
+                                     f"{want_dec}")
+            log(f"  moe_ep mixtral collectives: a prefill "
+                f"{ {k: v // admitted for k, v in pre[0].items()} }, a decode step "
+                f"{ {k: v // steps for k, v in dec[0].items()} } (4 fsdp all-gathers and 2 "
+                f"all-reduces a MoE layer, {EP_LAYERS} layers)")
+        if pre[1].get("flash_attention_wgmma", 0) != EP_LAYERS * admitted:
+            raise AssertionError(f"moe_ep mixtral {arm}: {pre[1]} launches in {admitted} "
+                                 f"prefills of {EP_LAYERS} window-attention layers")
+        del eng
+        torch.cuda.empty_cache()
+    same_tokens = sum(a == b for i in range(2) for a, b in zip(done["plain"][i],
+                                                                done["mesh"][i]))
+    log(f"  moe_ep mixtral: prefill logits equal bit for bit {same_logits}; {same_tokens} of "
+        f"{2 * (EP_STEPS + 1)} tokens equal; the mesh adds "
+        f"{figs['mesh'][0] - figs['plain'][0]} ms a prefill and "
+        f"{figs['mesh'][1] - figs['plain'][1]} ms a decode step (host clock)")
+    if not (len(same_logits) == 2 and all(same_logits)) or done["plain"] != done["mesh"]:
+        raise AssertionError(f"moe_ep mixtral: the (1, 1) mesh differs from the unmeshed "
+                             f"engine (logits {same_logits}, tokens {done})")
+    del params, plain_logits
+    torch.cuda.empty_cache()
+
+
+def moe_ep_jamba(torch, D, mesh, dev, card: str) -> None:
+    """(b) jamba-1.5-large's MoE layer at full width in bf16 over 8192
+    tokens: the (1, 1)-mesh layer against the single-stage moe_ffn, then
+    the four ranks' shares of a (1, 4) mesh (moe_local on views of the
+    same weights) summed in rank order against it; bit for bit."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as M
+    from repro_torch.sharding.ctx import mesh_context
+
+    cfg = dataclasses.replace(get_config("jamba-1.5-large-398b"), moe_dp=EP_MOE_DP)
+    torch.cuda.reset_peak_memory_stats()
+    g = torch.Generator(device=dev).manual_seed(0)
+    layer, init_ms = _timed(torch, lambda: M.init_moe(g, cfg, dev).requires_grad_(False))
+    expert_bytes = sum(t.numel() * t.element_size() for t in (layer.wi, layer.wg, layer.wo))
+    x = torch.randn((1, EP_JAMBA_TOKENS, cfg.d_model), generator=g, device=dev,
+                    dtype=torch.bfloat16)
+    log(f"moe_ep (b) jamba-1.5-large MoE layer [{card}]: d {cfg.d_model}, {cfg.n_experts} "
+        f"experts x 3 x {cfg.d_model} x {cfg.moe_d_ff} ({expert_bytes} bytes bf16, drawn on "
+        f"the card in {init_ms} ms), top-{cfg.experts_per_token}, capacity factor "
+        f"{cfg.capacity_factor} (capacity {M.capacity(EP_JAMBA_TOKENS, cfg)}), "
+        f"{EP_JAMBA_TOKENS} tokens, fsdp {cfg.fsdp}")
+    single = dataclasses.replace(cfg, moe_dp=0)
+    M.moe_ffn(layer, x, single)   # warm-up
+    (want, want_aux), plain_ms = _event_ms(torch, lambda: M.moe_ffn(layer, x, single))
+    with mesh_context(mesh, ("data",)):
+        M.moe_ffn(layer, x, cfg)   # warm-up: the gathers' buffers come from the allocator
+        D.reset_collectives()
+        (got, got_aux), mesh_ms = _event_ms(torch, lambda: M.moe_ffn(layer, x, cfg))
+    coll = dict(D.COLLECTIVES)
+    peak_11 = torch.cuda.max_memory_allocated()
+    log(f"  moe_ep jamba (1, 1): single-stage {plain_ms} ms, the (1, 1)-mesh layer "
+        f"{mesh_ms} ms (CUDA events; collectives {coll}), equal bit for bit "
+        f"{torch.equal(got, want)}, aux {float(got_aux)} / {float(want_aux)}, peak memory "
+        f"{peak_11}")
+    if not (torch.equal(got, want) and torch.equal(got_aux, want_aux)):
+        raise AssertionError(f"moe_ep jamba: the (1, 1)-mesh layer differs from moe_ffn "
+                             f"(max |diff| {float((got.float() - want.float()).abs().max())})")
+    if coll != {"all_gather": 4, "all_reduce": 2}:
+        raise AssertionError(f"moe_ep jamba: collectives {coll}")
+    del got
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    e_loc = cfg.n_experts // EP_JAMBA_MODEL
+    xf = x.reshape(-1, cfg.d_model)
+    M.moe_local(xf, layer.router, layer.wi[:e_loc], layer.wg[:e_loc], layer.wo[:e_loc], 0,
+                EP_JAMBA_MODEL, cfg)   # warm-up
+    total, share_ms, auxes = None, [], []
+    for m in range(EP_JAMBA_MODEL):
+        ex = slice(m * e_loc, (m + 1) * e_loc)
+        (part, aux), ms = _event_ms(torch, lambda ex=ex, m=m: M.moe_local(
+            xf, layer.router, layer.wi[ex], layer.wg[ex], layer.wo[ex], m, EP_JAMBA_MODEL, cfg))
+        share_ms.append(ms)
+        auxes.append(bool(torch.equal(aux, want_aux)))
+        total = part if total is None else total + part
+        del part
+    total = total.reshape(x.shape)
+    equal = torch.equal(total, want)
+    log(f"  moe_ep jamba (1, 4) shares: e_loc {e_loc} ({expert_bytes // EP_JAMBA_MODEL} bytes "
+        f"of experts a rank), ms a share {share_ms} (CUDA events), summed in rank order equal "
+        f"to (1, 1) bit for bit {equal}, aux equal {auxes}, peak memory "
+        f"{torch.cuda.max_memory_allocated()}")
+    if not (equal and all(auxes)):
+        diff = float((total.float() - want.float()).abs().max())
+        raise AssertionError(f"moe_ep jamba: the (1, 4) shares' sum differs from the layer "
+                             f"(max |diff| {diff})")
+    del layer, x, xf, want, total
+    torch.cuda.empty_cache()
+
+
+def moe_ep_phase(torch, ops, dev, card: str) -> None:
+    """The expert-parallel MoE on a one-rank NCCL world: (a) mixtral-8x22b
+    served through the (1, 1) mesh, (b) jamba-1.5-large's MoE layer at full
+    width, whole and as (1, 4) rank shares."""
+    from repro_torch.core import distributed as D
+
+    t0 = time.perf_counter()
+    mesh, store = nccl_world(torch)
+    try:
+        moe_ep_mixtral(torch, ops, D, mesh, dev, card)
+        t1 = time.perf_counter()
+        log(f"moe_ep: (a) {t1 - t0} s")
+        moe_ep_jamba(torch, D, mesh, dev, card)
+        log(f"moe_ep: (b) {time.perf_counter() - t1} s")
+    finally:
+        leave_world(store)
+    log(f"moe_ep: phase {time.perf_counter() - t0} s")
+
+
 def flash_phase(torch, ops, ref, dev):
     """flash_attention against its plain version, f32 (the FMA kernel) and
     bf16 (the wgmma kernel), with FLASH_BF16's shapes timed in the log (the
@@ -3337,8 +3568,8 @@ def train_profile(torch, ops, card: str) -> None:
 
 def main() -> int:
     only = sys.argv[2] if sys.argv[1:2] == ["--only"] and len(sys.argv) == 3 else None
-    if sys.argv[1:] and only not in ("serving", "sharded"):
-        print("usage: chip_smoke.py [--only serving|sharded]", file=sys.stderr)
+    if sys.argv[1:] and only not in ("serving", "sharded", "moe_ep"):
+        print("usage: chip_smoke.py [--only serving|sharded|moe_ep]", file=sys.stderr)
         return 2
     if not (SRC / "repro_torch").is_dir():
         print(f"chip_smoke: {SRC / 'repro_torch'} not found — run from the "
@@ -3380,6 +3611,8 @@ def main() -> int:
         # and no result line
         if only == "serving":
             serving_phase(torch, ops, dev)
+        elif only == "moe_ep":
+            moe_ep_phase(torch, ops, dev, card)
         else:
             cat_np, reqs_np, _ = trace.sift_like(n=N_FULL, d=D_FULL, t=T_FULL, seed=0)
             sharded_phase(torch, ops, ref, torch.from_numpy(cat_np).to(dev),
@@ -3428,6 +3661,7 @@ def main() -> int:
     sharded_cases = sharded_phase(torch, ops, ref, catalog, reqs, dev)
     MAIN_SHAPES.update(SHARDED_SHAPES)
     CHURN_SHAPES.update(SHARDED_CHURN_SHAPES)
+    moe_ep_phase(torch, ops, dev, card)
     # last: once torch.profiler has traced the card, every later launch in
     # this process pays its callbacks, so no host-clock figure comes after
     rows = shapes_phase(torch, ops, ref, catalog, reqs, ivf_index, pq_index, dev,

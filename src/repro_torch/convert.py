@@ -193,6 +193,50 @@ def lm_params_from_numpy(params, cfg: ModelConfig, device=None) -> LM:
     return model
 
 
+def moe_block(moe, cfg: ModelConfig, mesh):
+    """Cut a whole MoE layer (`models.moe.MoE`) to this rank's block, in
+    place, and return it: wi / wg / wo keep the rank's E / n_model experts
+    (E over `model`), and under cfg.fsdp the router, wi, wg and wo keep
+    only the rank's `data` slice of d, as the reference's `_moe_shard_map`
+    cuts them (`src/repro/models/moe.py:199-206`).  The shared experts stay
+    whole."""
+    from torch import nn
+
+    from repro_torch.core.distributed import _axis_rank, _axis_size
+
+    n_model, n_data = _axis_size(mesh, "model"), _axis_size(mesh, "data")
+    e, d = cfg.n_experts, cfg.d_model
+    if e % n_model or (cfg.fsdp and d % n_data):
+        raise ValueError(f"{e} experts of width {d} do not split over a (data {n_data}, "
+                         f"model {n_model}) mesh{' under fsdp' if cfg.fsdp else ''}")
+    e_loc, d_loc = e // n_model, d // n_data
+    m, r = _axis_rank(mesh, "model"), _axis_rank(mesh, "data")
+    ex, ds = slice(m * e_loc, (m + 1) * e_loc), slice(r * d_loc, (r + 1) * d_loc)
+    cut = {"router": moe.router, "wi": moe.wi[ex], "wg": moe.wg[ex], "wo": moe.wo[ex]}
+    if cfg.fsdp:
+        cut = {"router": cut["router"][ds], "wi": cut["wi"][:, ds], "wg": cut["wg"][:, ds],
+               "wo": cut["wo"][:, :, ds]}
+    trainable = moe.router.requires_grad
+    for name, t in cut.items():
+        setattr(moe, name, nn.Parameter(t.detach().clone(), requires_grad=trainable))
+    return moe
+
+
+def lm_params_block(params, cfg: ModelConfig, mesh, device=None) -> LM:
+    """This rank's model for the expert-parallel MoE, from the reference's
+    numpy tree (`lm_params_from_numpy`'s layout), on the mesh's device by
+    default: every MoE layer cut by `moe_block`, every other parameter
+    whole."""
+    from repro_torch.core.distributed import mesh_device
+
+    device = mesh_device(mesh) if device is None else device
+    model = lm_params_from_numpy(params, cfg, device=device)
+    for layer in model.layers:
+        if layer.kind[1] == "moe":
+            moe_block(layer.ffn, cfg, mesh)
+    return model
+
+
 def lm_params_to_numpy(model: LM, cfg: ModelConfig, tensors: dict | None = None) -> dict:
     """The reference's nested LM tree (the layout `lm_params_from_numpy`
     reads) as float32 numpy arrays: from the model's parameters, or from

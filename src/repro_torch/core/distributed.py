@@ -119,12 +119,18 @@ def mesh_device(mesh) -> torch.device:
 # calls since the last reset, by primitive ("all_gather", "all_reduce") and
 # by (primitive, purpose): "merge", "route", "projection", "round_sums",
 # "depround", "metrics" within a step, "regrid" on a growth or a
-# compaction, "gather_rows" for a caller's gather of a sharded tensor
+# compaction, "gather_rows" for a caller's gather of a sharded tensor;
+# the expert-parallel MoE's "moe_weights" (fsdp gathers), "moe_ids",
+# "moe_aux" and "moe_combine" (models/moe.py)
 COLLECTIVES: Counter = Counter()
 COLLECTIVE_SITES: Counter = Counter()
 # one tensor in, the group's tensors concatenated out (newer PyTorch names
 # all_gather_into_tensor all_gather_single)
 _ALL_GATHER = getattr(dist, "all_gather_single", dist.all_gather_into_tensor)
+# what the sharded paths' collectives run on (the dry-run's provenance
+# record names it where the reference names its shard_map)
+COLLECTIVE_LAYER = (f"repro_torch.core.distributed on torch.distributed."
+                    f"{_ALL_GATHER.__name__} / all_reduce")
 
 
 def reset_collectives() -> None:

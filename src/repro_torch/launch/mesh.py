@@ -47,12 +47,19 @@ def make_mesh(shape, axis_names=SERVING_AXES, device_type: str = "cpu"):
     return init_device_mesh(device_type, shape, mesh_dim_names=tuple(axis_names))
 
 
-def make_production_mesh(*, multi_pod: bool = False, device_type: str = "cuda"):
-    """The reference's production layout, (data 16, model 16), or (pod 2,
-    data 16, model 16) across pods: a world of 256 (512) ranks."""
+def production_mesh_shape(multi_pod: bool = False) -> dict:
+    """The reference's production layout as {axis: ranks}: (data 16, model
+    16), or (pod 2, data 16, model 16) across pods (the dry-run's meshes;
+    no world needed)."""
     if multi_pod:
-        return make_mesh((2, 16, 16), ("pod", "data", "model"), device_type)
-    return make_mesh((16, 16), SERVING_AXES, device_type)
+        return {"pod": 2, "data": 16, "model": 16}
+    return {"data": 16, "model": 16}
+
+
+def make_production_mesh(*, multi_pod: bool = False, device_type: str = "cuda"):
+    """The production layout's mesh: a world of 256 (512) ranks."""
+    shape = production_mesh_shape(multi_pod)
+    return make_mesh(tuple(shape.values()), tuple(shape), device_type)
 
 
 def make_host_mesh(device_type: str = "cpu"):

@@ -31,12 +31,20 @@ def dtype_of(cfg: ModelConfig) -> torch.dtype:
     return _DTYPES[cfg.dtype]
 
 
+def randn(generator: torch.Generator | None, shape, dtype=torch.float32) -> torch.Tensor:
+    """N(0, 1) draws of `shape` on the generator's device; with no generator
+    (a model built on the meta device: shapes and dtypes only) a meta
+    tensor, nothing drawn."""
+    if generator is None:
+        return torch.empty(shape, dtype=dtype, device="meta")
+    return torch.randn(shape, generator=generator, device=generator.device, dtype=dtype)
+
+
 def dense_init(generator: torch.Generator, in_dim: int, out_dim: int, dtype,
                device) -> torch.Tensor:
     """N(0, 1/in_dim) (in, out) weight; the reference draws from
     `jax.random`, so parity goes through `convert`, not through init."""
-    w = torch.randn((in_dim, out_dim), generator=generator,
-                    device=generator.device) * in_dim ** -0.5
+    w = randn(generator, (in_dim, out_dim)) * in_dim ** -0.5
     return w.to(device=device, dtype=dtype)
 
 
@@ -44,7 +52,7 @@ def normal_init(generator: torch.Generator, shape, scale: float, dtype, device) 
     """N(0, scale^2) tensor of `shape` drawn directly in `dtype` (no float32
     copy: deepseek-v3's (256, 7168, 2048) expert stacks would need 15 GB
     of one), on the generator's device, then moved to `device`."""
-    w = torch.randn(shape, generator=generator, device=generator.device, dtype=dtype)
+    w = randn(generator, shape, dtype)
     return w.mul_(scale).to(device)
 
 

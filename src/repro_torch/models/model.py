@@ -140,9 +140,13 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
                 seed: int = 0, device=None) -> LM:
     """The model with weights drawn from `generator` (else a generator on
     `device` seeded with `seed`).  The reference draws from `jax.random`;
-    parity with it goes through `convert.lm_params_from_numpy`."""
+    parity with it goes through `convert.lm_params_from_numpy`.  On the
+    meta device nothing is drawn: the model holds shapes and dtypes only
+    (the dry-run's and the specs' stand-in)."""
     device = resolve_device(device)
-    if generator is None:
+    if device.type == "meta":
+        generator = None
+    elif generator is None:
         generator = torch.Generator(device=device).manual_seed(seed)
     return LM(cfg, generator, device)
 
@@ -172,8 +176,11 @@ def init_cache(cfg: ModelConfig, batch: int, s_max: int, device=None) -> list:
 
 
 def embed_lookup(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    """Token-embedding lookup (the reference's one-hot form under a mesh is
-    not ported: no mesh)."""
+    """Token-embedding lookup.  Under a mesh the reference contracts a
+    one-hot with its vocab-sharded table (`src/repro/models/model.py:
+    227-231`); in the port the table is whole on every rank, where that
+    form equals this gather exactly (one nonzero term, and adding zeros
+    is exact).  The vocab-sharded form is ROADMAP A12b."""
     return embed[tokens.long()]
 
 
@@ -286,7 +293,10 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   mask: torch.Tensor | None = None) -> torch.Tensor:
     """Mean next-token negative log-likelihood of float32 logits (..., V)
     at integer labels; with a mask, the masked mean (denominator at least
-    1).  The reference's one-hot form under a mesh is not ported."""
+    1).  Under a mesh the reference sums logp against a one-hot of the
+    labels (`src/repro/models/model.py:314-317`); the port's logits are
+    whole on every rank, where that sum equals this gather exactly (one
+    nonzero term).  The vocab-sharded form is ROADMAP A12b."""
     logp = torch.log_softmax(logits, dim=-1)
     ll = torch.gather(logp, -1, labels.long()[..., None])[..., 0]
     if mask is None:

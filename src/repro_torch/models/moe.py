@@ -1,5 +1,6 @@
-"""Mixture-of-Experts layer (port of `repro.models.moe`): top-k routing and
-the capacity-bounded scatter dispatch into an (E, C, d) expert buffer.
+"""Mixture-of-Experts layer (port of `repro.models.moe`): top-k routing, the
+capacity-bounded scatter dispatch into an (E, C, d) expert buffer, and
+the expert-parallel form over a mesh.
 
 Covers mixtral (8 experts, top-2), jamba (16, top-2) and deepseek-v3 (1
 shared + 256 routed, top-8, sigmoid scoring).  The reference computes the
@@ -19,6 +20,31 @@ sums come out:
     that order), never through atomics.
 
 The load-balance loss is Switch's (fraction dot mean probability).
+
+`moe_ffn` picks the reference's form (`src/repro/models/moe.py:221-229`):
+with no mesh context open, the single-stage dispatch, or the per-block
+one when cfg.moe_dp > 1 divides the tokens; under `sharding.ctx`'s mesh
+context, the expert-parallel form.  There a rank holds its data shard of
+the tokens (replicated over `model`) and its E / n_model experts
+(`convert.lm_params_block`; under cfg.fsdp also its `data` slice of d in
+router, wi, wg and wo, all-gathered before use).  `moe_local` is one
+rank's share with no collective; `moe_ffn` wraps it with the counted
+collectives of `core/distributed.py`:
+  - the shard_map branch (moe_dp > 1 divides the GLOBAL token count):
+    capacity and positions per (data shard, local expert), the aux the
+    per-shard Switch loss averaged over the batch axes (one all-reduce);
+  - the single-stage branch (every other call, e.g. decode's B tokens):
+    the single-stage capacity and positions over the global token order,
+    data rank first (one all-gather of the (t_local, k) expert ids over
+    the batch axis when it has more than one rank), the aux the
+    single-stage formula over all tokens (one all-reduce of the shards'
+    first-choice fractions and mean probabilities);
+  - both: the (t_local, d) partials all-reduced over `model` in the
+    model's dtype, the shared experts added after the sum.
+E % model != 0 (the reference's TP inside each expert) raises: ROADMAP
+A12b.  At data 1 the expert-parallel form equals the single-stage
+`moe_ffn` bit for bit at top-2: the same capacity and slot order, and at
+most two nonzero partials a token.
 """
 
 from __future__ import annotations
@@ -28,6 +54,7 @@ from torch import nn
 
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
+from repro_torch.sharding import ctx as mesh_ctx
 
 
 class MoE(nn.Module):
@@ -63,10 +90,12 @@ def capacity(t: int, cfg: ModelConfig) -> int:
     return int(max((t * k * cfg.capacity_factor) // cfg.n_experts, min(t, 8)))
 
 
-def route(p: MoE, xf: torch.Tensor, cfg: ModelConfig):
+def route(p, xf: torch.Tensor, cfg: ModelConfig):
     """(..., T, d) tokens -> (router logits (..., T, E) float32, gates
-    (..., T, k) float32 normalised to sum 1, expert ids (..., T, k))."""
-    logits = xf.float() @ p.router
+    (..., T, k) float32 normalised to sum 1, expert ids (..., T, k)).
+    `p` is an MoE layer or its (d, E) router."""
+    router = p if isinstance(p, torch.Tensor) else p.router
+    logits = xf.float() @ router
     if cfg.attn_type == "mla":  # deepseek-style sigmoid scoring
         scores = torch.sigmoid(logits)
     else:
@@ -78,18 +107,22 @@ def route(p: MoE, xf: torch.Tensor, cfg: ModelConfig):
     return logits, gate, eidx
 
 
-def slot_positions(flat_e: torch.Tensor, e: int) -> torch.Tensor:
+def slot_positions(flat_e: torch.Tensor, e: int, mine: torch.Tensor | None = None):
     """Position of each flat (token, slot) pair in its expert's buffer: the
     count of earlier pairs routed to the same expert (cumsum over the
-    flat slots, token-major).  flat_e (..., T*k) -> (..., T*k) int64."""
+    flat slots, token-major).  flat_e (..., T*k) -> (..., T*k) int64.
+    With `mine` (a mask of the slots this rank's experts take), only those
+    count, and the others get -1."""
     onehot = nn.functional.one_hot(flat_e, e)
+    if mine is not None:
+        onehot = onehot * mine[..., None]
     return (torch.cumsum(onehot, dim=-2) * onehot).sum(-1) - 1
 
 
-def expert_ffn(p: MoE, buf: torch.Tensor) -> torch.Tensor:
+def expert_ffn(wi, wg, wo, buf: torch.Tensor) -> torch.Tensor:
     """SwiGLU of each expert on its buffer: (..., E, C, d) -> (..., E, C, d)."""
-    hidden = nn.functional.silu(torch.matmul(buf, p.wg)) * torch.matmul(buf, p.wi)
-    return torch.matmul(hidden, p.wo)
+    hidden = nn.functional.silu(torch.matmul(buf, wg)) * torch.matmul(buf, wi)
+    return torch.matmul(hidden, wo)
 
 
 def _aux_loss(logits: torch.Tensor, eidx: torch.Tensor, e: int) -> torch.Tensor:
@@ -111,11 +144,27 @@ def _combine(out_buf, fe, pos, keep, gate, dtype):
     return acc
 
 
+def _expert_sum(xf, fe, pos, keep, gate, wi, wg, wo, cap: int):
+    """The kept slots of T tokens through experts wi / wg / wo: fe, pos,
+    keep (T, k) expert ids (into wi's first dim), buffer positions and the
+    kept mask, gate (T, k) float32 -> each token's gated sum of its kept
+    slots (T, d)."""
+    t, k = fe.shape
+    tok = torch.arange(t, device=xf.device).repeat_interleave(k)
+    buf = torch.zeros((wi.shape[0], cap + 1, xf.shape[-1]), dtype=xf.dtype, device=xf.device)
+    # a kept slot's (expert, position) is its own, so the writes never meet;
+    # every other slot writes row `cap`, which no expert reads (a plain
+    # scatter: no accumulation serialised on the dropped slots' rows)
+    slot = torch.where(keep, pos, cap)
+    buf.index_put_((fe.reshape(-1), slot.reshape(-1)), xf[tok])
+    out_buf = expert_ffn(wi, wg, wo, buf[:, :cap])            # (E, C, d)
+    return _combine(out_buf, fe, pos.clamp(0, cap - 1), keep, gate, xf.dtype)
+
+
 def _moe_two_stage(p: MoE, xf: torch.Tensor, cfg: ModelConfig):
     """The reference's per-data-shard dispatch (cfg.moe_dp blocks of
     tokens, positions and capacity counted within each block), taken when
-    moe_dp > 1 and no mesh is active: the port's MoE takes no mesh, so
-    this is its moe_dp > 1 path.  xf (T, d) -> ((T, d), aux)."""
+    moe_dp > 1 and no mesh is active.  xf (T, d) -> ((T, d), aux)."""
     t, d = xf.shape
     dp = cfg.moe_dp
     e, k = cfg.n_experts, cfg.experts_per_token
@@ -123,57 +172,142 @@ def _moe_two_stage(p: MoE, xf: torch.Tensor, cfg: ModelConfig):
     xb = xf.reshape(dp, tl, d)
     logits, gate, eidx = route(p, xb, cfg)                    # (dp, tl, ·)
     capl = capacity(tl, cfg)
-    flat_e = eidx.reshape(dp, tl * k)
-    pos = slot_positions(flat_e, e)
-    keep = pos < capl
-    pos_c = pos.clamp(0, capl - 1)
-    tok = torch.arange(tl, device=xf.device).repeat_interleave(k)
-    buf = torch.zeros((dp, e, capl, d), dtype=xf.dtype, device=xf.device)
-    blk = torch.arange(dp, device=xf.device)[:, None].expand(dp, tl * k)
-    vals = torch.where(keep[..., None], xb[:, tok], torch.zeros((), dtype=xf.dtype,
-                                                                device=xf.device))
-    # a kept slot's (expert, position) is its own; a dropped one adds 0
-    buf.index_put_((blk, flat_e, pos_c), vals, accumulate=True)
-    out_buf = expert_ffn(p, buf)                              # (dp, E, C, d)
-    out = torch.stack([
-        _combine(out_buf[i], flat_e[i].reshape(tl, k), pos_c[i].reshape(tl, k),
-                 keep[i].reshape(tl, k), gate[i], xf.dtype) for i in range(dp)])
-    out = out.reshape(t, d)
+    pos = slot_positions(eidx.reshape(dp, tl * k), e).reshape(dp, tl, k)
+    out = torch.cat([_expert_sum(xb[i], eidx[i], pos[i], pos[i] < capl, gate[i], p.wi, p.wg,
+                                 p.wo, capl) for i in range(dp)])
     if cfg.n_shared_experts:
         out = out + L.mlp(p.shared, xf)
     return out, _aux_loss(logits.reshape(t, e), eidx.reshape(t, k), e)
 
 
-def _moe_shard_map(p: MoE, xf: torch.Tensor, cfg: ModelConfig):
-    """The reference's expert-parallel form over a mesh: not ported."""
-    raise NotImplementedError("the sharded MoE (shard_map over a mesh) is not "
-                              "ported yet (ROADMAP A11b)")
+def _local_experts(eidx, my_model_rank: int, e_loc: int):
+    """Expert ids (T, k) -> (ids into this rank's e_loc experts, clamped;
+    the mask of the slots whose expert is this rank's)."""
+    local = eidx - my_model_rank * e_loc
+    mine = (local >= 0) & (local < e_loc)
+    return local.clamp(0, e_loc - 1), mine
+
+
+def moe_local(x_local, router, wi, wg, wo, my_model_rank: int, n_model: int,
+              cfg: ModelConfig):
+    """One rank's share of the shard_map branch, with no collective: its
+    tl tokens x_local (tl, d) routed by the whole router (d, E), the slots
+    of its e_loc = E / n_model experts wi / wg (e_loc, d, f), wo (e_loc,
+    f, d) dispatched with positions and capacity counted over its tokens
+    and its experts only (capacity from tl).  Returns (the partial (tl,
+    d) in x's dtype, zero where no slot of a token is this rank's; the
+    shard's Switch aux loss, float32)."""
+    tl = x_local.shape[0]
+    e, k = cfg.n_experts, cfg.experts_per_token
+    e_loc = wi.shape[0]
+    if e_loc * n_model != e:
+        raise ValueError(f"a rank of {n_model} over `model` holds {e // n_model} of "
+                         f"{e} experts; these weights hold {e_loc}")
+    logits, gate, eidx = route(router, x_local, cfg)
+    safe, mine = _local_experts(eidx, my_model_rank, e_loc)
+    capl = capacity(tl, cfg)
+    pos = slot_positions(safe.reshape(-1), e_loc, mine.reshape(-1)).reshape(tl, k)
+    keep = mine & (pos >= 0) & (pos < capl)
+    out = _expert_sum(x_local, safe, pos, keep, gate, wi, wg, wo, capl)
+    return out, _aux_loss(logits, eidx, e)
+
+
+def _batch_axis(mesh, batch_axes) -> str:
+    """The axis of `batch_axes` the batch's exchanges run over: the one
+    with more than one rank, else the last."""
+    from repro_torch.core.distributed import _axis_size
+
+    real = [a for a in batch_axes if _axis_size(mesh, a) > 1]
+    if len(real) > 1:
+        raise NotImplementedError(f"the expert-parallel MoE exchanges over one batch axis; "
+                                  f"{batch_axes} has {len(real)} of more than one rank")
+    return real[0] if real else batch_axes[-1]
+
+
+def _gather_dim(t: torch.Tensor, mesh, axis: int) -> torch.Tensor:
+    """The whole tensor from each `data` rank's slice of dim `axis` (one
+    counted all-gather)."""
+    from repro_torch.core.distributed import all_gather
+
+    g = all_gather(t, mesh, "data", "moe_weights")            # (n, *t.shape)
+    return g[0] if g.shape[0] == 1 else torch.cat(list(g.unbind(0)), dim=axis)
+
+
+def _moe_expert_parallel(p: MoE, xf: torch.Tensor, cfg: ModelConfig, ctx):
+    """The mesh wrapper of `moe_local` (see the module's docstring), for
+    serving (no autograd).  xf (t_local, d) -> ((t_local, d), aux)."""
+    from repro_torch.core.distributed import _axis_rank, _axis_size, all_gather, all_reduce
+
+    mesh = ctx.mesh
+    if torch.is_grad_enabled() and p.router.requires_grad:
+        raise NotImplementedError("the expert-parallel MoE serves: its collectives carry no "
+                                  "gradients (training under a mesh is ROADMAP A12b)")
+    e = cfg.n_experts
+    n_model = _axis_size(mesh, "model")
+    if e % n_model:
+        raise NotImplementedError(
+            f"{e} experts over a {n_model}-rank `model` axis: tensor parallelism inside "
+            f"each expert is not ported yet (ROADMAP A12b)")
+    my = _axis_rank(mesh, "model")
+    b_ax = _batch_axis(mesh, ctx.batch_axes)
+    n_batch = _axis_size(mesh, ctx.batch_axes)
+    router, wi, wg, wo = p.router, p.wi, p.wg, p.wo
+    if wi.shape[0] * n_model != e:
+        raise ValueError(f"this MoE layer holds {wi.shape[0]} experts; a rank of a "
+                         f"{n_model}-rank `model` axis holds {e // n_model} "
+                         f"(convert.lm_params_block)")
+    if cfg.fsdp:
+        n_data = _axis_size(mesh, "data")
+        if router.shape[0] * n_data != cfg.d_model:
+            raise ValueError(f"under fsdp a rank holds d_model / {n_data} rows of the "
+                             f"router; this one holds {router.shape[0]} of "
+                             f"{cfg.d_model} (convert.lm_params_block)")
+        router = _gather_dim(router, mesh, 0)
+        wi, wg, wo = _gather_dim(wi, mesh, 1), _gather_dim(wg, mesh, 1), \
+            _gather_dim(wo, mesh, 2)
+    k, tl = cfg.experts_per_token, xf.shape[0]
+    t = tl * n_batch
+    if cfg.moe_dp > 1 and t % cfg.moe_dp == 0:
+        out, aux = moe_local(xf, router, wi, wg, wo, my, n_model, cfg)
+        aux = all_reduce(aux.reshape(1), mesh, b_ax, "moe_aux")[0] / n_batch
+    else:
+        logits, gate, eidx = route(router, xf, cfg)
+        cap = capacity(t, cfg)
+        ids = (all_gather(eidx, mesh, b_ax, "moe_ids") if n_batch > 1
+               else eidx[None])                               # (n_batch, tl, k)
+        pos = slot_positions(ids.reshape(-1), e).reshape(n_batch, tl, k)
+        pos = pos[_axis_rank(mesh, b_ax) if n_batch > 1 else 0]
+        safe, mine = _local_experts(eidx, my, wi.shape[0])
+        out = _expert_sum(xf, safe, pos, mine & (pos < cap), gate, wi, wg, wo, cap)
+        f = nn.functional.one_hot(eidx[:, 0], e).float().mean(0)
+        fp = all_reduce(torch.stack([f, torch.softmax(logits, dim=-1).mean(0)]), mesh,
+                        b_ax, "moe_aux") / n_batch
+        aux = e * torch.sum(fp[0] * fp[1])
+    out = all_reduce(out, mesh, "model", "moe_combine")
+    if cfg.n_shared_experts:
+        out = out + L.mlp(p.shared, xf)
+    return out, aux
 
 
 def moe_ffn(p: MoE, x: torch.Tensor, cfg: ModelConfig):
-    """x (B, S, d) -> (out (B, S, d), aux_loss float32 scalar)."""
+    """x (B, S, d) -> (out (B, S, d), aux_loss float32 scalar).  Under a
+    mesh context x is this rank's data shard of the batch."""
     b, s, d = x.shape
     t = b * s
-    e, k = cfg.n_experts, cfg.experts_per_token
+    e = cfg.n_experts
     xf = x.reshape(t, d)
+    ctx = mesh_ctx.current()
+    if ctx is not None:
+        out, aux = _moe_expert_parallel(p, xf, cfg, ctx)
+        return out.reshape(b, s, d), aux
     if cfg.moe_dp > 1 and t % cfg.moe_dp == 0:
         out, aux = _moe_two_stage(p, xf, cfg)
         return out.reshape(b, s, d), aux
 
     logits, gate, eidx = route(p, xf, cfg)                    # (T, E), (T, k)
     cap = capacity(t, cfg)
-    flat_e = eidx.reshape(-1)                                 # (T*k,)
-    pos = slot_positions(flat_e, e)
-    keep = pos < cap
-    pos_c = pos.clamp(0, cap - 1)
-    tok = torch.arange(t, device=x.device).repeat_interleave(k)
-    buf = torch.zeros((e, cap, d), dtype=x.dtype, device=x.device)
-    vals = torch.where(keep[:, None], xf[tok], torch.zeros((), dtype=x.dtype,
-                                                           device=x.device))
-    # a kept slot's (expert, position) is its own; a dropped one adds 0
-    buf.index_put_((flat_e, pos_c), vals, accumulate=True)
-    out_buf = expert_ffn(p, buf)                              # (E, C, d)
-    out = _combine(out_buf, eidx, pos_c.reshape(t, k), keep.reshape(t, k), gate, x.dtype)
+    pos = slot_positions(eidx.reshape(-1), e).reshape(eidx.shape)
+    out = _expert_sum(xf, eidx, pos, pos < cap, gate, p.wi, p.wg, p.wo, cap)
     if cfg.n_shared_experts:
         out = out + L.mlp(p.shared, xf)
     return out.reshape(b, s, d), _aux_loss(logits, eidx, e)

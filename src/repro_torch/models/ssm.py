@@ -92,8 +92,7 @@ class Mamba(nn.Module):
         conv_ch = di + 2 * ns
         self.in_proj = nn.Parameter(L.dense_init(generator, d, 2 * di + 2 * ns + nh, dt,
                                                  device))
-        conv_w = torch.randn((cfg.d_conv, conv_ch), generator=generator,
-                             device=generator.device) * 0.1
+        conv_w = L.randn(generator, (cfg.d_conv, conv_ch)) * 0.1
         self.conv_w = nn.Parameter(conv_w.to(device=device, dtype=dt))
         self.conv_b = nn.Parameter(torch.zeros(conv_ch, dtype=dt, device=device))
         self.a_log = nn.Parameter(torch.log(torch.linspace(1.0, 16.0, nh, device=device)))

@@ -1,0 +1,55 @@
+"""The mesh context (port of `repro.sharding.ctx`).
+
+Model code stays mesh-agnostic: a launcher opens `mesh_context(mesh,
+batch_axes)` around a forward, and the layers that change form under a
+mesh (the expert-parallel MoE, `models/moe.py`) look the context up.
+The context is thread-local, nests, and restores the previous one on
+exit.  `mesh` is the port's `DeviceMesh` (`repro_torch.launch.mesh`),
+`batch_axes` the mesh axes that carry the batch, e.g. ("data",) or
+("pod", "data").
+
+The reference's `annotate(x, axes)` has no counterpart: it only guides
+XLA's SPMD partitioner, and in the port a rank holds its own shard by
+construction (`convert.lm_params_block`, the data slice of a batch), so
+there is nothing to annotate.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import threading
+from typing import NamedTuple, Optional
+
+_STATE = threading.local()
+
+
+class MeshContext(NamedTuple):
+    mesh: object          # torch.distributed.device_mesh.DeviceMesh
+    batch_axes: tuple     # mesh axes carrying the batch dim
+
+
+def current() -> Optional[MeshContext]:
+    """The innermost open context of this thread (its mesh and batch
+    axes), else None."""
+    return getattr(_STATE, "ctx", None)
+
+
+def mesh_active() -> bool:
+    return current() is not None
+
+
+@contextlib.contextmanager
+def mesh_context(mesh, batch_axes):
+    """Open a context of `mesh` with the batch over `batch_axes` (a name or
+    a tuple of names, each an axis of the mesh) for this thread."""
+    batch_axes = (batch_axes,) if isinstance(batch_axes, str) else tuple(batch_axes)
+    missing = [a for a in batch_axes if a not in mesh.mesh_dim_names]
+    if missing:
+        raise ValueError(f"batch axes {missing} are not axes of the mesh "
+                         f"{mesh.mesh_dim_names}")
+    prev = current()
+    _STATE.ctx = MeshContext(mesh, batch_axes)
+    try:
+        yield
+    finally:
+        _STATE.ctx = prev

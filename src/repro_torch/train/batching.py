@@ -1,5 +1,6 @@
-"""Per-arch batch construction (port of `repro.train.batching`, the part
-serving needs; the dry-run's `input_specs` is ROADMAP A12).
+"""Per-arch batch construction (port of `repro.train.batching`): the batch
+shapes, meta-device stand-ins for the dry-run (`input_specs`), random
+batches and the forward's inputs.
 
 The modality frontends are stubs, as in the reference: an audio batch
 carries precomputed frame embeddings in place of tokens, a vision batch
@@ -45,6 +46,13 @@ def batch_shapes(cfg: ModelConfig, shape: ShapeSpec, kind: str | None = None) ->
     if kind == "train":
         out.update(train)
     return out
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeSpec, kind: str | None = None) -> dict:
+    """Stand-ins for every model input on the meta device (shapes and
+    dtypes, no storage), the reference's `ShapeDtypeStruct`s."""
+    return {k: torch.empty(sh, dtype=dt, device="meta")
+            for k, (sh, dt) in batch_shapes(cfg, shape, kind).items()}
 
 
 def synthetic_batch(cfg: ModelConfig, shape: ShapeSpec, seed: int = 0,

@@ -1,0 +1,341 @@
+"""Port parity of the expert-parallel MoE (`repro_torch.models.moe` under
+`repro_torch.sharding.ctx.mesh_context`) against the reference's
+`_moe_shard_map` (`repro.models.moe`), on torch.distributed gloo ranks.
+
+The reference's side runs once for the module in a subprocess with four
+forced host devices (`XLA_FLAGS=--xla_force_host_platform_device_count=4`):
+SMOKE mixtral, jamba and deepseek-v3 in float32, capacity factor 0
+(dropless) and 1.0 (slots drop per data shard and local expert), fsdp off
+and on, at the (data, model) meshes (1, 4) and (2, 2), and the unmeshed
+single-stage `moe_ffn`.  The port's ranks are spawned gloo worlds
+(`torch_dist_workers.run_world`), handed the reference's parameters and
+inputs as numpy; a one-rank world in this process holds the (1, 1) mesh.
+
+Tolerances: the output to atol = rtol = 1e-5 (the partials' all-reduce
+sums in another order), the aux loss to 1e-6; the (1, 1) mesh equal to the
+port's single-stage `moe_ffn` bit for bit (top-2: at most two nonzero
+partials a token); a forward of the whole SMOKE model to 1e-4 (the LM
+parity tests' tolerance, tests/test_torch_lm_archs.py).
+"""
+
+import concurrent.futures
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+import textwrap
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import SMOKE_ARCHS as J_SMOKE
+from repro.models import forward as j_forward
+from repro.models import init_params as j_init_params
+from repro_torch.core import distributed as D
+from repro_torch.models import moe as TMOE
+from repro_torch.models.config import ModelConfig
+from repro_torch.sharding.ctx import current, mesh_active, mesh_context
+from torch_dist_workers import (host_mesh, jobs_rank, moe_forward_rank,  # noqa: F401
+                                moe_from_numpy, run_world)
+
+ARCHS = ["mixtral-8x22b", "jamba-1.5-large-398b", "deepseek-v3-671b"]
+MESHES = [(1, 4), (2, 2)]
+CFS = [0.0, 1.0]
+MOE_DP = 2          # the shard_map branch: 2 divides the 32 tokens
+B, S = 4, 8
+OUT_TOL, AUX_TOL, FWD_TOL = 1e-5, 1e-6, 1e-4
+
+_CHILD = textwrap.dedent("""
+    import dataclasses, json, sys
+    import numpy as np
+    import jax, jax.numpy as jnp
+    from repro.configs import SMOKE_ARCHS
+    from repro.models import moe as M
+    from repro.sharding.ctx import mesh_context
+
+    archs, meshes, cfs, moe_dp, b, s, path = json.loads(sys.argv[1])
+    assert jax.device_count() == 4, jax.devices()
+    out = {}
+    for i, arch in enumerate(archs):
+        base = dataclasses.replace(SMOKE_ARCHS[arch], dtype="float32")
+        p = M.init_moe(jax.random.PRNGKey(10 + i), base)
+        leaves = {"router": p["router"], "wi": p["wi"], "wg": p["wg"], "wo": p["wo"]}
+        for k, v in p.get("shared", {}).items():
+            leaves["shared." + k] = v
+        for k, v in leaves.items():
+            out[f"{arch}|p|{k}"] = np.asarray(v, np.float32)
+        x = np.random.default_rng(20 + i).normal(size=(b, s, base.d_model))
+        x = jnp.asarray(x.astype(np.float32))
+        out[f"{arch}|x"] = np.asarray(x)
+        for cf in cfs:
+            cfg = dataclasses.replace(base, capacity_factor=cf)
+            o, aux = M.moe_ffn(p, x, cfg)
+            out[f"{arch}|single|{cf}|out"] = np.asarray(o)
+            out[f"{arch}|single|{cf}|aux"] = np.asarray(aux)
+            for fsdp in (False, True):
+                c = dataclasses.replace(cfg, moe_dp=moe_dp, fsdp=fsdp)
+                for shape in meshes:
+                    with mesh_context(jax.make_mesh(tuple(shape), ("data", "model")),
+                                      ("data",)):
+                        o, aux = jax.jit(lambda p, x, c=c: M.moe_ffn(p, x, c))(p, x)
+                    key = f"{arch}|ep|{cf}|{fsdp}|{shape[0]}x{shape[1]}"
+                    out[key + "|out"] = np.asarray(o)
+                    out[key + "|aux"] = np.asarray(aux)
+    np.savez(path, **out)
+""")
+
+
+def _port_cfg(jcfg, **kw) -> ModelConfig:
+    return ModelConfig(**{**dataclasses.asdict(jcfg), **kw})
+
+
+def _start_reference(path):
+    env = {**os.environ, "PYTHONPATH": "src", "JAX_PLATFORMS": "cpu",
+           "XLA_FLAGS": "--xla_force_host_platform_device_count=4"}
+    arg = json.dumps([ARCHS, MESHES, CFS, MOE_DP, B, S, str(path)])
+    return subprocess.Popen([sys.executable, "-c", _CHILD, arg], stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, env=env)
+
+
+@pytest.fixture(scope="module")
+def ref(tmp_path_factory):
+    """The reference's parameters, inputs and outputs (numpy), from one
+    subprocess on four forced host devices; the (1, 2) world's forwards
+    run meanwhile (they need none of it)."""
+    tmp = tmp_path_factory.mktemp("moe_ref")
+    proc = _start_reference(tmp / "ref.npz")
+    try:
+        fwd = run_world(moe_forward_rank, (1, 2), tmp, forward_cases())
+        _, err = proc.communicate(timeout=300)
+    finally:
+        proc.kill()
+    assert proc.returncode == 0, err[-3000:]
+    with np.load(tmp / "ref.npz") as f:
+        out = dict(f)
+    out["forward (1, 2)"] = fwd
+    return out
+
+
+def _leaves(ref, arch) -> dict:
+    pre = f"{arch}|p|"
+    return {k[len(pre):]: v for k, v in ref.items() if k.startswith(pre)}
+
+
+def _cfg(arch, cf, fsdp, moe_dp=MOE_DP) -> ModelConfig:
+    return _port_cfg(dataclasses.replace(J_SMOKE[arch], dtype="float32"),
+                     capacity_factor=cf, fsdp=fsdp, moe_dp=moe_dp)
+
+
+def _whole(ranks, name, shape):
+    """The whole output from the ranks' data shards (model rank 0 of each
+    data row); every model rank of a row holds the same sum."""
+    n_data, n_model = shape
+    rows = []
+    for r in range(n_data):
+        row = [ranks[r * n_model + m][name]["out"] for m in range(n_model)]
+        for other in row[1:]:
+            np.testing.assert_array_equal(other, row[0])
+        rows.append(row[0])
+    return np.concatenate(rows, axis=0)
+
+
+# experts that do not divide the (1, 4) mesh's model axis
+ODD = _port_cfg(dataclasses.replace(J_SMOKE["mixtral-8x22b"], dtype="float32",
+                                    n_experts=6), moe_dp=MOE_DP)
+
+
+@pytest.fixture(scope="module")
+def worlds(ref, tmp_path_factory):
+    """Each mesh's ranks run every case once: the shard_map branch (moe_dp
+    2) and the single-stage branch (moe_dp 0) for every arch, capacity
+    factor and fsdp; at (1, 4) the layer with 6 experts; at (2, 2) the
+    SMOKE forwards of mixtral and jamba (the (1, 2) ones ran beside the
+    reference).  The two worlds run side by side."""
+    tmp = tmp_path_factory.mktemp("moe_worlds")
+
+    def world(shape):
+        cases = [(f"{arch}|{branch}|{cf}|{fsdp}", _cfg(arch, cf, fsdp, dp),
+                  _leaves(ref, arch), ref[f"{arch}|x"])
+                 for arch in ARCHS for cf in CFS for fsdp in (False, True)
+                 for branch, dp in (("ep", MOE_DP), ("single", 0))]
+        if shape == (1, 4):
+            cases.append(("odd", ODD, None, ref[f"{ARCHS[0]}|x"]))
+        jobs = [("moe_ep", cases)]
+        if shape == (2, 2):
+            jobs.append(("moe_forward", forward_cases()))
+        return [{k: v for res in r.values() for k, v in res.items()}
+                for r in run_world(jobs_rank, shape, tmp, jobs)]
+
+    with concurrent.futures.ThreadPoolExecutor(len(MESHES)) as pool:
+        out = dict(zip(MESHES, pool.map(world, MESHES)))
+    out[(1, 2)] = ref["forward (1, 2)"]
+    return out
+
+
+# --------------------------------------------------------------------------
+# the context
+# --------------------------------------------------------------------------
+
+def test_mesh_context_nests_and_restores(host_mesh):
+    assert not mesh_active() and current() is None
+    with mesh_context(host_mesh, "data"):
+        assert current().batch_axes == ("data",)
+        with mesh_context(host_mesh, ("data", "model")):
+            assert current().batch_axes == ("data", "model")
+        assert current().batch_axes == ("data",)
+    assert not mesh_active()
+    with pytest.raises(ValueError, match="pod"):
+        with mesh_context(host_mesh, ("pod", "data")):
+            pass
+    assert not mesh_active()
+
+
+# --------------------------------------------------------------------------
+# (1, 1): bit for bit against the single-stage moe_ffn
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_one_rank_mesh_equals_single_stage_bit_for_bit(host_mesh, ref, arch, dtype):
+    """Both branches on a (1, 1) mesh (moe_dp 2: shard_map; moe_dp 0:
+    single-stage), fsdp off and on, with and without drops: output and aux
+    equal the unmeshed single-stage moe_ffn's bit for bit; collectives:
+    the fsdp gathers, the aux and the combine all-reduces."""
+    x = torch.from_numpy(ref[f"{arch}|x"])
+    for cf in CFS:
+        for fsdp in (False, True):
+            base = dataclasses.replace(_cfg(arch, cf, fsdp, 0), dtype=dtype)
+            layer = moe_from_numpy(_leaves(ref, arch), base)
+            xs = x.to(layer.wi.dtype)
+            want, want_aux = TMOE.moe_ffn(layer, xs, base)
+            for dp in (MOE_DP, 0):
+                cfg = dataclasses.replace(base, moe_dp=dp)
+                D.reset_collectives()
+                with mesh_context(host_mesh, ("data",)):
+                    got, got_aux = TMOE.moe_ffn(layer, xs, cfg)
+                assert torch.equal(got, want), (cf, fsdp, dp)
+                assert torch.equal(got_aux, want_aux), (cf, fsdp, dp)
+                assert dict(D.COLLECTIVES) == ({"all_gather": 4, "all_reduce": 2} if fsdp
+                                               else {"all_reduce": 2})
+
+
+# --------------------------------------------------------------------------
+# (1, 4) and (2, 2) against the reference's _moe_shard_map
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("shape", MESHES)
+def test_shard_map_branch_matches_reference(ref, worlds, arch, shape):
+    for cf in CFS:
+        for fsdp in (False, True):
+            name = f"{arch}|ep|{cf}|{fsdp}"
+            key = f"{arch}|ep|{cf}|{fsdp}|{shape[0]}x{shape[1]}"
+            got = _whole(worlds[shape], name, shape).reshape(B, S, -1)
+            np.testing.assert_allclose(got, ref[key + "|out"], rtol=OUT_TOL, atol=OUT_TOL,
+                                       err_msg=name)
+            for r in worlds[shape]:
+                np.testing.assert_allclose(r[name]["aux"], ref[key + "|aux"],
+                                           rtol=AUX_TOL, atol=AUX_TOL, err_msg=name)
+
+
+def test_drops_are_per_data_shard(ref):
+    """The reference's own semantics the port reproduces: with slots
+    dropping, the (2, 2) shard_map differs from the single-stage layer
+    (capacity per data shard) while the (1, 4) one equals it."""
+    arch = ARCHS[0]
+    single = ref[f"{arch}|single|1.0|out"]
+    np.testing.assert_allclose(ref[f"{arch}|ep|1.0|False|1x4|out"], single, rtol=OUT_TOL,
+                               atol=OUT_TOL)
+    assert np.abs(ref[f"{arch}|ep|1.0|False|2x2|out"] - single).max() > 1e-2
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("shape", MESHES)
+def test_single_stage_branch_matches_unmeshed_reference(ref, worlds, arch, shape):
+    """moe_dp 0 under the mesh: the single-stage capacity and positions
+    over the global token order, so the reference's unmeshed moe_ffn (at
+    capacity factor 1.0 slots drop)."""
+    for cf in CFS:
+        for fsdp in (False, True):
+            name = f"{arch}|single|{cf}|{fsdp}"
+            got = _whole(worlds[shape], name, shape).reshape(B, S, -1)
+            np.testing.assert_allclose(got, ref[f"{arch}|single|{cf}|out"], rtol=OUT_TOL,
+                                       atol=OUT_TOL, err_msg=name)
+            for r in worlds[shape]:
+                np.testing.assert_allclose(r[name]["aux"], ref[f"{arch}|single|{cf}|aux"],
+                                           rtol=AUX_TOL, atol=AUX_TOL, err_msg=name)
+
+
+@pytest.mark.parametrize("shape", MESHES)
+def test_collective_counts_of_each_branch(worlds, shape):
+    """shard_map: 4 fsdp gathers (fsdp on), the combine and the aux
+    all-reduces; single-stage: the same, plus one gather of the expert ids
+    where the data axis has more than one rank."""
+    ids = 1 if shape[0] > 1 else 0
+    for r in worlds[shape]:
+        for arch in ARCHS:
+            for cf in CFS:
+                for fsdp in (False, True):
+                    g = 4 if fsdp else 0
+                    ep = r[f"{arch}|ep|{cf}|{fsdp}"]["counts"]
+                    single = r[f"{arch}|single|{cf}|{fsdp}"]["counts"]
+                    assert ep == ({"all_gather": g, "all_reduce": 2} if g
+                                  else {"all_reduce": 2})
+                    assert single == ({"all_gather": g + ids, "all_reduce": 2} if g + ids
+                                      else {"all_reduce": 2})
+
+
+def test_experts_that_do_not_divide_the_model_axis_raise(worlds):
+    for r in worlds[(1, 4)]:
+        assert "A12b" in r["odd"]["raised"]
+
+
+# --------------------------------------------------------------------------
+# a whole forward under the mesh
+# --------------------------------------------------------------------------
+
+FWD_ARCHS = ["mixtral-8x22b", "jamba-1.5-large-398b"]
+FWD_B, FWD_S = 2, 16
+
+
+def _fwd_pair(arch):
+    """(reference float32 SMOKE config, numpy tree, tokens), dropless."""
+    jcfg = dataclasses.replace(J_SMOKE[arch], dtype="float32")
+    params = j_init_params(jax.random.PRNGKey(7), jcfg)
+    tree = jax.tree.map(lambda a: np.asarray(a, np.float32), params)
+    toks = np.random.default_rng(8).integers(0, jcfg.vocab, (FWD_B, FWD_S)).astype(np.int32)
+    return jcfg, tree, toks
+
+
+def forward_cases():
+    out = []
+    for arch in FWD_ARCHS:
+        jcfg, tree, toks = _fwd_pair(arch)
+        for fsdp in (False, True):
+            out.append((f"{arch}|{fsdp}", _port_cfg(jcfg, moe_dp=MOE_DP, fsdp=fsdp), tree,
+                        toks))
+    return out
+
+
+@pytest.mark.parametrize("arch", FWD_ARCHS)
+@pytest.mark.parametrize("shape", [(1, 2), (2, 2)])
+def test_forward_under_mesh_matches_unmeshed_reference(worlds, arch, shape):
+    """Dropless, so the shard_map branch's output is the single-stage
+    layer's; the aux loss too where the data axis has one rank (with two,
+    the branch averages the shards' Switch losses, as the reference's)."""
+    jcfg, tree, toks = _fwd_pair(arch)
+    want = j_forward(jax.tree.map(np.asarray, tree), jcfg, tokens=toks)
+    ranks = worlds[shape]
+    n_data, n_model = shape
+    for fsdp in (False, True):
+        name = f"{arch}|{fsdp}"
+        got = np.concatenate([ranks[r * n_model][name]["logits"] for r in range(n_data)])
+        np.testing.assert_allclose(got, np.asarray(want.logits), rtol=FWD_TOL, atol=FWD_TOL,
+                                   err_msg=name)
+        if n_data == 1:
+            for r in ranks:
+                np.testing.assert_allclose(r[name]["aux"], float(want.aux_loss),
+                                           rtol=FWD_TOL, atol=FWD_TOL, err_msg=name)

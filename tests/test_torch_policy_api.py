@@ -9,8 +9,8 @@ their decisions must be the reference's; AÇAI runs from the reference's
 initial state with its rounding uniforms injected (drawn as
 tests/test_torch_policy.py draws them).  Tolerances: gains to rtol 1e-5,
 atol 1e-5 x k c_f; served_local, fetched and occupancy equal.  The
-reference's `test_dryrun_records_policy_spec` waits for the dry-run
-tooling (ROADMAP A12).
+reference's `test_dryrun_records_policy_spec` has its counterpart in
+tests/test_torch_dryrun.py (`test_acai_cell_records_policy_spec`).
 """
 
 import json

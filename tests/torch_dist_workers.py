@@ -116,7 +116,8 @@ def jobs_rank(mesh, rank, jobs) -> dict:
     """Several rank functions in one world (a world costs a torch import a
     rank): [(name, data), ...] -> {name: result}."""
     fns = {"retrieval": retrieval_rank, "budgets": budgets_rank, "replay": replay_rank,
-           "slab": slab_rank, "serving": serving_rank, "churn": churn_rank}
+           "slab": slab_rank, "serving": serving_rank, "churn": churn_rank,
+           "moe_ep": moe_ep_rank, "moe_forward": moe_forward_rank}
     return {name: fns[name](mesh, rank, data) for name, data in jobs}
 
 def _np(t):
@@ -382,4 +383,76 @@ def churn_rank(mesh, rank, data: dict) -> dict:
     out["guard_untouched"] = not chunked._mutated
     # sharded_slab_append at P = 2 on the reference's case
     out["slab"] = slab_rank(mesh, rank, data["slab"])
+    return out
+
+
+def moe_from_numpy(leaves: dict, cfg):
+    """A whole MoE layer of the port holding `leaves` (name -> numpy array
+    by the layer's parameter names: router, wi, wg, wo, shared.*), frozen."""
+    import torch
+
+    from repro_torch.models import moe as M
+
+    layer = M.init_moe(torch.Generator().manual_seed(0), cfg, "cpu").requires_grad_(False)
+    for name, t in layer.named_parameters():
+        t.copy_(torch.from_numpy(np.asarray(leaves[name], np.float32)).to(t.dtype))
+    return layer
+
+
+def _data_shard(x: np.ndarray, mesh) -> np.ndarray:
+    """This rank's `data` shard of a whole batch (rows r B / n ...)."""
+    from repro_torch.core import distributed as D
+
+    n, r = D._axis_size(mesh, "data"), D._axis_rank(mesh, "data")
+    b = x.shape[0] // n
+    return x[r * b:(r + 1) * b]
+
+
+def moe_ep_rank(mesh, rank, cases: list) -> dict:
+    """The expert-parallel MoE on this rank: [(name, cfg, leaves, x), ...]
+    with x the whole (B, S, d) batch -> {name: {"out": this rank's data
+    shard of the output, "aux", "counts": its collectives}}; a case whose
+    leaves are None runs the layer whole and returns the error it raises."""
+    import torch
+
+    from repro_torch import convert
+    from repro_torch.core import distributed as D
+    from repro_torch.models import moe as M
+    from repro_torch.sharding.ctx import mesh_context
+
+    out = {}
+    for name, cfg, leaves, x in cases:
+        if leaves is None:
+            layer = M.init_moe(torch.Generator().manual_seed(0), cfg, "cpu")
+            try:
+                with torch.no_grad(), mesh_context(mesh, ("data",)):
+                    M.moe_ffn(layer, torch.from_numpy(x), cfg)
+                out[name] = {"raised": None}
+            except NotImplementedError as e:
+                out[name] = {"raised": str(e)}
+            continue
+        layer = convert.moe_block(moe_from_numpy(leaves, cfg), cfg, mesh)
+        D.reset_collectives()
+        with mesh_context(mesh, ("data",)):
+            y, aux = M.moe_ffn(layer, torch.from_numpy(_data_shard(x, mesh)), cfg)
+        out[name] = {"out": _np(y), "aux": float(aux), "counts": dict(D.COLLECTIVES)}
+    return out
+
+
+def moe_forward_rank(mesh, rank, cases: list) -> dict:
+    """A whole LM forward on this rank's data shard of the tokens under the
+    mesh context: [(name, cfg, reference numpy tree, tokens), ...] ->
+    {name: {"logits", "aux"}}."""
+    import torch
+
+    from repro_torch import convert
+    from repro_torch.models import forward
+    from repro_torch.sharding.ctx import mesh_context
+
+    out = {}
+    for name, cfg, params, tokens in cases:
+        model = convert.lm_params_block(params, cfg, mesh, device="cpu")
+        with mesh_context(mesh, ("data",)):
+            res = forward(model, cfg, tokens=torch.from_numpy(_data_shard(tokens, mesh)))
+        out[name] = {"logits": _np(res.logits), "aux": float(res.aux_loss)}
     return out
