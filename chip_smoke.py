@@ -179,10 +179,29 @@ Phases, each of which raises on failure (the script then exits non-zero):
              (`moe_local` on views of the same weights, summed in rank
              order) each equal to the single-stage layer bit for bit, each
              share timed (CUDA events), peak memory.  `--only moe_ep` runs
-             the build and this phase alone and prints no result.
+             the build and this phase alone and prints no result;
+14. tp — the specs' layout (repro_torch.sharding.tp: tensor-parallel
+             attention and FFN, the vocab-parallel embedding and head,
+             fsdp): (a) qwen2-72b at its published widths, 4 of 80 layers,
+             weights from seed 0, through ServeEngine at batch 2 (two
+             8192-token prompts into a 10240-token cache, 32 decode steps)
+             under the one-rank NCCL (1, 1) mesh against the unmeshed
+             engine: tokens equal, logits within 1e-3 of their largest, the
+             collectives of a prefill and of a decode step pinned by site;
+             (b) one full-width qwen2-72b layer over 8192 tokens, whole and
+             as the four shares of a (1, 4) mesh (attention_local /
+             mlp_local on convert.block_views: 16 heads, 2 kv heads, d_ff
+             7392 a share) summed in rank order, and the vocab-parallel
+             embedding and head as four 38016-row shares, each share timed
+             (CUDA events); (c) qwen1.5-0.5b trained at full width over
+             8192 tokens, 6 steps, on the (1, 1) mesh against the unmeshed
+             steps (losses within 1e-4 relative), collectives a step and
+             step times.  `--only tp` runs the build and this phase alone
+             and prints no result.
 
 The sharded phase's launches count with the main path's (its churn run's
-with the churn path's), and so do the moe_ep phase's mesh arm's.  The
+with the churn path's), and so do the moe_ep and tp phases' mesh arms'
+and the tp phase's (1, 4) shares'.  The
 churn path's kernel rows (masked `l2_topk` over the slab, AÇAI's exact
 scan over it, the add-time assignment, the masked IVF probe and IVF-PQ
 shortlist on appended lists) count the churn phase's launches; the other
@@ -2623,6 +2642,11 @@ def moe_ep_mixtral(torch, ops, D, mesh, dev, card: str) -> None:
     del warm
     # and NCCL's communicator, set up at the world's first collective
     D.all_reduce(torch.zeros(1, device=dev), mesh, "model", "warm-up")
+    # the (1, 1) mesh's blocks are the whole tensors: the cut records the
+    # specs, which the mesh arm reads (the plain arm ignores them)
+    from repro_torch import convert
+
+    convert.shard_module(params, base, mesh)
     plain_logits, same_logits, done, figs = [], [], {}, {}
     for arm in ("plain", "mesh"):
         cfg = dataclasses.replace(base, moe_dp=EP_MOE_DP if arm == "mesh" else 0)
@@ -2656,7 +2680,9 @@ def moe_ep_mixtral(torch, ops, D, mesh, dev, card: str) -> None:
             steps, decode_ms = _timed(torch, lambda: sum(1 for _ in iter(eng.step, False)))
             dec = (dict(D.COLLECTIVES), dict(ops.LAUNCHES), Counter(ops.SHAPE_LAUNCHES))
         done[arm] = {k: list(v) for k, v in eng.done.items()}
-        figs[arm] = (prefill_ms / admitted, decode_ms / steps)
+        # the prefills' own times: the admission's clock also holds the
+        # arms' logit copies and comparisons
+        figs[arm] = (sum(each_ms) / len(each_ms), decode_ms / steps)
         log(f"  moe_ep mixtral {arm}: moe_dp {cfg.moe_dp}, prefill_ms={prefill_ms / admitted} "
             f"({admitted} prompts of {EP_PROMPT} into {EP_PROMPT + EP_STEPS}; each "
             f"prefill {each_ms} ms) "
@@ -2667,18 +2693,22 @@ def moe_ep_mixtral(torch, ops, D, mesh, dev, card: str) -> None:
         if arm == "mesh":
             MAIN_SHAPES.update(pre[2])
             MAIN_SHAPES.update(dec[2])
-            want_pre = {"all_gather": 4 * EP_LAYERS * admitted,
-                        "all_reduce": 2 * EP_LAYERS * admitted}
-            want_dec = {"all_gather": 4 * EP_LAYERS * steps,
-                        "all_reduce": 2 * EP_LAYERS * steps}
+            # a MoE layer: 4 fsdp gathers, the aux and combine all-reduces;
+            # its attention: 4 fsdp gathers, the partial's all-reduce; the
+            # embedding (a gather and its all-reduce) and the head (a gather)
+            want_pre = {"all_gather": (8 * EP_LAYERS + 2) * admitted,
+                        "all_reduce": (3 * EP_LAYERS + 1) * admitted}
+            want_dec = {"all_gather": (8 * EP_LAYERS + 2) * steps,
+                        "all_reduce": (3 * EP_LAYERS + 1) * steps}
             if pre[0] != want_pre or dec[0] != want_dec:
                 raise AssertionError(f"moe_ep mixtral: collectives {pre[0]} a prefill run and "
                                      f"{dec[0]} a decode run, expected {want_pre} and "
                                      f"{want_dec}")
             log(f"  moe_ep mixtral collectives: a prefill "
                 f"{ {k: v // admitted for k, v in pre[0].items()} }, a decode step "
-                f"{ {k: v // steps for k, v in dec[0].items()} } (4 fsdp all-gathers and 2 "
-                f"all-reduces a MoE layer, {EP_LAYERS} layers)")
+                f"{ {k: v // steps for k, v in dec[0].items()} } (a layer: 8 fsdp "
+                f"all-gathers and 3 all-reduces; {EP_LAYERS} layers, the embedding and the "
+                f"head)")
         if pre[1].get("flash_attention_wgmma", 0) != EP_LAYERS * admitted:
             raise AssertionError(f"moe_ep mixtral {arm}: {pre[1]} launches in {admitted} "
                                  f"prefills of {EP_LAYERS} window-attention layers")
@@ -2721,6 +2751,9 @@ def moe_ep_jamba(torch, D, mesh, dev, card: str) -> None:
     single = dataclasses.replace(cfg, moe_dp=0)
     M.moe_ffn(layer, x, single)   # warm-up
     (want, want_aux), plain_ms = _event_ms(torch, lambda: M.moe_ffn(layer, x, single))
+    from repro_torch import convert
+
+    convert.moe_block(layer, cfg, mesh)   # (1, 1): whole blocks, specs recorded
     with mesh_context(mesh, ("data",)):
         M.moe_ffn(layer, x, cfg)   # warm-up: the gathers' buffers come from the allocator
         D.reset_collectives()
@@ -2783,6 +2816,329 @@ def moe_ep_phase(torch, ops, dev, card: str) -> None:
     finally:
         leave_world(store)
     log(f"moe_ep: phase {time.perf_counter() - t0} s")
+
+
+# the tp phase: qwen2-72b (src/repro/configs/qwen2_72b.py) at its published
+# widths with 4 of its 80 layers, two prompts of 8192 tokens into a
+# 10240-token cache (the flash path needs T >= flash_threshold 8192 and T %
+# flash_chunk 2048 == 0), 32 decode steps at batch 2; one full-width layer,
+# the embedding and the head as the four shares of a (1, 4) mesh (the head
+# over the last 1024 tokens); qwen1.5-0.5b trained at full width over 8192
+# tokens, batch 1, 6 steps (the train phase's cell)
+TP_ARCH, TP_LAYERS, TP_PROMPT, TP_S_MAX, TP_STEPS = "qwen2-72b", 4, 8192, 10240, 32
+TP_MODEL, TP_TOKENS, TP_HEAD_TOKENS, TP_TRAIN_STEPS = 4, 8192, 1024, 6
+TP_TRAIN_RTOL = 1e-4
+
+
+def tp_serve(torch, ops, D, mesh, dev, card: str) -> None:
+    """(a) qwen2-72b through ServeEngine under the (1, 1) NCCL mesh (the
+    specs' layout: fsdp gathers, the partials' and the embedding's
+    all-reduces) against the same engine with no mesh: tokens equal,
+    prefill logits equal or close, the collectives of a prefill and a
+    decode step pinned, the flash kernel launched once a layer a
+    prefill."""
+    import contextlib
+
+    import numpy as np
+
+    from repro_torch import convert
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.serve import ServeEngine
+    from repro_torch.sharding.ctx import mesh_context
+
+    full = get_config(TP_ARCH)
+    cfg = dataclasses.replace(full, n_layers=TP_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    params, init_ms = _timed(torch, lambda: init_params(cfg, seed=0, device=dev))
+    n_params = sum(p.numel() for p in params.parameters())
+    log(f"tp (a) {TP_ARCH} [{card}]: full width (d {cfg.d_model}, {cfg.n_heads} heads, "
+        f"{cfg.n_kv_heads} kv, d_ff {cfg.d_ff}, vocab {cfg.vocab}, qkv_bias {cfg.qkv_bias}, "
+        f"fsdp {cfg.fsdp}), n_layers {full.n_layers} -> {TP_LAYERS}, {n_params} parameters "
+        f"({n_params * 2} bytes bf16) drawn in {init_ms} ms")
+    rng = np.random.default_rng(0)
+    prompts = [torch.from_numpy(rng.integers(0, cfg.vocab, TP_PROMPT)) for _ in range(2)]
+    warm = ServeEngine(params, cfg, batch=2, s_max=TP_S_MAX)
+    warm.submit(0, prompts[0], max_tokens=2)
+    _timed(torch, lambda: sum(1 for _ in iter(warm.step, False)))
+    del warm
+    D.all_reduce(torch.zeros(1, device=dev), mesh, "model", "warm-up")
+    convert.shard_module(params, cfg, mesh)   # (1, 1): whole blocks, specs recorded
+    with mesh_context(mesh, ("data",)):       # and the mesh arm's first calls
+        warm = ServeEngine(params, cfg, batch=2, s_max=TP_S_MAX)
+        warm.submit(0, prompts[0], max_tokens=2)
+        _timed(torch, lambda: sum(1 for _ in iter(warm.step, False)))
+        del warm
+    plain_logits, diffs, done, figs = [], [], {}, {}
+    for arm in ("plain", "mesh"):
+        each_ms = []
+
+        def wrap(kind, fn, arm=arm, each_ms=each_ms):
+            if kind != "prefill":
+                return fn
+
+            def prefill(*args):
+                (logits, cache), ms = _timed(torch, lambda: fn(*args))
+                each_ms.append(ms)
+                if arm == "plain":
+                    plain_logits.append(logits.clone())
+                else:
+                    want = plain_logits[len(diffs)]
+                    diffs.append((bool(torch.equal(logits, want)),
+                                  float((logits - want).abs().max()),
+                                  float(want.abs().max())))
+                return logits, cache
+            return prefill
+
+        ctx = mesh_context(mesh, ("data",)) if arm == "mesh" else contextlib.nullcontext()
+        with ctx:
+            eng = ServeEngine(params, cfg, batch=2, s_max=TP_S_MAX, wrap=wrap)
+            for i, prompt in enumerate(prompts):
+                eng.submit(i, prompt, max_tokens=TP_STEPS)
+            ops.reset_launches()
+            D.reset_collectives()
+            admitted, prefill_ms = _timed(torch, eng._admit)
+            pre = (dict(D.COLLECTIVE_SITES), dict(ops.LAUNCHES), Counter(ops.SHAPE_LAUNCHES))
+            ops.reset_launches()
+            D.reset_collectives()
+            steps, decode_ms = _timed(torch, lambda: sum(1 for _ in iter(eng.step, False)))
+            dec = (dict(D.COLLECTIVE_SITES), dict(ops.LAUNCHES), Counter(ops.SHAPE_LAUNCHES))
+        done[arm] = {k: list(v) for k, v in eng.done.items()}
+        # the prefills' own times: the admission's clock also holds the
+        # arms' logit copies and comparisons
+        figs[arm] = (sum(each_ms) / len(each_ms), decode_ms / steps)
+        log(f"  tp qwen2-72b {arm}: prefill_ms={prefill_ms / admitted} ({admitted} prompts of "
+            f"{TP_PROMPT} into {TP_S_MAX}; each prefill {each_ms} ms) decode_steps={steps} "
+            f"decode_tokens_per_s={2 * steps / (decode_ms / 1e3)} step_ms={decode_ms / steps}; "
+            f"prefill launches={pre[1]}; decode launches={dec[1]} "
+            f"max_memory_allocated={torch.cuda.max_memory_allocated()}")
+        if arm == "mesh":
+            MAIN_SHAPES.update(pre[2])
+            MAIN_SHAPES.update(dec[2])
+            layer = {("all_gather", "fsdp"): 7, ("all_reduce", "attn_out"): 1,
+                     ("all_reduce", "mlp_out"): 1}
+            want = Counter({k: v * TP_LAYERS for k, v in layer.items()})
+            want.update({("all_gather", "fsdp"): 2, ("all_reduce", "embed"): 1})
+            for what, (sites, n) in (("a prefill", (pre[0], admitted)),
+                                     ("a decode step", (dec[0], steps))):
+                got = {k: v // n for k, v in sites.items()}
+                log(f"  tp qwen2-72b collectives {what}: {got}")
+                if got != dict(want) or any(v % n for v in sites.values()):
+                    raise AssertionError(f"tp qwen2-72b: collectives {sites} in {n} calls, "
+                                         f"expected {dict(want)} a call")
+        if pre[1].get("flash_attention_wgmma", 0) != TP_LAYERS * admitted:
+            raise AssertionError(f"tp qwen2-72b {arm}: {pre[1]} launches in {admitted} "
+                                 f"prefills of {TP_LAYERS} layers")
+        del eng
+        torch.cuda.empty_cache()
+    same_tokens = sum(a == b for i in range(2) for a, b in zip(done["plain"][i],
+                                                                done["mesh"][i]))
+    log(f"  tp qwen2-72b: prefill logits (equal bit for bit, max |diff|, max |logit|) "
+        f"{diffs}; {same_tokens} of {2 * (TP_STEPS + 1)} tokens equal; the (1, 1) mesh adds "
+        f"{figs['mesh'][0] - figs['plain'][0]} ms a prefill and "
+        f"{figs['mesh'][1] - figs['plain'][1]} ms a decode step (host clock; "
+        f"decode {figs['mesh'][1] / figs['plain'][1]} x)")
+    if done["plain"] != done["mesh"] or len(diffs) != 2 or any(
+            d > 1e-3 * m for _, d, m in diffs):
+        raise AssertionError(f"tp qwen2-72b: the (1, 1) mesh differs from the unmeshed "
+                             f"engine (logits {diffs}, tokens {done})")
+    del params, plain_logits
+    torch.cuda.empty_cache()
+
+
+def _sum_check(torch, what, parts, whole) -> float:
+    """The shares' partials summed in rank order (float32) against the
+    whole bf16 result: each element within 2^-7 (|whole| + sum |part|),
+    four bf16 roundings' room.  Returns max |diff|."""
+    total = sum(p.float() for p in parts)
+    mag = whole.float().abs() + sum(p.float().abs() for p in parts)
+    diff = (total - whole.float()).abs()
+    if not bool((diff <= 2.0 ** -7 * mag + 1e-6).all()):
+        raise AssertionError(f"tp {what}: the shares' sum is off the whole by up to "
+                             f"{float(diff.max())} (bound {2.0 ** -7} x the magnitudes)")
+    return float(diff.max())
+
+
+def tp_shares(torch, ops, dev, card: str) -> None:
+    """(b) One qwen2-72b layer at full width over 8192 tokens, whole and as
+    the four shares of a (1, 4) mesh (`attention_local` / `mlp_local` on
+    `convert.block_views`, 16 heads, 2 kv heads and d_ff 7392 a share),
+    summed in rank order against the whole; the vocab-parallel embedding
+    and head as four 38016-row shares against the whole (the lookup equal
+    bit for bit, the head's argmax tokens equal where the whole's top two
+    are apart by more than the shares' difference).  Each share timed by
+    CUDA events; the shares' flash launches count as the main path's."""
+    from types import SimpleNamespace
+
+    from repro_torch import convert
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as LMM
+
+    cfg = get_config(TP_ARCH)
+    mesh_shape = {"data": 1, "model": TP_MODEL}
+    torch.cuda.reset_peak_memory_stats()
+    g = torch.Generator(device=dev).manual_seed(1)
+    attn = L.init_attention(g, cfg, dev).requires_grad_(False)
+    ffn = L.init_mlp(g, cfg, dev).requires_grad_(False)
+    with torch.no_grad():   # zeros at init: drawn, so the bias blocks count
+        for b in (attn.bq, attn.bk, attn.bv):
+            b.copy_(torch.randn(b.shape, generator=g, device=dev) * 0.02)
+    x = torch.randn((1, TP_TOKENS, cfg.d_model), generator=g, device=dev,
+                    dtype=torch.bfloat16)
+    pos = torch.arange(TP_TOKENS, device=dev)[None]
+
+    def views(module, m):
+        blocks = convert.block_views(module, cfg, mesh_shape, {"data": 0, "model": m})
+        return SimpleNamespace(**{n: t for n, (t, _) in blocks.items()})
+
+    log(f"tp (b) one {TP_ARCH} layer [{card}]: {TP_TOKENS} tokens, whole and as {TP_MODEL} "
+        f"shares of a (1, {TP_MODEL}) mesh: {cfg.n_heads // TP_MODEL} heads, "
+        f"{cfg.n_kv_heads // TP_MODEL} kv heads, d_ff {cfg.d_ff // TP_MODEL} a share")
+    out = {}
+    for name, whole_fn, share_fn in (
+            ("attention", lambda: L.attention_local(attn, x, pos, cfg),
+             lambda m: L.attention_local(views(attn, m), x, pos, cfg, m, TP_MODEL)),
+            ("mlp", lambda: L.mlp_local(ffn, x),
+             lambda m: L.mlp_local(views(ffn, m), x))):
+        whole_fn()   # warm-up
+        whole, whole_ms = _event_ms(torch, whole_fn)
+        share_fn(0)  # warm-up
+        ops.reset_launches()
+        parts, ms = [], []
+        for m in range(TP_MODEL):
+            part, t = _event_ms(torch, lambda m=m: share_fn(m))
+            parts.append(part)
+            ms.append(t)
+        MAIN_SHAPES.update(ops.SHAPE_LAUNCHES)
+        err = _sum_check(torch, name, parts, whole)
+        out[name] = (whole_ms, ms)
+        log(f"  tp {name}: whole {whole_ms} ms, shares {ms} ms (CUDA events; sum "
+            f"{sum(ms)} ms, {sum(ms) / whole_ms} of the whole), the shares' sum within "
+            f"{err} of the whole (max |whole| {float(whole.float().abs().max())}); share "
+            f"launches {dict(ops.LAUNCHES)}")
+        del parts, whole
+    del attn, ffn
+    torch.cuda.empty_cache()
+    # the vocab-parallel embedding and head
+    embed = L.normal_init(g, (cfg.vocab, cfg.d_model), 0.02, torch.bfloat16, dev)
+    head = L.dense_init(g, cfg.d_model, cfg.vocab, torch.bfloat16, dev)
+    tokens = torch.randint(0, cfg.vocab, (1, TP_TOKENS), generator=g, device=dev)
+    rows = cfg.vocab // TP_MODEL
+    want = embed[tokens]
+    parts = [LMM.embed_rows(embed[m * rows:(m + 1) * rows], tokens, m * rows)
+             for m in range(TP_MODEL)]
+    got = parts[0]
+    for p_ in parts[1:]:
+        got = got + p_
+    embed_equal = bool(torch.equal(got, want))
+    h = x[0, -TP_HEAD_TOKENS:]
+    (h @ head).float()   # warm-up
+    whole_logits, head_ms = _event_ms(torch, lambda: (h @ head).float())
+    shares, head_share_ms = [], []
+    for m in range(TP_MODEL):
+        block = head[:, m * rows:(m + 1) * rows].contiguous()
+        if m == 0:
+            (h @ block).float()   # warm-up: the share's product shape
+        lg, t = _event_ms(torch, lambda b=block: (h @ b).float())
+        shares.append(lg)
+        head_share_ms.append(t)
+    sharded = torch.cat(shares, dim=-1)
+    gap = float((sharded - whole_logits).abs().max())
+    top2 = torch.topk(whole_logits, 2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > gap
+    same = torch.argmax(sharded, -1) == torch.argmax(whole_logits, -1)
+    log(f"  tp embedding: {TP_MODEL} shares of {rows} rows summed equal to the whole lookup "
+        f"bit for bit {embed_equal}; head over {TP_HEAD_TOKENS} tokens: whole {head_ms} ms, "
+        f"shares {head_share_ms} ms (CUDA events), logits equal bit for bit "
+        f"{bool(torch.equal(sharded, whole_logits))} (max |diff| {gap}), argmax equal "
+        f"{int(same.sum())} of {TP_HEAD_TOKENS} ({int(clear.sum())} with a top-2 gap above "
+        f"the diff, all of them equal {bool(same[clear].all())}); peak memory "
+        f"{torch.cuda.max_memory_allocated()}")
+    if not embed_equal or not bool(same[clear].all()):
+        raise AssertionError("tp embedding / head: the shares differ from the whole")
+    del embed, head, want, parts, got, whole_logits, shares, sharded
+    torch.cuda.empty_cache()
+
+
+def tp_train(torch, ops, D, mesh, dev, card: str) -> None:
+    """(c) qwen1.5-0.5b trained at full width over 8192 tokens, batch 1,
+    through TrainStep under the (1, 1) NCCL mesh against the same steps
+    with no mesh: loss trajectories within TP_TRAIN_RTOL relative, the
+    collectives of a step, the step times."""
+    import contextlib
+
+    from repro_torch import convert
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.sharding.ctx import mesh_context
+    from repro_torch.train import OptConfig, init_train_state, make_train_step
+    from repro_torch.train.data import SyntheticDataset, to_device
+
+    cfg = get_config(TRAIN_ARCH)
+    data = SyntheticDataset(cfg, ShapeSpec("train", TRAIN_SEQ, 1, "train"))
+    losses, step_ms, sites = {}, {}, {}
+    for arm in ("plain", "mesh"):
+        model, opt_state = init_train_state(cfg, seed=0, device=dev)
+        n_params = sum(1 for _ in model.parameters())
+        if arm == "mesh":
+            convert.shard_module(model, cfg, mesh)
+        step = make_train_step(cfg, OptConfig(name=cfg.optimizer))
+        ctx = mesh_context(mesh, ("data",)) if arm == "mesh" else contextlib.nullcontext()
+        losses[arm], step_ms[arm] = [], []
+        torch.cuda.reset_peak_memory_stats()
+        with ctx:
+            for i in range(TP_TRAIN_STEPS):
+                batch = to_device(data.batch(i), cfg, dev)
+                ops.reset_launches()
+                D.reset_collectives()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                _, opt_state, m = step(model, opt_state, batch, i)
+                losses[arm].append(float(m.loss))
+                torch.cuda.synchronize()
+                step_ms[arm].append((time.perf_counter() - t0) * 1e3)
+                if arm == "mesh":
+                    MAIN_SHAPES.update(ops.SHAPE_LAUNCHES)
+                    sites = dict(D.COLLECTIVE_SITES)
+        log(f"  tp train {TRAIN_ARCH} {arm} [{card}]: losses={losses[arm]} step_ms="
+            f"{step_ms[arm]} peak_memory_bytes={torch.cuda.max_memory_allocated()} flash "
+            f"launches the last step={dict(ops.LAUNCHES)}")
+        del model, opt_state, step
+        torch.cuda.empty_cache()
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses["mesh"], losses["plain"]))
+    med = {k: sorted(v[1:])[len(v[1:]) // 2] for k, v in step_ms.items()}
+    log(f"  tp train: the (1, 1) mesh's losses within {rel} of the plain run's (relative); "
+        f"collectives a step {sites}; median step_ms (steps 2 on) plain {med['plain']} mesh "
+        f"{med['mesh']} ({med['mesh'] / med['plain']} x)")
+    if not rel <= TP_TRAIN_RTOL:
+        raise AssertionError(f"tp train: losses {losses}")
+    # at model 1 the attention's weights are whole (no replicated input);
+    # the FFN's wo splits over the one-rank `model` axis by its spec; one
+    # gradient all-reduce over `data` a parameter
+    if (sites.get(("all_reduce", "mlp_in.grad")) != cfg.n_layers
+            or sites.get(("all_reduce", "grad_sync")) != n_params):
+        raise AssertionError(f"tp train: collectives {sites}")
+
+
+def tp_phase(torch, ops, dev, card: str) -> None:
+    """The specs' layout: (a) qwen2-72b served through the (1, 1) NCCL mesh,
+    (b) one full-width qwen2-72b layer, its embedding and head as (1, 4)
+    shares, (c) qwen1.5-0.5b trained on the (1, 1) mesh."""
+    from repro_torch.core import distributed as D
+
+    t0 = time.perf_counter()
+    mesh, store = nccl_world(torch)
+    try:
+        tp_serve(torch, ops, D, mesh, dev, card)
+        t1 = time.perf_counter()
+        log(f"tp: (a) {t1 - t0} s")
+        tp_train(torch, ops, D, mesh, dev, card)
+        log(f"tp: (c) {time.perf_counter() - t1} s")
+    finally:
+        leave_world(store)
+    t1 = time.perf_counter()
+    tp_shares(torch, ops, dev, card)
+    log(f"tp: (b) {time.perf_counter() - t1} s; phase {time.perf_counter() - t0} s")
 
 
 def flash_phase(torch, ops, ref, dev):
@@ -3450,6 +3806,7 @@ def train_smoke(torch, ops, dev) -> None:
     from repro_torch.configs import ShapeSpec, get_config
     from repro_torch.train import OptConfig, init_opt, init_train_state, make_train_step
     from repro_torch.train.data import SyntheticDataset, to_device
+    from repro_torch.train.optimizer import param_groups
 
     for arch in TRAIN_SMOKE_ARCHS:
         cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32",
@@ -3459,7 +3816,8 @@ def train_smoke(torch, ops, dev) -> None:
         models = {"cpu": model_cpu, dev: copy.deepcopy(model_cpu).to(dev)}
         out = {}
         for where, model in models.items():
-            opt = init_opt(cfg.optimizer, dict(model.named_parameters()))
+            params = dict(model.named_parameters())
+            opt = init_opt(cfg.optimizer, params, param_groups(cfg, params))
             step = make_train_step(cfg, OptConfig(name=cfg.optimizer))
             ops.reset_launches()
             _, _, m = step(model, opt, to_device(batch, cfg, where), 0)
@@ -3568,8 +3926,8 @@ def train_profile(torch, ops, card: str) -> None:
 
 def main() -> int:
     only = sys.argv[2] if sys.argv[1:2] == ["--only"] and len(sys.argv) == 3 else None
-    if sys.argv[1:] and only not in ("serving", "sharded", "moe_ep"):
-        print("usage: chip_smoke.py [--only serving|sharded|moe_ep]", file=sys.stderr)
+    if sys.argv[1:] and only not in ("serving", "sharded", "moe_ep", "tp"):
+        print("usage: chip_smoke.py [--only serving|sharded|moe_ep|tp]", file=sys.stderr)
         return 2
     if not (SRC / "repro_torch").is_dir():
         print(f"chip_smoke: {SRC / 'repro_torch'} not found — run from the "
@@ -3613,6 +3971,8 @@ def main() -> int:
             serving_phase(torch, ops, dev)
         elif only == "moe_ep":
             moe_ep_phase(torch, ops, dev, card)
+        elif only == "tp":
+            tp_phase(torch, ops, dev, card)
         else:
             cat_np, reqs_np, _ = trace.sift_like(n=N_FULL, d=D_FULL, t=T_FULL, seed=0)
             sharded_phase(torch, ops, ref, torch.from_numpy(cat_np).to(dev),
@@ -3662,6 +4022,7 @@ def main() -> int:
     MAIN_SHAPES.update(SHARDED_SHAPES)
     CHURN_SHAPES.update(SHARDED_CHURN_SHAPES)
     moe_ep_phase(torch, ops, dev, card)
+    tp_phase(torch, ops, dev, card)
     # last: once torch.profiler has traced the card, every later launch in
     # this process pays its callbacks, so no host-clock figure comes after
     rows = shapes_phase(torch, ops, ref, catalog, reqs, ivf_index, pq_index, dev,

@@ -193,48 +193,96 @@ def lm_params_from_numpy(params, cfg: ModelConfig, device=None) -> LM:
     return model
 
 
-def moe_block(moe, cfg: ModelConfig, mesh):
-    """Cut a whole MoE layer (`models.moe.MoE`) to this rank's block, in
-    place, and return it: wi / wg / wo keep the rank's E / n_model experts
-    (E over `model`), and under cfg.fsdp the router, wi, wg and wo keep
-    only the rank's `data` slice of d, as the reference's `_moe_shard_map`
-    cuts them (`src/repro/models/moe.py:199-206`).  The shared experts stay
-    whole."""
+def mesh_coords(mesh) -> tuple:
+    """({axis: ranks}, {axis: this rank's coordinate}) of a DeviceMesh."""
+    names = tuple(mesh.mesh_dim_names)
+    return (dict(zip(names, (int(n) for n in mesh.mesh.shape))),
+            {a: mesh.get_local_rank(a) for a in names})
+
+
+def param_block(t: torch.Tensor, spec: tuple, mesh_shape: dict, coords: dict):
+    """The block of the whole tensor `t` that the rank at `coords` holds
+    under `spec`: along each dim split over axes (a1, a2, ...), slice r of
+    n, n the product of their sizes and r the row-major coordinate (a
+    view)."""
+    from repro_torch.sharding.tp import axes_of
+
+    for dim, entry in enumerate(spec):
+        n, r = 1, 0
+        for a in axes_of(entry):
+            n, r = n * mesh_shape[a], r * mesh_shape[a] + coords[a]
+        if n > 1:
+            size = t.shape[dim] // n
+            t = t.narrow(dim, r * size, size)
+    return t
+
+
+def block_views(module, cfg: ModelConfig, mesh_shape: dict, coords: dict) -> dict:
+    """name -> (the rank's block of the module's parameter, as a view; its
+    spec) over a mesh of `mesh_shape` at `coords`, with no world: the
+    shares of a (1, 4) mesh built on one card."""
+    from repro_torch.sharding import specs as S
+
+    out = {}
+    for name, p in module.named_parameters():
+        spec = S.param_pspec(name, p.shape, cfg, mesh_shape)
+        out[name] = (param_block(p, spec, mesh_shape, coords), spec)
+    return out
+
+
+def shard_module(module, cfg: ModelConfig, mesh=None, *, mesh_shape: dict | None = None,
+                 coords: dict | None = None, whole=()):
+    """Cut every parameter of a whole module (an `LM`, a layer, an MoE) in
+    place to the rank's block by `sharding.specs`, recording its spec as
+    the parameter's `pspec`, and return the module.  The rank is this
+    process's on `mesh`, or the one at `coords` on a mesh of `mesh_shape`
+    (no world needed).  A parameter whose name starts with a prefix in
+    `whole` stays whole, its spec replicated.  A block that is the whole
+    tensor keeps its storage; any other is a copy, so the whole tensor can
+    be freed."""
     from torch import nn
 
-    from repro_torch.core.distributed import _axis_rank, _axis_size
-
-    n_model, n_data = _axis_size(mesh, "model"), _axis_size(mesh, "data")
-    e, d = cfg.n_experts, cfg.d_model
-    if e % n_model or (cfg.fsdp and d % n_data):
-        raise ValueError(f"{e} experts of width {d} do not split over a (data {n_data}, "
-                         f"model {n_model}) mesh{' under fsdp' if cfg.fsdp else ''}")
-    e_loc, d_loc = e // n_model, d // n_data
-    m, r = _axis_rank(mesh, "model"), _axis_rank(mesh, "data")
-    ex, ds = slice(m * e_loc, (m + 1) * e_loc), slice(r * d_loc, (r + 1) * d_loc)
-    cut = {"router": moe.router, "wi": moe.wi[ex], "wg": moe.wg[ex], "wo": moe.wo[ex]}
-    if cfg.fsdp:
-        cut = {"router": cut["router"][ds], "wi": cut["wi"][:, ds], "wg": cut["wg"][:, ds],
-               "wo": cut["wo"][:, :, ds]}
-    trainable = moe.router.requires_grad
-    for name, t in cut.items():
-        setattr(moe, name, nn.Parameter(t.detach().clone(), requires_grad=trainable))
-    return moe
+    if mesh is not None:
+        mesh_shape, coords = mesh_coords(mesh)
+    for name, (block, spec) in block_views(module, cfg, mesh_shape, coords).items():
+        *path, leaf = name.split(".")
+        owner = module
+        for key in path:
+            owner = getattr(owner, key)
+        p = getattr(owner, leaf)
+        if any(name.startswith(w + ".") for w in whole):
+            block, spec = p, (None,) * p.dim()
+        if block.shape != p.shape:
+            p = nn.Parameter(block.detach().clone(), requires_grad=p.requires_grad)
+            setattr(owner, leaf, p)
+        p.pspec = tuple(spec)
+    return module
 
 
-def lm_params_block(params, cfg: ModelConfig, mesh, device=None) -> LM:
-    """This rank's model for the expert-parallel MoE, from the reference's
-    numpy tree (`lm_params_from_numpy`'s layout), on the mesh's device by
-    default: every MoE layer cut by `moe_block`, every other parameter
-    whole."""
+def moe_block(moe, cfg: ModelConfig, mesh):
+    """Cut a whole MoE layer (`models.moe.MoE`) to this rank's block, in
+    place, and return it, as the reference's `_moe_shard_map` cuts it
+    (`src/repro/models/moe.py:199-206`): wi / wg / wo keep the rank's E /
+    n_model experts (E over `model`; where E does not divide the axis,
+    every expert and the rank's block of the expert FFN dim, the
+    reference's TP inside experts), and under cfg.fsdp the router, wi, wg
+    and wo keep only the rank's `data` slice of d.  The shared experts
+    stay whole."""
+    return shard_module(moe, cfg, mesh, whole=("shared",))
+
+
+def lm_params_block(params, cfg: ModelConfig, mesh=None, device=None, *,
+                    mesh_shape: dict | None = None, coords: dict | None = None) -> LM:
+    """This rank's model from the reference's numpy tree
+    (`lm_params_from_numpy`'s layout), on the mesh's device by default:
+    every parameter cut by the specs (`shard_module`).  Without a world,
+    `mesh_shape` and `coords` name the rank (then `device` is required)."""
     from repro_torch.core.distributed import mesh_device
 
-    device = mesh_device(mesh) if device is None else device
+    if device is None:
+        device = mesh_device(mesh)
     model = lm_params_from_numpy(params, cfg, device=device)
-    for layer in model.layers:
-        if layer.kind[1] == "moe":
-            moe_block(layer.ffn, cfg, mesh)
-    return model
+    return shard_module(model, cfg, mesh, mesh_shape=mesh_shape, coords=coords)
 
 
 def lm_params_to_numpy(model: LM, cfg: ModelConfig, tensors: dict | None = None) -> dict:

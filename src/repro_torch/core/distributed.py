@@ -44,6 +44,11 @@ single-device `policy.make_step_batched` + exact candidates and
 
 Tensors and groups must agree: CUDA tensors need an NCCL group and CPU
 tensors a gloo one; a mismatch raises, nothing is staged through the host.
+
+Over an axis of one rank a collective moves nothing: `all_gather`,
+`all_reduce` and `reduce_scatter` then return the input (a view or the
+tensor itself, detached; read it, do not write into it) and still count
+the call at its site, so the counts are the same at any axis size.
 """
 
 from __future__ import annotations
@@ -116,12 +121,14 @@ def mesh_device(mesh) -> torch.device:
     return resolve_device(mesh.device_type)
 
 
-# calls since the last reset, by primitive ("all_gather", "all_reduce") and
-# by (primitive, purpose): "merge", "route", "projection", "round_sums",
-# "depround", "metrics" within a step, "regrid" on a growth or a
-# compaction, "gather_rows" for a caller's gather of a sharded tensor;
-# the expert-parallel MoE's "moe_weights" (fsdp gathers), "moe_ids",
-# "moe_aux" and "moe_combine" (models/moe.py)
+# calls since the last reset, by primitive ("all_gather", "all_reduce",
+# "reduce_scatter") and by (primitive, purpose): "merge", "route",
+# "projection", "round_sums", "depround", "metrics" within a step, "regrid"
+# on a growth or a compaction, "gather_rows" for a caller's gather of a
+# sharded tensor; the expert-parallel MoE's "moe_weights" (fsdp gathers),
+# "moe_ids", "moe_aux" and "moe_combine" (models/moe.py); the layout run's
+# sites (`sharding/tp.py`); a backward's collective at its forward's
+# site + ".grad"
 COLLECTIVES: Counter = Counter()
 COLLECTIVE_SITES: Counter = Counter()
 # one tensor in, the group's tensors concatenated out (newer PyTorch names
@@ -160,6 +167,9 @@ def all_gather(t: torch.Tensor, mesh, axis: str, site: str) -> torch.Tensor:
     counted `all_gather`."""
     group = _group(mesh, axis, t, f"all_gather ({site})")
     size = _axis_size(mesh, axis)
+    if size == 1:
+        _book("all_gather", site)
+        return t.detach().unsqueeze(0)
     flat = t.contiguous().reshape(-1)
     out = torch.empty(size * flat.numel(), dtype=t.dtype, device=t.device)
     _ALL_GATHER(out, flat, group=group)
@@ -167,14 +177,134 @@ def all_gather(t: torch.Tensor, mesh, axis: str, site: str) -> torch.Tensor:
     return out.view((size,) + tuple(t.shape))
 
 
-def all_reduce(t: torch.Tensor, mesh, axis: str, site: str) -> torch.Tensor:
-    """The sum of `t` over the ranks of `axis` (a new tensor); one counted
-    `all_reduce`."""
+def all_reduce(t: torch.Tensor, mesh, axis: str, site: str, op: str = "sum") -> torch.Tensor:
+    """The sum (op "max": the maximum) of `t` over the ranks of `axis` (a
+    new tensor; `t` itself, detached, over one rank); one counted
+    `all_reduce`.  No gradient: the model's collectives under autograd
+    are `reduce_partials`, `replicated_input` and `gather_shards`."""
     group = _group(mesh, axis, t, f"all_reduce ({site})")
-    out = t.contiguous().clone()
-    dist.all_reduce(out, group=group)
+    if _axis_size(mesh, axis) == 1:
+        _book("all_reduce", site)
+        return t.detach()
+    out = t.detach().contiguous().clone()
+    dist.all_reduce(out, op=dist.ReduceOp.MAX if op == "max" else dist.ReduceOp.SUM,
+                    group=group)
     _book("all_reduce", site)
     return out
+
+
+def reduce_scatter(t: torch.Tensor, mesh, axis: str, dim: int, site: str) -> torch.Tensor:
+    """This rank's block along `dim` of the sum of `t` over the ranks of
+    `axis`; one counted `reduce_scatter`.  NCCL runs
+    `reduce_scatter_tensor`; gloo has none, so on the CPU it is an
+    all-reduce followed by the rank's slice (counted the same)."""
+    group = _group(mesh, axis, t, f"reduce_scatter ({site})")
+    n, r = _axis_size(mesh, axis), _axis_rank(mesh, axis)
+    dim = dim % t.dim()
+    if n == 1:
+        _book("reduce_scatter", site)
+        return t.detach()
+    if "nccl" in dist.get_backend(group):
+        src = t.detach().movedim(dim, 0).contiguous()
+        out = torch.empty((src.shape[0] // n,) + tuple(src.shape[1:]), dtype=t.dtype,
+                          device=t.device)
+        dist.reduce_scatter_tensor(out, src, group=group)
+        out = out.movedim(0, dim)
+    else:
+        whole = t.detach().contiguous().clone()
+        dist.all_reduce(whole, group=group)
+        out = whole.narrow(dim, r * (t.shape[dim] // n), t.shape[dim] // n)
+    _book("reduce_scatter", site)
+    return out.contiguous()
+
+
+class _ReducePartials(torch.autograd.Function):
+    """Forward: the sum over `axis` of the ranks' partials; backward: the
+    gradient unchanged (every rank's partial feeds the same sum)."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, axis, site):
+        return all_reduce(t, mesh, axis, site)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None, None, None
+
+
+class _ReplicatedInput(torch.autograd.Function):
+    """Forward: the input unchanged (replicated over `axis`); backward: the
+    sum over `axis` of the ranks' partial gradients."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, axis, site):
+        ctx.args = (mesh, axis, site)
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        mesh, axis, site = ctx.args
+        return all_reduce(grad, mesh, axis, site + ".grad"), None, None, None
+
+
+class _GatherShards(torch.autograd.Function):
+    """Forward: the whole tensor from the ranks' blocks along `dim` (an
+    all-gather); backward: the rank's block of the sum of the ranks'
+    gradients (`reduce_scatter`)."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, axis, dim, site):
+        ctx.args = (mesh, axis, dim, site)
+        g = all_gather(t, mesh, axis, site)
+        return g[0] if g.shape[0] == 1 else torch.cat(list(g.unbind(0)), dim=dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        mesh, axis, dim, site = ctx.args
+        return reduce_scatter(grad, mesh, axis, dim, site + ".grad"), None, None, None, None
+
+
+class _GatherReplicated(_GatherShards):
+    """Forward: `_GatherShards`' all-gather; backward: the rank's block of the
+    gradient, no collective.  For a whole tensor that every rank of `axis`
+    uses alike: each rank's gradient of it is then already the whole
+    gradient, which a reduce-scatter would count once a rank."""
+
+    @staticmethod
+    def backward(ctx, grad):
+        mesh, axis, dim, _ = ctx.args
+        width = grad.shape[dim] // _axis_size(mesh, axis)
+        return (grad.narrow(dim, _axis_rank(mesh, axis) * width, width), None, None, None,
+                None)
+
+
+def reduce_partials(t: torch.Tensor, mesh, axis: str, site: str) -> torch.Tensor:
+    """The sum over `axis` of each rank's partial `t` (all-reduce), whose
+    backward passes the gradient through: a tensor-parallel layer's
+    output, the loss's numerators over the batch axes."""
+    return _ReducePartials.apply(t, mesh, axis, site)
+
+
+def replicated_input(t: torch.Tensor, mesh, axis: str, site: str) -> torch.Tensor:
+    """`t` (the same on every rank of `axis`) as the input of rank-partial
+    work: forward the identity, backward the all-reduce of the ranks'
+    partial gradients (counted at site + ".grad")."""
+    return _ReplicatedInput.apply(t, mesh, axis, site)
+
+
+def gather_shards(t: torch.Tensor, mesh, axis: str, dim: int, site: str) -> torch.Tensor:
+    """The whole tensor from the ranks' blocks of dim `dim` over `axis`
+    (rank order): the fsdp weight gather over `data`, a misaligned head
+    projection's over `model`.  Backward: `reduce_scatter` (site +
+    ".grad")."""
+    return _GatherShards.apply(t, mesh, axis, dim % t.dim(), site)
+
+
+def gather_replicated(t: torch.Tensor, mesh, axis: str, dim: int, site: str) -> torch.Tensor:
+    """The whole tensor from the ranks' blocks of dim `dim` over `axis`,
+    for a use that every rank of `axis` makes alike (a bias split over
+    `model` whose matrix is whole there): backward the rank's block of the
+    gradient, with no collective."""
+    return _GatherReplicated.apply(t, mesh, axis, dim % t.dim(), site)
 
 
 def collectives_per_step(fn: Callable, *args, **kwargs):

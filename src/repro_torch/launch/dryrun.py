@@ -12,10 +12,13 @@ meta device and laid out by `sharding.specs`: no world, no weights, no
 card.  The AÇAI retrieval cell records its per-device catalog bytes and
 its provenance (`acai_cell_meta`).
 
-The reference's compile-derived fields (`cost_analysis`,
-`memory_analysis`, `hlo_analysis.summarize`'s FLOPs, bytes and collective
-bytes, `src/repro/launch/dryrun.py:140-178`) have no counterpart here yet:
-ROADMAP A12b.
+The bytes are what a rank holds when the model runs laid out this way
+(`convert.lm_params_block`, `sharding.tp`): its blocks of the parameters,
+the Adafactor state of the reference's stacked leaves
+(`optimizer.param_groups`), its cache.  The reference's compile-derived
+fields (`cost_analysis`, `memory_analysis`, `hlo_analysis.summarize`'s
+FLOPs, bytes and collective bytes, `src/repro/launch/dryrun.py:140-178`)
+have no counterpart here yet: ROADMAP A12c.
 
     python -m repro_torch.launch.dryrun --arch yi-6b --shape train_4k --mesh single \\
         --out DIR
@@ -37,7 +40,7 @@ from repro_torch.configs import ARCHS, SHAPES, runnable
 from repro_torch.launch.mesh import production_mesh_shape
 from repro_torch.models import init_cache, init_params
 from repro_torch.sharding import specs as S
-from repro_torch.train.optimizer import init_opt
+from repro_torch.train.optimizer import init_opt, param_groups
 
 ACAI_ARCH, ACAI_SHAPE = "acai-retrieval", "retrieval_b4096"
 
@@ -54,8 +57,9 @@ def cell_bytes(cfg, shape, mesh_shape: dict, multi_pod: bool) -> dict:
     pspecs = S.param_pspecs(cfg, params, mesh_shape)
     info = {"params_bytes_per_device": S.sharded_bytes(params, pspecs, mesh_shape)}
     if shape.kind == "train":
-        opt = init_opt(cfg.optimizer, params)
-        ospecs = S.opt_pspecs(cfg.optimizer, params, pspecs)
+        groups = param_groups(cfg, params)
+        opt = init_opt(cfg.optimizer, params, groups)
+        ospecs = S.opt_pspecs(cfg.optimizer, pspecs, groups)
         info["opt_bytes_per_device"] = S.sharded_bytes(opt, ospecs, mesh_shape)
         info["accum"] = _accum_for(shape)
     else:

@@ -18,6 +18,8 @@ from torch import nn
 
 from repro_torch.kernels import ops
 from repro_torch.models.config import ModelConfig
+from repro_torch.sharding import ctx as mesh_ctx
+from repro_torch.sharding import tp
 
 # Above this KV length, prefill and training attention switch to the flash path:
 # O(S * tile) live logits instead of O(S * T).
@@ -186,23 +188,86 @@ def init_attention(generator: torch.Generator, cfg: ModelConfig, device) -> Atte
     return Attention(cfg, generator, device)
 
 
-def attention(p: Attention, x: torch.Tensor, positions: torch.Tensor,
-              cfg: ModelConfig, cache: dict | None = None, cache_len: int = 0,
-              positions3: torch.Tensor | None = None) -> torch.Tensor:
-    """Full-sequence (prefill) or incremental (decode) attention.
+def _project(x, w, b, n_heads: int, hd: int, rank: int, n_model: int, gather):
+    """x @ w (+ b) as (B, S, heads, hd) and its first head: the whole
+    projection (w has n_heads * hd columns), the rank's column block when
+    its heads are whole (n_model divides n_heads), else the block gathered
+    over `model` by `gather` into whole heads."""
+    bsz, s, _ = x.shape
+    y = x @ w
+    if b is not None:
+        y = y + b
+    cols = w.shape[1]
+    if cols == n_heads * hd:
+        return y.reshape(bsz, s, n_heads, hd), 0
+    if cols * n_model != n_heads * hd:
+        raise ValueError(f"a {cols}-column block of a {n_heads * hd}-column projection on a "
+                         f"{n_model}-rank model axis")
+    if n_heads % n_model == 0:
+        per = n_heads // n_model
+        return y.reshape(bsz, s, per, hd), rank * per
+    if gather is None:
+        raise ValueError(f"{n_heads} heads over a {n_model}-rank model axis split heads: the "
+                         f"projection's block is gathered over `model` (attention's "
+                         f"wrapper)")
+    return gather(y).reshape(bsz, s, n_heads, hd), 0
 
-    cache: None, or {"k": (B, S_max, KV, D), "v": ...}, written in place:
-    at [cache_len, cache_len + S) for the linear cache, or at ring slots
-    p mod S_max when cfg.sliding_window >= S_max (the reference's ring).
-    Returns the attention output (B, S, d)."""
+
+def _kv_for(k, k_lo: int, h_lo: int, h_hi: int, group: int):
+    """The kv heads of query heads [h_lo, h_hi) from k (B, T, n, D) holding
+    kv heads from k_lo: a slice when the queries group evenly over them
+    (query i of the slice reads kv head i // (n_q / n_kv), as the GQA
+    paths take it), else one kv head a query."""
+    kv_lo, kv_hi = h_lo // group, (h_hi - 1) // group + 1
+    sl = k[:, :, kv_lo - k_lo:kv_hi - k_lo]
+    if kv_hi - kv_lo == 1 or (h_lo % group == 0 and (h_hi - h_lo) % group == 0):
+        return sl
+    idx = torch.arange(h_lo, h_hi, device=k.device) // group - kv_lo
+    return sl[:, :, idx]
+
+
+def attention_local(p, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig,
+                    rank: int = 0, n_model: int = 1, cache: dict | None = None,
+                    cache_len: int = 0, positions3: torch.Tensor | None = None,
+                    share=None, gather=None) -> torch.Tensor:
+    """One rank's attention with no collective: `p` holds the rank's blocks
+    (wq / wk / wv (d, ·) column blocks, or whole; wo (·, d) a row block,
+    or whole; the biases with their columns), `rank` / `n_model` its
+    `model` coordinate.  Returns the rank's partial (B, S, d): its heads'
+    output times its rows of wo (the whole output when wo is whole).
+
+    The heads a rank computes are those its rows of wo cover.  A
+    projection whose block splits heads (the head count does not divide
+    the axis) needs `gather` (its block -> the whole projection; the
+    wrapper's counted gather over `model`).  `share` (the wrapper's
+    `replicated_input`) marks the replicated tensors that feed the rank's
+    partial: x before a column block, and a whole projection's output.
+    The cache holds the kv heads the rank has: its block's, or all of
+    them where its block split heads.  With rank 0 of 1 and whole weights
+    this is the unsharded attention."""
     b, s, _ = x.shape
-    hd = cfg.head_dim
-    q, k, v = x @ p.wq, x @ p.wk, x @ p.wv
-    if cfg.qkv_bias:
-        q, k, v = q + p.bq, k + p.bk, v + p.bv
-    q = q.reshape(b, s, cfg.n_heads, hd)
-    k = k.reshape(b, s, cfg.n_kv_heads, hd)
-    v = v.reshape(b, s, cfg.n_kv_heads, hd)
+    hd, h, kvh = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    partial = p.wo.shape[0] != h * hd
+    blocks = [w.shape[1] != n * hd for w, n in ((p.wq, h), (p.wk, kvh), (p.wv, kvh))]
+    x_in = share(x) if (partial and share is not None and any(blocks)) else x
+
+    def proj(w, bias, n, is_block):
+        y, lo = _project(x_in if is_block else x, w, bias, n, hd, rank, n_model, gather)
+        if partial and not is_block and share is not None:
+            y = share(y)
+        return y, lo
+
+    bias = cfg.qkv_bias
+    q, q_lo = proj(p.wq, p.bq if bias else None, h, blocks[0])
+    k, k_lo = proj(p.wk, p.bk if bias else None, kvh, blocks[1])
+    v, _ = proj(p.wv, p.bv if bias else None, kvh, blocks[2])
+    if partial:
+        rows = p.wo.shape[0]
+        c0 = rank * rows
+        h_lo, h_hi = c0 // hd, -(-(c0 + rows) // hd)
+    else:
+        c0, rows, h_lo, h_hi = 0, h * hd, 0, h
+    q = q[:, :, h_lo - q_lo:h_hi - q_lo]
 
     if cfg.pos_emb == "rope":
         q = apply_rope(q, positions, cfg.rope_theta)
@@ -211,10 +276,18 @@ def attention(p: Attention, x: torch.Tensor, positions: torch.Tensor,
         q = apply_mrope(q, positions3, cfg.rope_theta, cfg.mrope_sections)
         k = apply_mrope(k, positions3, cfg.rope_theta, cfg.mrope_sections)
 
+    group = h // kvh
+
+    def kv(t):
+        return _kv_for(t, k_lo, h_lo, h_hi, group)
+
     if cache is None:
-        out = attention_core(q, k, v, 0, cfg)
+        out = attention_core(q, kv(k), kv(v), 0, cfg)
     else:
         ck, cv = cache["k"], cache["v"]
+        if ck.shape[2] != k.shape[2]:
+            raise ValueError(f"the cache holds {ck.shape[2]} kv heads; this rank's "
+                             f"projection gives {k.shape[2]} (init_cache under the mesh)")
         s_max = ck.shape[1]
         if cfg.sliding_window and s_max <= cfg.sliding_window:
             # ring buffer: slot(p) = p mod W; after the write, slot j holds
@@ -226,20 +299,56 @@ def attention(p: Attention, x: torch.Tensor, positions: torch.Tensor,
                 slot = cache_len % s_max
                 ck[:, slot:slot + 1] = k.to(ck.dtype)
                 cv[:, slot:slot + 1] = v.to(cv.dtype)
-                out = attention_core(q, ck, cv, cache_len, cfg, kv_positions=slot_pos)
+                out = attention_core(q, kv(ck), kv(cv), cache_len, cfg,
+                                     kv_positions=slot_pos)
             else:
                 # prefill: place the last W tokens at their ring slots; the
                 # attention runs over the full (windowed) sequence
-                gather = torch.clamp(slot_pos, 0, s - 1)
-                ck.copy_(k[:, gather].to(ck.dtype))
-                cv.copy_(v[:, gather].to(cv.dtype))
-                out = attention_core(q, k, v, 0, cfg)
+                gather_idx = torch.clamp(slot_pos, 0, s - 1)
+                ck.copy_(k[:, gather_idx].to(ck.dtype))
+                cv.copy_(v[:, gather_idx].to(cv.dtype))
+                out = attention_core(q, kv(k), kv(v), 0, cfg)
         else:
             ck[:, cache_len:cache_len + s] = k.to(ck.dtype)
             cv[:, cache_len:cache_len + s] = v.to(cv.dtype)
-            out = attention_core(q, ck, cv, cache_len, cfg,
+            out = attention_core(q, kv(ck), kv(cv), cache_len, cfg,
                                  written_upto=cache_len + s)
-    return out.reshape(b, s, cfg.n_heads * hd) @ p.wo
+    out = out.reshape(b, s, (h_hi - h_lo) * hd)
+    if partial:
+        out = out[..., c0 - h_lo * hd:c0 - h_lo * hd + rows]
+    return out @ p.wo
+
+
+def attention(p: Attention, x: torch.Tensor, positions: torch.Tensor,
+              cfg: ModelConfig, cache: dict | None = None, cache_len: int = 0,
+              positions3: torch.Tensor | None = None) -> torch.Tensor:
+    """Full-sequence (prefill) or incremental (decode) attention.
+
+    cache: None, or {"k": (B, S_max, KV, D), "v": ...}, written in place:
+    at [cache_len, cache_len + S) for the linear cache, or at ring slots
+    p mod S_max when cfg.sliding_window >= S_max (the reference's ring).
+    Returns the attention output (B, S, d).
+
+    Under a mesh context the weights are the rank's blocks (`sharding.tp`):
+    gathered over `data` under fsdp, then `attention_local` on the rank's
+    heads with its counted collectives, and the partial reduced over
+    `model` where wo's rows split over it."""
+    if mesh_ctx.current() is None:
+        return attention_local(p, x, positions, cfg, cache=cache, cache_len=cache_len,
+                               positions3=positions3)
+    w = tp.gathered(p)
+    if cfg.qkv_bias:
+        # the specs split a bias over `model` whatever its matrix's layout:
+        # under replicate_misaligned_heads a whole matrix's bias is gathered,
+        # and every rank computes with it alike (its gradient whole on each)
+        for m, b in (("wq", "bq"), ("wk", "bk"), ("wv", "bv")):
+            if tp.over_model(w.specs[b]) and not tp.over_model(w.specs[m]):
+                setattr(w, b, tp.gather_model_replicated(getattr(w, b), 0, "attn_bias"))
+    out = attention_local(w, x, positions, cfg, tp.rank(tp.MODEL), tp.size(tp.MODEL),
+                          cache=cache, cache_len=cache_len, positions3=positions3,
+                          share=lambda t: tp.replicated_input(t, "attn_in"),
+                          gather=lambda t: tp.gather_model(t, -1, "attn_heads"))
+    return tp.reduce_model(out, "attn_out") if tp.over_model(w.specs["wo"]) else out
 
 
 # --------------------------------------------------------------------------
@@ -266,8 +375,22 @@ def init_mlp(generator: torch.Generator, cfg: ModelConfig, device,
     return MLP(cfg, generator, device, d_ff)
 
 
-def mlp(p: MLP, x: torch.Tensor) -> torch.Tensor:
-    if hasattr(p, "wg"):  # SwiGLU
+def mlp_local(p, x: torch.Tensor) -> torch.Tensor:
+    """The FFN on whatever blocks `p` holds (wi / wg column blocks and wo's
+    rows: the rank's partial; whole: the FFN), with no collective."""
+    if getattr(p, "wg", None) is not None:  # SwiGLU
         return (nn.functional.silu(x @ p.wg) * (x @ p.wi)) @ p.wo
     h = torch.relu(x @ p.wi)  # squared ReLU (nemotron family)
     return (h * h) @ p.wo
+
+
+def mlp(p: MLP, x: torch.Tensor) -> torch.Tensor:
+    """The FFN; under a mesh context on the rank's blocks: gathered over
+    `data` under fsdp, and where the FFN dim splits over `model`, x as
+    the replicated input and the partial reduced over `model`."""
+    if mesh_ctx.current() is None:
+        return mlp_local(p, x)
+    w = tp.gathered(p)
+    if not tp.over_model(w.specs["wo"]):
+        return mlp_local(w, x)
+    return tp.reduce_model(mlp_local(w, tp.replicated_input(x, "mlp_in")), "mlp_out")

@@ -32,6 +32,8 @@ from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 from repro_torch.models.config import ModelConfig
+from repro_torch.sharding import ctx as mesh_ctx
+from repro_torch.sharding import tp
 
 
 class UnitSpec(NamedTuple):
@@ -156,7 +158,7 @@ def _init_layer_cache(cfg: ModelConfig, kind: tuple, batch: int, s_max: int, dty
     mixer_kind, _ = kind
     if mixer_kind == "attn":
         t = min(s_max, cfg.sliding_window) if cfg.sliding_window else s_max
-        shape = (batch, t, cfg.n_kv_heads, cfg.head_dim)
+        shape = (batch, t, _kv_heads_of_rank(cfg), cfg.head_dim)
         return {"k": torch.zeros(shape, dtype=dtype, device=device),
                 "v": torch.zeros(shape, dtype=dtype, device=device)}
     if mixer_kind == "mla":
@@ -164,9 +166,18 @@ def _init_layer_cache(cfg: ModelConfig, kind: tuple, batch: int, s_max: int, dty
     return SSM.init_mamba_cache(cfg, batch, dtype, device)
 
 
+def _kv_heads_of_rank(cfg: ModelConfig) -> int:
+    """The kv heads a rank's attention cache holds: KV / n_model where the
+    heads divide the mesh's `model` axis (`specs.cache_pspecs`), else all
+    KV (the rank gathers whole heads); KV with no mesh."""
+    n = tp.size(tp.MODEL)
+    return cfg.n_kv_heads // n if cfg.n_kv_heads % n == 0 else cfg.n_kv_heads
+
+
 def init_cache(cfg: ModelConfig, batch: int, s_max: int, device=None) -> list:
     """Zeroed cache, one dict a layer by its mixer: attention {"k", "v"}
-    (batch, T, KV, D), T = min(s_max, sliding_window) under a window;
+    (batch, T, KV, D), T = min(s_max, sliding_window) under a window
+    (under a mesh context: batch the rank's, KV its kv heads);
     MLA {"ckv", "krope"} (batch, s_max, ·); mamba {"conv" (batch, K-1, CH),
     "ssm" (batch, H, P, N) float32}."""
     device = resolve_device(device)
@@ -176,12 +187,54 @@ def init_cache(cfg: ModelConfig, batch: int, s_max: int, device=None) -> list:
 
 
 def embed_lookup(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    """Token-embedding lookup.  Under a mesh the reference contracts a
-    one-hot with its vocab-sharded table (`src/repro/models/model.py:
-    227-231`); in the port the table is whole on every rank, where that
-    form equals this gather exactly (one nonzero term, and adding zeros
-    is exact).  The vocab-sharded form is ROADMAP A12b."""
-    return embed[tokens.long()]
+    """Token-embedding lookup.  Under a mesh context the table is the
+    rank's rows of the vocab (`model`) and, under fsdp, its `data` slice of
+    d (gathered first): ids outside the rank's rows read zero, and the
+    lookups are summed over `model`.  One row is nonzero a token and
+    adding zeros is exact, so this equals the reference's one-hot
+    contraction (`src/repro/models/model.py:227-231`) and the gather."""
+    if mesh_ctx.current() is None:
+        return embed[tokens.long()]
+    spec = tp.spec_of(embed)
+    table = tp.whole_over_data(embed)
+    if not tp.over_model(spec):
+        return table[tokens.long()]
+    out = embed_rows(table, tokens, tp.rank(tp.MODEL) * table.shape[0])
+    return tp.reduce_model(out, "embed")
+
+
+def embed_rows(rows: torch.Tensor, tokens: torch.Tensor, lo: int) -> torch.Tensor:
+    """One rank's share of the vocab-parallel lookup: `rows` holds vocab
+    rows [lo, lo + len(rows)); an id outside them reads zero."""
+    local = tokens.long() - lo
+    mine = (local >= 0) & (local < rows.shape[0])
+    return rows[local.clamp(0, rows.shape[0] - 1)] * mine[..., None].to(rows.dtype)
+
+
+def lm_logits(params: "LM", cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """x (..., d) @ the head (lm_head, or embed.T when tied), float32.
+    Under a mesh context: the rank's vocab columns (vocab-sharded logits)
+    where the vocab splits over `model`, with x as their replicated
+    input."""
+    if mesh_ctx.current() is None:
+        head = params.embed.T if cfg.tie_embeddings else params.lm_head
+        return (x @ head).float()
+    w = params.embed if cfg.tie_embeddings else params.lm_head
+    spec = tp.spec_of(w)
+    head = tp.whole_over_data(w)
+    head = head.T if cfg.tie_embeddings else head
+    if tp.over_model(spec):
+        x = tp.replicated_input(x, "logits_in")
+    return (x @ head).float()
+
+
+def vocab_lo(params: "LM", cfg: ModelConfig) -> int | None:
+    """The first vocab id of the rank's logit columns where the mesh context
+    shards the logits' vocab over `model`, else None: `tp.vocab_shard` of
+    the head (lm_head, or the tied embed)."""
+    if cfg.tie_embeddings:
+        return tp.vocab_shard(params.embed, 0)
+    return tp.vocab_shard(params.lm_head, 1)
 
 
 class ForwardResult(NamedTuple):
@@ -200,11 +253,16 @@ def _apply_layer(layer: Layer, x, positions, cfg: ModelConfig, cache, cache_len:
     if mixer_kind == "attn":
         y = L.attention(layer.mixer, h, positions, cfg, cache=cache, cache_len=cache_len,
                         positions3=positions3)
-    elif mixer_kind == "mla":
-        y = MLA.mla_attention(layer.mixer, h, positions, cfg, cache=cache,
-                              cache_len=cache_len)
     else:
-        y = SSM.mamba_mixer(layer.mixer, h, cfg, cache=cache)
+        mixer = layer.mixer
+        if mesh_ctx.current() is not None:
+            # not laid out over `model` yet: whole at model 1, fsdp-gathered
+            tp.model_one("the MLA mixer" if mixer_kind == "mla" else "the Mamba2 mixer")
+            mixer = tp.gathered(mixer)
+        if mixer_kind == "mla":
+            y = MLA.mla_attention(mixer, h, positions, cfg, cache=cache, cache_len=cache_len)
+        else:
+            y = SSM.mamba_mixer(mixer, h, cfg, cache=cache)
     x = x + y
     aux = torch.zeros((), device=x.device)
     if ffn_kind == "none":
@@ -280,8 +338,7 @@ def _forward(params: LM, cfg: ModelConfig, tokens, embeds, positions, positions3
             x, aux_unit = unit(x, first)
         aux_total = aux_total + aux_unit
     x = L.rms_norm(x, params.final_norm, cfg.norm_eps)
-    head = params.embed.T if cfg.tie_embeddings else params.lm_head
-    logits = (x @ head).float()
+    logits = lm_logits(params, cfg, x)
     return ForwardResult(logits=logits, cache=cache, aux_loss=aux_total, hidden=x)
 
 
@@ -289,19 +346,80 @@ def _forward(params: LM, cfg: ModelConfig, tokens, embeds, positions, positions3
 # Losses
 # --------------------------------------------------------------------------
 
+class _VocabParallelLogProb(torch.autograd.Function):
+    """log softmax(logits)[label] of vocab-sharded float32 logits (N, V /
+    n): the max and the sum of exp over `model`, the label's logit from
+    the rank whose columns hold it (zero elsewhere), one all-reduce of the
+    packed (sum, logit) pair.  Backward: (onehot - softmax) of the rank's
+    columns times the gradient."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, lo):
+        from repro_torch.core.distributed import all_reduce
+
+        mesh = mesh_ctx.current().mesh
+        v = logits.shape[-1]
+        mx = all_reduce(logits.detach().max(dim=-1).values, mesh, tp.MODEL, "ce_max",
+                        op="max")
+        shifted = logits.detach() - mx[:, None]
+        e = torch.exp(shifted)
+        local = labels.long() - lo
+        mine = (local >= 0) & (local < v)
+        picked = torch.gather(shifted, -1, local.clamp(0, v - 1)[:, None])[:, 0]
+        picked = torch.where(mine, picked, torch.zeros_like(picked))
+        sums = all_reduce(torch.stack([e.sum(-1), picked]), mesh, tp.MODEL, "ce")
+        ctx.save_for_backward(e / sums[0][:, None], local, mine)
+        return sums[1] - torch.log(sums[0])
+
+    @staticmethod
+    def backward(ctx, grad):
+        probs, local, mine = ctx.saved_tensors
+        g = -probs * grad[:, None]
+        rows = torch.arange(g.shape[0], device=g.device)[mine]
+        g[rows, local[mine]] += grad[mine]
+        return g, None, None
+
+
+def _label_logprob(logits: torch.Tensor, labels: torch.Tensor, lo: int | None):
+    """log softmax(logits)[label] of every row, float32: vocab-parallel
+    where the logits are the rank's vocab columns from id `lo`."""
+    if lo is None:
+        logp = torch.log_softmax(logits, dim=-1)
+        return torch.gather(logp, -1, labels.long()[..., None])[..., 0]
+    lead = labels.shape
+    ll = _VocabParallelLogProb.apply(logits.reshape(-1, logits.shape[-1]),
+                                     labels.reshape(-1), lo)
+    return ll.reshape(lead)
+
+
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                  mask: torch.Tensor | None = None) -> torch.Tensor:
+                  mask: torch.Tensor | None = None, *, vocab_lo: int | None) -> torch.Tensor:
     """Mean next-token negative log-likelihood of float32 logits (..., V)
     at integer labels; with a mask, the masked mean (denominator at least
-    1).  Under a mesh the reference sums logp against a one-hot of the
-    labels (`src/repro/models/model.py:314-317`); the port's logits are
-    whole on every rank, where that sum equals this gather exactly (one
-    nonzero term).  The vocab-sharded form is ROADMAP A12b."""
-    logp = torch.log_softmax(logits, dim=-1)
-    ll = torch.gather(logp, -1, labels.long()[..., None])[..., 0]
+    1).  `vocab_lo` (`vocab_lo(params, cfg)`, required) is None for whole
+    logits, else the first vocab id of the rank's logit columns.
+
+    Under a mesh context the logits and labels are the rank's data slice;
+    over vocab shards the label's log-probability is the vocab-parallel
+    log-sum-exp (exact against the reference's one-hot form at
+    `src/repro/models/model.py:314-317`), and the mean is over the GLOBAL
+    batch (the sums reduced over the batch axes, with a backward that
+    keeps each rank's share), so the ranks' gradients summed over the
+    batch axes are the unsharded gradient."""
+    if vocab_lo is not None and mesh_ctx.current() is None:
+        raise ValueError("vocab-sharded logits (vocab_lo set) need the mesh context")
+    ll = _label_logprob(logits, labels, vocab_lo)
+    if mesh_ctx.current() is None:
+        if mask is None:
+            return -torch.mean(ll)
+        return -torch.sum(ll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
     if mask is None:
-        return -torch.mean(ll)
-    return -torch.sum(ll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
+        num, den = torch.sum(ll), torch.tensor(float(ll.numel()), device=ll.device)
+    else:
+        num, den = torch.sum(ll * mask), torch.sum(mask).float().detach()
+    sums = tp.reduce_batch(torch.stack([num, den]), "loss")
+    den = sums[1] if mask is None else torch.clamp_min(sums[1], 1.0)
+    return -sums[0] / den
 
 
 def mtp_loss(params: LM, cfg: ModelConfig, hidden: torch.Tensor, tokens: torch.Tensor,
@@ -311,9 +429,22 @@ def mtp_loss(params: LM, cfg: ModelConfig, hidden: torch.Tensor, tokens: torch.T
     if not cfg.mtp_depth:
         return torch.zeros((), device=hidden.device)
     p = params.mtp
+    proj = p.proj
+    if mesh_ctx.current() is not None:
+        tp.model_one("the MTP head")
+        proj = tp.whole_over_data(proj)
     emb_next = embed_lookup(params.embed, tokens[:, 1:])            # (B, S-1, d)
-    inp = torch.cat([hidden[:, :-1], emb_next], dim=-1) @ p.proj
+    inp = torch.cat([hidden[:, :-1], emb_next], dim=-1) @ proj
     out, _ = _apply_layer(p.block, inp, positions[:, :-1], cfg, None, 0, None)
     out = L.rms_norm(out, p.norm, cfg.norm_eps)
-    logits = (out @ params.embed.T).float()                         # shared head
-    return cross_entropy(logits[:, :-1], tokens[:, 2:])
+    logits = (out @ _tied_head(params)).float()                    # shared head
+    return cross_entropy(logits[:, :-1], tokens[:, 2:],
+                         vocab_lo=tp.vocab_shard(params.embed, 0))
+
+
+def _tied_head(params: LM) -> torch.Tensor:
+    """embed.T, whole over `data` under a mesh (the MTP head runs at model
+    1 only)."""
+    if mesh_ctx.current() is None:
+        return params.embed.T
+    return tp.whole_over_data(params.embed).T

@@ -24,30 +24,43 @@ The load-balance loss is Switch's (fraction dot mean probability).
 `moe_ffn` picks the reference's form (`src/repro/models/moe.py:221-229`):
 with no mesh context open, the single-stage dispatch, or the per-block
 one when cfg.moe_dp > 1 divides the tokens; under `sharding.ctx`'s mesh
-context, the expert-parallel form.  There a rank holds its data shard of
-the tokens (replicated over `model`) and its E / n_model experts
-(`convert.lm_params_block`; under cfg.fsdp also its `data` slice of d in
-router, wi, wg and wo, all-gathered before use).  `moe_local` is one
-rank's share with no collective; `moe_ffn` wraps it with the counted
-collectives of `core/distributed.py`:
-  - the shard_map branch (moe_dp > 1 divides the GLOBAL token count):
-    capacity and positions per (data shard, local expert), the aux the
-    per-shard Switch loss averaged over the batch axes (one all-reduce);
-  - the single-stage branch (every other call, e.g. decode's B tokens):
-    the single-stage capacity and positions over the global token order,
-    data rank first (one all-gather of the (t_local, k) expert ids over
-    the batch axis when it has more than one rank), the aux the
-    single-stage formula over all tokens (one all-reduce of the shards'
-    first-choice fractions and mean probabilities);
+context, the mesh form.  There a rank holds its data shard of the tokens
+(replicated over `model`) and its block of the layer
+(`convert.moe_block` / `lm_params_block`; under cfg.fsdp its `data` slice
+of d in router, wi, wg and wo, gathered before use).  Where E divides the
+`model` axis a rank holds E / n_model experts (expert parallelism); else
+every expert and its block of the expert FFN dim, (None, fsdp, "model") /
+(None, "model", fsdp) by the specs (the reference's TP inside experts).
+`moe_local` is one rank's share of the shard_map branch with no
+collective; `moe_ffn` wraps the rank's share with the counted collectives
+of `core/distributed.py`:
+  - the shard_map branch (expert parallel, moe_dp > 1 divides the GLOBAL
+    token count): capacity and positions per (data shard, local expert),
+    the aux the per-shard Switch loss averaged over the batch axes (one
+    all-reduce);
+  - every other call (decode's B tokens, and TP inside experts): the
+    reference's unmeshed dispatch over the global token order, data rank
+    first, in moe_dp blocks when moe_dp > 1 divides the tokens (the
+    two-stage form) else one (the single-stage form), capacity and
+    positions counted a block (one all-gather of the (t_local, k) expert
+    ids over the batch axis when it has more than one rank); the aux the
+    formula over all tokens (one all-reduce of the shards' first-choice
+    fractions and mean probabilities);
   - both: the (t_local, d) partials all-reduced over `model` in the
-    model's dtype, the shared experts added after the sum.
-E % model != 0 (the reference's TP inside each expert) raises: ROADMAP
-A12b.  At data 1 the expert-parallel form equals the single-stage
-`moe_ffn` bit for bit at top-2: the same capacity and slot order, and at
-most two nonzero partials a token.
+    model's dtype, the shared experts (an MLP under the mesh's layout)
+    added after the sum.
+The collectives carry gradients: the tokens and the gates enter the
+rank's experts as replicated inputs (their partial gradients summed over
+`model`), the partials' sum passes its gradient through, and the aux
+loss's sums over the batch keep each rank's share.  At data 1 the
+expert-parallel form equals the single-stage `moe_ffn` bit for bit at
+top-2: the same capacity and slot order, and at most two nonzero
+partials a token.
 """
 
 from __future__ import annotations
+
+from types import SimpleNamespace
 
 import torch
 from torch import nn
@@ -55,6 +68,7 @@ from torch import nn
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 from repro_torch.sharding import ctx as mesh_ctx
+from repro_torch.sharding import tp
 
 
 class MoE(nn.Module):
@@ -189,14 +203,16 @@ def _local_experts(eidx, my_model_rank: int, e_loc: int):
 
 
 def moe_local(x_local, router, wi, wg, wo, my_model_rank: int, n_model: int,
-              cfg: ModelConfig):
+              cfg: ModelConfig, share=None):
     """One rank's share of the shard_map branch, with no collective: its
     tl tokens x_local (tl, d) routed by the whole router (d, E), the slots
     of its e_loc = E / n_model experts wi / wg (e_loc, d, f), wo (e_loc,
     f, d) dispatched with positions and capacity counted over its tokens
     and its experts only (capacity from tl).  Returns (the partial (tl,
     d) in x's dtype, zero where no slot of a token is this rank's; the
-    shard's Switch aux loss, float32)."""
+    shard's Switch aux loss, float32).  `share` (the wrapper's
+    `replicated_input`) marks the tokens and gates the rank's experts
+    read."""
     tl = x_local.shape[0]
     e, k = cfg.n_experts, cfg.experts_per_token
     e_loc = wi.shape[0]
@@ -208,6 +224,8 @@ def moe_local(x_local, router, wi, wg, wo, my_model_rank: int, n_model: int,
     capl = capacity(tl, cfg)
     pos = slot_positions(safe.reshape(-1), e_loc, mine.reshape(-1)).reshape(tl, k)
     keep = mine & (pos >= 0) & (pos < capl)
+    if share is not None:
+        x_local, gate = share(x_local), share(gate)
     out = _expert_sum(x_local, safe, pos, keep, gate, wi, wg, wo, capl)
     return out, _aux_loss(logits, eidx, e)
 
@@ -224,66 +242,58 @@ def _batch_axis(mesh, batch_axes) -> str:
     return real[0] if real else batch_axes[-1]
 
 
-def _gather_dim(t: torch.Tensor, mesh, axis: int) -> torch.Tensor:
-    """The whole tensor from each `data` rank's slice of dim `axis` (one
-    counted all-gather)."""
-    from repro_torch.core.distributed import all_gather
-
-    g = all_gather(t, mesh, "data", "moe_weights")            # (n, *t.shape)
-    return g[0] if g.shape[0] == 1 else torch.cat(list(g.unbind(0)), dim=axis)
-
-
 def _moe_expert_parallel(p: MoE, xf: torch.Tensor, cfg: ModelConfig, ctx):
-    """The mesh wrapper of `moe_local` (see the module's docstring), for
-    serving (no autograd).  xf (t_local, d) -> ((t_local, d), aux)."""
-    from repro_torch.core.distributed import _axis_rank, _axis_size, all_gather, all_reduce
+    """The mesh form (see the module's docstring), with gradients.  xf
+    (t_local, d) -> ((t_local, d), aux)."""
+    from repro_torch.core.distributed import (_axis_rank, _axis_size, all_gather,
+                                              reduce_partials, replicated_input)
 
     mesh = ctx.mesh
-    if torch.is_grad_enabled() and p.router.requires_grad:
-        raise NotImplementedError("the expert-parallel MoE serves: its collectives carry no "
-                                  "gradients (training under a mesh is ROADMAP A12b)")
     e = cfg.n_experts
     n_model = _axis_size(mesh, "model")
-    if e % n_model:
-        raise NotImplementedError(
-            f"{e} experts over a {n_model}-rank `model` axis: tensor parallelism inside "
-            f"each expert is not ported yet (ROADMAP A12b)")
     my = _axis_rank(mesh, "model")
     b_ax = _batch_axis(mesh, ctx.batch_axes)
     n_batch = _axis_size(mesh, ctx.batch_axes)
-    router, wi, wg, wo = p.router, p.wi, p.wg, p.wo
-    if wi.shape[0] * n_model != e:
-        raise ValueError(f"this MoE layer holds {wi.shape[0]} experts; a rank of a "
-                         f"{n_model}-rank `model` axis holds {e // n_model} "
-                         f"(convert.lm_params_block)")
-    if cfg.fsdp:
-        n_data = _axis_size(mesh, "data")
-        if router.shape[0] * n_data != cfg.d_model:
-            raise ValueError(f"under fsdp a rank holds d_model / {n_data} rows of the "
-                             f"router; this one holds {router.shape[0]} of "
-                             f"{cfg.d_model} (convert.lm_params_block)")
-        router = _gather_dim(router, mesh, 0)
-        wi, wg, wo = _gather_dim(wi, mesh, 1), _gather_dim(wg, mesh, 1), \
-            _gather_dim(wo, mesh, 2)
+    w = SimpleNamespace(**{n: tp.whole_over_data(getattr(p, n), "moe_weights")
+                           for n in ("router", "wi", "wg", "wo")})
+    expert_parallel = 0 in tp.dims_over(tp.spec_of(p.wi), "model")
+    # expert parallelism: the rank's experts; TP inside experts (or experts
+    # whole on every rank): all E, the rank's block of each expert's FFN
+    e_rank, e_ranks = (my, n_model) if expert_parallel else (0, 1)
+    if w.wi.shape[0] * e_ranks != e:
+        raise ValueError(f"this MoE layer holds {w.wi.shape[0]} experts; a rank of a "
+                         f"{n_model}-rank `model` axis holds {e // e_ranks} "
+                         f"(convert.moe_block)")
+
+    def share(t):
+        return replicated_input(t, mesh, "model", "moe_in")
+
     k, tl = cfg.experts_per_token, xf.shape[0]
     t = tl * n_batch
-    if cfg.moe_dp > 1 and t % cfg.moe_dp == 0:
-        out, aux = moe_local(xf, router, wi, wg, wo, my, n_model, cfg)
-        aux = all_reduce(aux.reshape(1), mesh, b_ax, "moe_aux")[0] / n_batch
+    blocks = cfg.moe_dp if cfg.moe_dp > 1 and t % cfg.moe_dp == 0 else 1
+    if expert_parallel and blocks > 1:
+        out, aux = moe_local(xf, w.router, w.wi, w.wg, w.wo, my, n_model, cfg, share)
+        aux = reduce_partials(aux.reshape(1), mesh, b_ax, "moe_aux")[0] / n_batch
     else:
-        logits, gate, eidx = route(router, xf, cfg)
-        cap = capacity(t, cfg)
+        logits, gate, eidx = route(w.router, xf, cfg)
         ids = (all_gather(eidx, mesh, b_ax, "moe_ids") if n_batch > 1
                else eidx[None])                               # (n_batch, tl, k)
-        pos = slot_positions(ids.reshape(-1), e).reshape(n_batch, tl, k)
-        pos = pos[_axis_rank(mesh, b_ax) if n_batch > 1 else 0]
-        safe, mine = _local_experts(eidx, my, wi.shape[0])
-        out = _expert_sum(xf, safe, pos, mine & (pos < cap), gate, wi, wg, wo, cap)
+        cap = capacity(t // blocks, cfg)
+        pos = slot_positions(ids.reshape(blocks, -1), e).reshape(n_batch, tl, k)
+        me = _axis_rank(mesh, b_ax) if n_batch > 1 else 0
+        pos = pos[me]
+        safe, mine = _local_experts(eidx, e_rank, w.wi.shape[0])
+        keep = mine & (pos < cap)
+        # a block's slots fill rows [block cap, (block + 1) cap) of each
+        # expert's buffer, so the blocks' positions never meet
+        block = (me * tl + torch.arange(tl, device=xf.device)) // (t // blocks)
+        out = _expert_sum(share(xf), safe, block[:, None] * cap + pos, keep, share(gate),
+                          w.wi, w.wg, w.wo, blocks * cap)
         f = nn.functional.one_hot(eidx[:, 0], e).float().mean(0)
-        fp = all_reduce(torch.stack([f, torch.softmax(logits, dim=-1).mean(0)]), mesh,
-                        b_ax, "moe_aux") / n_batch
+        fp = reduce_partials(torch.stack([f, torch.softmax(logits, dim=-1).mean(0)]), mesh,
+                             b_ax, "moe_aux") / n_batch
         aux = e * torch.sum(fp[0] * fp[1])
-    out = all_reduce(out, mesh, "model", "moe_combine")
+    out = reduce_partials(out, mesh, "model", "moe_combine")
     if cfg.n_shared_experts:
         out = out + L.mlp(p.shared, xf)
     return out, aux

@@ -8,6 +8,13 @@ of `generate` is a Python loop where the reference scans.  The cache is
 written in place.  Temperature sampling is the Gumbel-max draw that
 `jax.random.categorical` makes, from uniforms the caller passes or draws
 from a `torch.Generator`.
+
+Under a mesh context (`sharding.ctx`) the engine is the rank's: its `data`
+slice of the batch, its blocks of the weights (`convert.lm_params_block`),
+its cache (build the engine inside the context: `init_cache` sizes the
+rank's kv heads), and vocab-sharded logits, from which the next token is
+chosen over the shards (`argmax_tokens`, told by `models.model.vocab_lo`
+whether they are).  Every rank steps in lockstep.
 """
 
 from __future__ import annotations
@@ -18,21 +25,51 @@ from typing import Callable, Optional
 import torch
 
 from repro_torch.models import forward, init_cache, unit_spec
+from repro_torch.models import model as model_lib
 from repro_torch.models.config import ModelConfig
 
 
-def _sample(logits: torch.Tensor, temperature: float, uniforms=None,
-            generator: torch.Generator | None = None) -> torch.Tensor:
-    """(B, V) float32 logits -> (B,) int64 tokens: argmax when greedy,
-    else argmax(logits / temperature + Gumbel noise) (categorical draw)."""
-    if temperature <= 0 or (uniforms is None and generator is None):
+def argmax_tokens(logits: torch.Tensor, *, vocab_lo: int | None) -> torch.Tensor:
+    """(..., V) logits -> (...,) int64 argmax ids, ties to the lowest id as
+    `torch.argmax`.  `vocab_lo` (`models.model.vocab_lo`, required) None:
+    whole logits; else they are the rank's vocab columns from that id:
+    each rank's (max, argmax), one all-gather over `model` of the pairs
+    (float64, ids exact), the first maximum in rank order, so the lowest
+    global id."""
+    if vocab_lo is None:
         return torch.argmax(logits, dim=-1)
+    from repro_torch.core.distributed import all_gather
+    from repro_torch.sharding import ctx as mesh_ctx
+
+    mx, idx = torch.max(logits, dim=-1)
+    pair = torch.stack([mx.double(), (idx + vocab_lo).double()], dim=-1)
+    every = all_gather(pair, mesh_ctx.current().mesh, "model", "sample")  # (n, ..., 2)
+    best = torch.argmax(every[..., 0], dim=0, keepdim=True)
+    return torch.gather(every[..., 1], 0, best)[0].long()
+
+
+def _sample(logits: torch.Tensor, temperature: float, uniforms=None,
+            generator: torch.Generator | None = None, *,
+            vocab_lo: int | None) -> torch.Tensor:
+    """(B, V) float32 logits -> (B,) int64 tokens: argmax when greedy,
+    else argmax(logits / temperature + Gumbel noise) (categorical draw).
+    Over vocab shards (`vocab_lo` not None) the uniforms are the global
+    (B, vocab) draw sliced to the rank's ids, so sharded and whole engines
+    pick the same tokens."""
+    if temperature <= 0 or (uniforms is None and generator is None):
+        return argmax_tokens(logits, vocab_lo=vocab_lo)
+    width = logits.shape[-1]
     if uniforms is None:
-        uniforms = torch.rand(logits.shape, generator=generator,
+        from repro_torch.sharding import tp
+
+        vocab = width if vocab_lo is None else width * tp.size(tp.MODEL)
+        uniforms = torch.rand(logits.shape[:-1] + (vocab,), generator=generator,
                               device=generator.device).to(logits.device)
+    if vocab_lo is not None and uniforms.shape[-1] != width:
+        uniforms = uniforms[..., vocab_lo:vocab_lo + width]
     tiny = torch.finfo(torch.float32).tiny
     gumbel = -torch.log(-torch.log(torch.clamp(uniforms, tiny, 1.0)))
-    return torch.argmax(logits / temperature + gumbel, dim=-1)
+    return argmax_tokens(logits / temperature + gumbel, vocab_lo=vocab_lo)
 
 
 def make_prefill(cfg: ModelConfig, s_max: int) -> Callable:
@@ -51,7 +88,8 @@ def make_decode_step(cfg: ModelConfig, temperature: float = 0.0) -> Callable:
         out = forward(params, cfg, tokens=last_tokens, cache=cache,
                       cache_len=int(cache_len), positions3=positions3)
         logits = out.logits[:, -1]
-        nxt = _sample(logits, temperature, uniforms, generator)
+        nxt = _sample(logits, temperature, uniforms, generator,
+                      vocab_lo=model_lib.vocab_lo(params, cfg))
         return nxt[:, None].to(torch.int32), logits, out.cache
 
     return decode_step
@@ -70,7 +108,8 @@ def generate(params, cfg: ModelConfig, prompt: torch.Tensor, steps: int,
     s_max = s_max or (s + steps)
     cache = init_cache(cfg, b, s_max, device=prompt.device)
     logits, cache = make_prefill(cfg, s_max)(params, {"tokens": prompt}, cache)
-    last = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
+    last = argmax_tokens(logits[:, -1], vocab_lo=model_lib.vocab_lo(params, cfg))
+    last = last[:, None].to(torch.int32)
     del logits  # (B, S, vocab) float32: free it before decoding
     if steps <= 1:
         return last
@@ -139,7 +178,8 @@ class ServeEngine:
             cache1 = init_cache(self.cfg, 1, self.s_max, device=self.device)
             logits, cache1 = self._prefill1(
                 self.params, {"tokens": prompt.to(self.device)[None]}, cache1)
-            nxt = int(torch.argmax(logits[0, -1]))
+            nxt = int(argmax_tokens(logits[0, -1],
+                                    vocab_lo=model_lib.vocab_lo(self.params, self.cfg)))
             del logits  # (1, S, vocab) float32
             # The reference writes the row with dynamic_update_slice_in_dim
             # at index i on axis 0 of each cache leaf.  A body leaf is

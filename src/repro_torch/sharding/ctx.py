@@ -1,8 +1,8 @@
 """The mesh context (port of `repro.sharding.ctx`).
 
 Model code stays mesh-agnostic: a launcher opens `mesh_context(mesh,
-batch_axes)` around a forward, and the layers that change form under a
-mesh (the expert-parallel MoE, `models/moe.py`) look the context up.
+batch_axes)` around a forward or a training step, and the layers look the
+context up to run on the rank's blocks (`sharding/tp.py`).
 The context is thread-local, nests, and restores the previous one on
 exit.  `mesh` is the port's `DeviceMesh` (`repro_torch.launch.mesh`),
 `batch_axes` the mesh axes that carry the batch, e.g. ("data",) or

@@ -107,23 +107,26 @@ def param_pspecs(cfg: ModelConfig, params, mesh_shape: dict) -> dict:
     return {n: param_pspec(n, p.shape, cfg, mesh_shape) for n, p in named.items()}
 
 
-def opt_pspecs(name: str, params, pspecs: dict) -> dict:
+def opt_pspecs(name: str, pspecs: dict, groups: dict) -> dict:
     """Specs of `repro_torch.train.optimizer.init_opt`'s state.  AdamW:
-    master / m / v share the parameter's spec.  Adafactor: "vr" drops the
-    last dim's axis, "vc" the second-to-last; a 1-D parameter's "v" keeps
-    its spec.  "count" is a replicated scalar."""
+    master / m / v share the parameter's spec.  Adafactor, by `groups`
+    (`optimizer.param_groups`, or `flat_groups` for a flat tree): "vr" drops
+    the last dim's axis, "vc" the second-to-last; a stacked group's state
+    leads with the unreplicated unit dim, as the reference's (n_units,
+    ...) leaf (a 1-D parameter's: vr (n_units,) replicated, vc its spec);
+    an unstacked 1-D parameter's "v" keeps its spec.  "count" is a
+    replicated scalar."""
     if name == "adamw":
         return {"master": dict(pspecs), "m": dict(pspecs), "v": dict(pspecs), "count": ()}
-    named = dict(params.named_parameters()) if hasattr(params, "named_parameters") \
-        else params
 
-    def factored(shape, axes):
-        if len(shape) >= 2:
+    def factored(group):
+        first = group.names[0]
+        axes = ((None,) if group.stacked else ()) + tuple(pspecs[first])
+        if len(axes) >= 2:
             return {"vr": axes[:-1], "vc": axes[:-2] + axes[-1:]}
         return {"v": axes}
 
-    return {"v": {n: factored(tuple(p.shape), pspecs[n]) for n, p in named.items()},
-            "count": ()}
+    return {"v": {k: factored(g) for k, g in groups.items()}, "count": ()}
 
 
 def batch_pspecs(cfg: ModelConfig, batch_specs: dict, multi_pod: bool,

@@ -7,7 +7,12 @@ balance aux + 0.1 x the MTP loss (deepseek-v3).
 
 `make_train_step(cfg, opt_cfg, accum)` returns a `TrainStep`,
     (model, opt_state, batch, step) -> (model, opt_state, metrics),
-which updates the model's parameters in place.  With accum > 1 the batch
+which updates the model's parameters in place.  Under a mesh context
+(`sharding.ctx`) the model is the rank's blocks (`convert.lm_params_block`)
+and the batch its `data` slice: the loss is the global batch's, each
+gradient is summed over the batch axes that do not shard its parameter
+(`sync_grads`), and the norm and the optimizer reduce over the axes that
+shard each block, so every rank's block takes the unsharded update.  With accum > 1 the batch
 is split into `accum` microbatches run one after the other (positions3
 on its axis 1); their gradients are summed in float32 and scaled by
 1 / accum, as the reference's scan does.
@@ -22,7 +27,9 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.models import cross_entropy, forward, init_params, mtp_loss
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.model import LM
+from repro_torch.models.model import LM, vocab_lo
+from repro_torch.sharding import ctx as mesh_ctx
+from repro_torch.sharding import tp
 from repro_torch.train import optimizer as opt_lib
 from repro_torch.train.batching import forward_kwargs
 
@@ -39,6 +46,7 @@ def loss_fn(model: LM, cfg: ModelConfig, batch: dict):
     the reference's formula (aux_loss unscaled, as it returns it)."""
     out = forward(model, cfg, train=True, **forward_kwargs(cfg, batch))
     zero = torch.zeros((), device=out.logits.device)
+    lo = vocab_lo(model, cfg)
     if cfg.causal:
         if "labels" in batch:
             labels, mask = batch["labels"], batch.get("loss_mask")
@@ -47,7 +55,7 @@ def loss_fn(model: LM, cfg: ModelConfig, batch: dict):
             logits = out.logits[:, :-1]
             labels = batch["tokens"][:, 1:]
             mask = None
-        ce = cross_entropy(logits, labels, mask)
+        ce = cross_entropy(logits, labels, mask, vocab_lo=lo)
         extra = zero
         if cfg.mtp_depth and "tokens" in batch:
             toks = batch["tokens"]
@@ -57,7 +65,7 @@ def loss_fn(model: LM, cfg: ModelConfig, batch: dict):
             extra = 0.1 * mtp_loss(model, cfg, hid, toks, pos)
     else:
         # encoder: masked prediction over all positions
-        ce = cross_entropy(out.logits, batch["labels"], batch.get("loss_mask"))
+        ce = cross_entropy(out.logits, batch["labels"], batch.get("loss_mask"), vocab_lo=lo)
         extra = zero
     aux = cfg.router_aux_coef * out.aux_loss
     total = ce + aux + extra
@@ -116,15 +124,40 @@ class TrainStep:
             g.mul_(inv)
         return sums[0] * inv, sums[1] * inv, sums[2] * inv, acc
 
+    def _groups(self, params: dict) -> dict:
+        names = tuple(params)
+        if getattr(self, "_groups_for", None) != names:
+            self._groups_for, self._groups_cache = names, opt_lib.param_groups(self.cfg, params)
+        return self._groups_cache
+
     def __call__(self, model: LM, opt_state: dict, batch: dict, step: int):
         total, ce, aux, grads = self.compute_grads(model, batch)
-        self.grads = grads
-        clipped, gnorm = opt_lib.clip_by_global_norm(grads, self.opt_cfg.grad_clip)
         params = {n: p for n, p in model.named_parameters()}
+        ctx = mesh_ctx.current()
+        specs = None
+        if ctx is not None:
+            specs = {n: tp.spec_of(p) for n, p in params.items()}
+            grads = sync_grads(grads, specs, ctx)
+        self.grads = grads
+        clipped, gnorm = opt_lib.clip_by_global_norm(grads, self.opt_cfg.grad_clip, specs)
         _, opt_state = opt_lib.apply_opt(self.cfg.optimizer, clipped, opt_state, params,
-                                         self.opt_cfg)
+                                         self.opt_cfg, self._groups(params), specs)
         return model, opt_state, TrainMetrics(loss=total, ce_loss=ce, aux_loss=aux,
                                                grad_norm=gnorm)
+
+
+def sync_grads(grads: dict, specs: dict, ctx) -> dict:
+    """Each gradient summed over the batch axes that do not shard its
+    parameter (one counted all-reduce an axis and parameter, site
+    "grad_sync"): a rank's gradient is its data slice's share (the loss
+    is the global batch's mean), and a parameter sharded over `data`
+    (fsdp) had its share summed by the gather's reduce-scatter."""
+    out = {}
+    for name, g in grads.items():
+        sharded = {a for e in specs[name] for a in tp.axes_of(e)}
+        out[name] = tp.total(g, [a for a in ctx.batch_axes if a not in sharded],
+                             "grad_sync")
+    return out
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: opt_lib.OptConfig,
@@ -137,5 +170,6 @@ def init_train_state(cfg: ModelConfig, seed: int = 0, device=None):
     of cfg.optimizer) on `device` (the card unless "cpu")."""
     device = resolve_device(device)
     model = init_params(cfg, seed=seed, device=device).train_mode()
-    opt_state = opt_lib.init_opt(cfg.optimizer, dict(model.named_parameters()))
+    params = dict(model.named_parameters())
+    opt_state = opt_lib.init_opt(cfg.optimizer, params, opt_lib.param_groups(cfg, params))
     return model, opt_state

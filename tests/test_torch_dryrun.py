@@ -10,11 +10,10 @@ are computed in a subprocess: importing `repro.launch.dryrun` sets
 `XLA_FLAGS` to 512 host devices before JAX starts, which this process
 must not inherit.
 
-The optimizer state's bytes equal the reference's for AdamW; for
-Adafactor they differ by exactly the stacked body vectors' state (ROADMAP
-C6: the reference factors each (n_units, d) vector into vr and vc, the
-port's unstacked layers keep one unfactored v a layer), and equal the
-reference's once that term is swapped.
+The optimizer state's bytes equal the reference's, AdamW's and
+Adafactor's (kept on the reference's stacked leaves,
+`optimizer.param_groups`), with nothing swapped; the stacked body
+vectors' share of Adafactor's is checked on its own too.
 
 Also the AÇAI retrieval cell's provenance (the reference's
 tests/test_policy_api.py::test_dryrun_records_policy_spec) and the CLI's
@@ -36,9 +35,8 @@ from repro_torch.core.policy_api import PolicySpec
 from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import production_mesh_shape
 from repro_torch.models import init_params
-from repro_torch.models.model import unit_spec
 from repro_torch.sharding import specs as S
-from repro_torch.train.optimizer import init_opt
+from repro_torch.train.optimizer import init_opt, param_groups
 
 VARIANTS = ["baseline", "opt"]
 
@@ -116,16 +114,15 @@ def records(tmp_path_factory):
 
 def _port_stacked_vectors(arch, variant, mesh_kind) -> int:
     """Bytes a device of the port's Adafactor state of the body layers'
-    1-D parameters (one unfactored v each)."""
+    1-D parameters (their groups' vr and vc)."""
     multi = mesh_kind == "multi"
     cfg = dryrun.apply_variant(ARCHS[arch], variant, multi)
     ms = production_mesh_shape(multi)
     params = dict(init_params(cfg, device="meta").named_parameters())
-    n_prefix = unit_spec(cfg).n_prefix
-    vec = {n: p for n, p in params.items() if n.startswith("layers.") and p.dim() == 1
-           and int(n.split(".")[1]) >= n_prefix}
-    state, specs = init_opt("adafactor", vec), S.opt_pspecs("adafactor", vec,
-                                                           S.param_pspecs(cfg, vec, ms))
+    groups = {k: g for k, g in param_groups(cfg, params).items()
+              if g.stacked and params[g.names[0]].dim() == 1}
+    state = init_opt("adafactor", params, groups)
+    specs = S.opt_pspecs("adafactor", S.param_pspecs(cfg, params, ms), groups)
     return S.sharded_bytes(state["v"], specs["v"], ms)
 
 
@@ -144,14 +141,11 @@ def test_bytes_per_device_match_reference(records, arch, variant):
             assert "opt_bytes_per_device" not in got
             continue
         assert got["accum"] == want["accum"], key
-        opt = ARCHS[arch].optimizer
-        if opt == "adamw":
-            assert got["opt_bytes_per_device"] == want["opt"], key
-        else:   # C6: swap the stacked vectors' state
+        assert got["opt_bytes_per_device"] == want["opt"], key
+        if ARCHS[arch].optimizer == "adafactor":
             _, _, mesh_kind, _ = key.split("|")
             vec = _port_stacked_vectors(arch, variant, mesh_kind)
-            assert want["stacked_vectors"] > 0 and vec != want["stacked_vectors"], key
-            assert got["opt_bytes_per_device"] - vec == want["opt"] - want["stacked_vectors"]
+            assert want["stacked_vectors"] > 0 and vec == want["stacked_vectors"], key
     # the unrunnable cells are recorded as skipped, with the reference's reason
     for key, rec in port.items():
         if key.startswith(arch + "|") and key not in ref:

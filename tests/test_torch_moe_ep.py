@@ -7,7 +7,9 @@ forced host devices (`XLA_FLAGS=--xla_force_host_platform_device_count=4`):
 SMOKE mixtral, jamba and deepseek-v3 in float32, capacity factor 0
 (dropless) and 1.0 (slots drop per data shard and local expert), fsdp off
 and on, at the (data, model) meshes (1, 4) and (2, 2), and the unmeshed
-single-stage `moe_ffn`.  The port's ranks are spawned gloo worlds
+single-stage `moe_ffn`; and a 6-expert mixtral layer, whose experts do
+not divide a 4-rank `model` axis (TP inside experts: the reference's
+two-stage and single-stage branches).  The port's ranks are spawned gloo worlds
 (`torch_dist_workers.run_world`), handed the reference's parameters and
 inputs as numpy; a one-rank world in this process holds the (1, 1) mesh.
 
@@ -34,6 +36,7 @@ import torch
 from repro.configs import SMOKE_ARCHS as J_SMOKE
 from repro.models import forward as j_forward
 from repro.models import init_params as j_init_params
+from repro_torch import convert
 from repro_torch.core import distributed as D
 from repro_torch.models import moe as TMOE
 from repro_torch.models.config import ModelConfig
@@ -84,6 +87,22 @@ _CHILD = textwrap.dedent("""
                     key = f"{arch}|ep|{cf}|{fsdp}|{shape[0]}x{shape[1]}"
                     out[key + "|out"] = np.asarray(o)
                     out[key + "|aux"] = np.asarray(aux)
+    # 6 experts on a 4-rank model axis: the reference takes its two-stage
+    # branch at moe_dp 2 and its single-stage one at moe_dp 0, on the
+    # global arrays, the layout only annotating them (its meshed run of
+    # these branches does not trace under the installed JAX), so unmeshed
+    base = dataclasses.replace(SMOKE_ARCHS[archs[0]], dtype="float32", n_experts=6)
+    p = M.init_moe(jax.random.PRNGKey(30), base)
+    for k in ("router", "wi", "wg", "wo"):
+        out[f"odd|p|{k}"] = np.asarray(p[k], np.float32)
+    x = jnp.asarray(out[f"{archs[0]}|x"])
+    for cf in cfs:
+        for dp in (moe_dp, 0):
+            for fsdp in (False, True):
+                c = dataclasses.replace(base, capacity_factor=cf, moe_dp=dp, fsdp=fsdp)
+                o, aux = jax.jit(lambda p, x, c=c: M.moe_ffn(p, x, c))(p, x)
+                out[f"odd|{cf}|{dp}|{fsdp}|out"] = np.asarray(o)
+                out[f"odd|{cf}|{dp}|{fsdp}|aux"] = np.asarray(aux)
     np.savez(path, **out)
 """)
 
@@ -142,16 +161,25 @@ def _whole(ranks, name, shape):
     return np.concatenate(rows, axis=0)
 
 
-# experts that do not divide the (1, 4) mesh's model axis
+# experts that do not divide the (1, 4) mesh's model axis: TP inside each
+# expert (the reference's two-stage branch at moe_dp 2, single-stage at 0)
 ODD = _port_cfg(dataclasses.replace(J_SMOKE["mixtral-8x22b"], dtype="float32",
                                     n_experts=6), moe_dp=MOE_DP)
+
+
+def _odd_cases(ref):
+    return [(f"odd|{cf}|{dp}|{fsdp}",
+             dataclasses.replace(ODD, capacity_factor=cf, moe_dp=dp, fsdp=fsdp),
+             _leaves(ref, "odd"), ref[f"{ARCHS[0]}|x"])
+            for cf in CFS for dp in (MOE_DP, 0) for fsdp in (False, True)]
 
 
 @pytest.fixture(scope="module")
 def worlds(ref, tmp_path_factory):
     """Each mesh's ranks run every case once: the shard_map branch (moe_dp
     2) and the single-stage branch (moe_dp 0) for every arch, capacity
-    factor and fsdp; at (1, 4) the layer with 6 experts; at (2, 2) the
+    factor and fsdp; at (1, 4) the layer with 6 experts (TP inside
+    experts, both branches, fsdp off and on); at (2, 2) the
     SMOKE forwards of mixtral and jamba (the (1, 2) ones ran beside the
     reference).  The two worlds run side by side."""
     tmp = tmp_path_factory.mktemp("moe_worlds")
@@ -162,7 +190,7 @@ def worlds(ref, tmp_path_factory):
                  for arch in ARCHS for cf in CFS for fsdp in (False, True)
                  for branch, dp in (("ep", MOE_DP), ("single", 0))]
         if shape == (1, 4):
-            cases.append(("odd", ODD, None, ref[f"{ARCHS[0]}|x"]))
+            cases += _odd_cases(ref)
         jobs = [("moe_ep", cases)]
         if shape == (2, 2):
             jobs.append(("moe_forward", forward_cases()))
@@ -211,6 +239,7 @@ def test_one_rank_mesh_equals_single_stage_bit_for_bit(host_mesh, ref, arch, dty
             layer = moe_from_numpy(_leaves(ref, arch), base)
             xs = x.to(layer.wi.dtype)
             want, want_aux = TMOE.moe_ffn(layer, xs, base)
+            convert.moe_block(layer, base, host_mesh)   # the (1, 1) cut: whole, specs
             for dp in (MOE_DP, 0):
                 cfg = dataclasses.replace(base, moe_dp=dp)
                 D.reset_collectives()
@@ -288,9 +317,23 @@ def test_collective_counts_of_each_branch(worlds, shape):
                                       else {"all_reduce": 2})
 
 
-def test_experts_that_do_not_divide_the_model_axis_raise(worlds):
-    for r in worlds[(1, 4)]:
-        assert "A12b" in r["odd"]["raised"]
+def test_experts_that_do_not_divide_the_model_axis_raise(ref, worlds):
+    """Kept name: 6 experts on a 4-rank `model` axis no longer raise, they
+    run the reference's TP inside experts (every expert on every rank, the
+    rank's block of the expert FFN dim, the partials summed over `model`),
+    in the two-stage branch (moe_dp 2) and the single-stage one (moe_dp
+    0), and match the reference's moe_ffn of those branches; collectives: the fsdp
+    gathers, the aux and the combine all-reduces."""
+    for name, cfg, _, _ in _odd_cases(ref):
+        got = _whole(worlds[(1, 4)], name, (1, 4)).reshape(B, S, -1)
+        np.testing.assert_allclose(got, ref[name + "|out"], rtol=OUT_TOL, atol=OUT_TOL,
+                                   err_msg=name)
+        for r in worlds[(1, 4)]:
+            np.testing.assert_allclose(r[name]["aux"], ref[name + "|aux"], rtol=AUX_TOL,
+                                       atol=AUX_TOL, err_msg=name)
+            assert r[name]["counts"] == ({"all_gather": 4, "all_reduce": 2} if cfg.fsdp
+                                         else {"all_reduce": 2}), name
+        assert r[name]["wi_shape"] == [6, cfg.d_model, cfg.moe_d_ff // 4], name
 
 
 # --------------------------------------------------------------------------
@@ -323,15 +366,24 @@ def forward_cases():
 @pytest.mark.parametrize("arch", FWD_ARCHS)
 @pytest.mark.parametrize("shape", [(1, 2), (2, 2)])
 def test_forward_under_mesh_matches_unmeshed_reference(worlds, arch, shape):
-    """Dropless, so the shard_map branch's output is the single-stage
+    """The whole model laid out by the specs (`convert.lm_params_block`).
+    Dropless, so the shard_map branch's output is the single-stage
     layer's; the aux loss too where the data axis has one rank (with two,
-    the branch averages the shards' Switch losses, as the reference's)."""
+    the branch averages the shards' Switch losses, as the reference's).
+    jamba's Mamba2 layers raise at model > 1 (ROADMAP A12c)."""
     jcfg, tree, toks = _fwd_pair(arch)
     want = j_forward(jax.tree.map(np.asarray, tree), jcfg, tokens=toks)
     ranks = worlds[shape]
     n_data, n_model = shape
     for fsdp in (False, True):
         name = f"{arch}|{fsdp}"
+        if arch.startswith("jamba") and n_model > 1:
+            # the whole model is laid out by the specs: jamba's Mamba2
+            # mixer under a model axis of more than one rank is A12c
+            # (tests/test_torch_tp.py runs jamba at (2, 1))
+            for r in ranks:
+                assert "A12c" in r[name]["raised"], name
+            continue
         got = np.concatenate([ranks[r * n_model][name]["logits"] for r in range(n_data)])
         np.testing.assert_allclose(got, np.asarray(want.logits), rtol=FWD_TOL, atol=FWD_TOL,
                                    err_msg=name)

@@ -9,11 +9,9 @@ of a stacked body leaf, at the meshes (16, 16), (2, 16, 16), (1, 4) and
 (2, 2), with fsdp and replicate_misaligned_heads off and on; the same for
 the optimizer state, batch and cache specs.  Specs are compared exactly.
 
-One layout differs by design of the port's optimizer (ROADMAP C6): the
-reference's Adafactor factors a stacked body vector (n_units, d) into
-vr (n_units,) and vc (d,); the port's layers are unstacked, so each
-layer's vector keeps an unfactored "v" (d,), whose spec is the
-reference's vc spec.
+The Adafactor state is kept on the reference's leaves
+(`optimizer.param_groups`, C6 fixed): a body group's state has the
+reference's stacked shapes and specs, unit axis included.
 """
 
 import dataclasses
@@ -35,7 +33,7 @@ from repro_torch.models import init_cache, init_params
 from repro_torch.models.config import ModelConfig
 from repro_torch.sharding import specs as S
 from repro_torch.train import batching
-from repro_torch.train.optimizer import init_opt
+from repro_torch.train.optimizer import init_opt, param_groups
 from torch_dist_workers import host_mesh  # noqa: F401
 
 MESHES = [{"data": 16, "model": 16}, {"pod": 2, "data": 16, "model": 16},
@@ -122,29 +120,31 @@ def test_param_specs_match_reference(port_params, arch):
 @pytest.mark.parametrize("arch", list(ARCHS))
 def test_opt_specs_match_reference(port_params, arch, opt):
     params = port_params[arch]
-    state = init_opt(opt, params)
+    groups = param_groups(ARCHS[arch], params)
+    state = init_opt(opt, params, groups)
     for mesh_shape in MESHES:
         jcfg, cfg = _cfgs(arch, True, True)
         jspecs = JS.param_pspecs(jcfg, _ref_params(arch), mesh_shape)
         want = JS.opt_pspecs(opt, _ref_params(arch), jspecs, jcfg, mesh_shape)
         pspecs = S.param_pspecs(cfg, params, mesh_shape)
-        got = S.opt_pspecs(opt, params, pspecs)
+        got = S.opt_pspecs(opt, pspecs, groups)
         assert tuple(want["count"]) == got["count"] == ()
         if opt == "adamw":
             for part in ("master", "m", "v"):
                 for name, spec in got[part].items():
                     assert spec == _ref_spec(want[part], name, arch), (part, name)
             continue
-        for name, parts in got["v"].items():
-            path, stacked = _ref_place(name, arch)
+        # Adafactor's state is the reference's leaf for leaf: a body
+        # group's, unit axis included
+        assert len(got["v"]) == _n_leaves(_ref_params(arch))
+        for key, parts in got["v"].items():
+            path = _ref_place(groups[key].names[0], arch)[0] if not groups[key].stacked \
+                else tuple(key.split("."))
             ref = {k: tuple(v) for k, v in _at(want["v"], path).items()}
-            assert set(parts) == set(state["v"][name]), name
-            if stacked and len(params[name].shape) == 1:   # C6: one v a layer
-                assert set(ref) == {"vr", "vc"} and parts == {"v": ref["vc"]}, name
-            elif stacked:
-                assert parts == {k: v[1:] for k, v in ref.items()}, name
-            else:
-                assert parts == ref, name
+            assert set(parts) == set(state["v"][key]) == set(ref), key
+            assert parts == ref, key
+            for part, spec in parts.items():
+                assert len(spec) == state["v"][key][part].dim(), (key, part)
 
 
 @pytest.mark.parametrize("arch", list(ARCHS))

@@ -172,13 +172,14 @@ def test_optimizer_matches_the_reference(name, steps):
     params = _opt_tree(0)
     jp = {k: jnp.asarray(v) for k, v in params.items()}
     tp = {k: torch.from_numpy(v.copy()) for k, v in params.items()}
-    js, ts = j_opt.init_opt(name, jp), t_opt.init_opt(name, tp)
+    groups = t_opt.flat_groups(tp)
+    js, ts = j_opt.init_opt(name, jp), t_opt.init_opt(name, tp, groups)
     for i in range(steps):
         grads = _opt_tree(10 + i)
         jp, js = j_opt.apply_opt(name, {k: jnp.asarray(v) for k, v in grads.items()},
                                  js, jp, jcfg)
         tp, ts = t_opt.apply_opt(name, {k: torch.from_numpy(v) for k, v in grads.items()},
-                                 ts, tp, cfg)
+                                 ts, tp, cfg, groups)
     assert int(ts["count"]) == int(js["count"]) == steps
     for k in params:
         np.testing.assert_allclose(tp[k].numpy(), np.asarray(jp[k]), rtol=OPT_TOL,

@@ -117,7 +117,8 @@ def jobs_rank(mesh, rank, jobs) -> dict:
     rank): [(name, data), ...] -> {name: result}."""
     fns = {"retrieval": retrieval_rank, "budgets": budgets_rank, "replay": replay_rank,
            "slab": slab_rank, "serving": serving_rank, "churn": churn_rank,
-           "moe_ep": moe_ep_rank, "moe_forward": moe_forward_rank}
+           "moe_ep": moe_ep_rank, "moe_forward": moe_forward_rank, "tp_serve": tp_serve_rank,
+           "tp_train": tp_train_rank}
     return {name: fns[name](mesh, rank, data) for name, data in jobs}
 
 def _np(t):
@@ -408,11 +409,18 @@ def _data_shard(x: np.ndarray, mesh) -> np.ndarray:
     return x[r * b:(r + 1) * b]
 
 
+def _batch_shard(batch: dict, mesh) -> dict:
+    """This rank's `data` shard of every input of a whole batch
+    (positions3 (3, B, S) on its axis 1)."""
+    return {k: (np.ascontiguousarray(_data_shard(v.swapaxes(0, 1), mesh).swapaxes(0, 1))
+                if k == "positions3" else _data_shard(v, mesh)) for k, v in batch.items()}
+
+
 def moe_ep_rank(mesh, rank, cases: list) -> dict:
-    """The expert-parallel MoE on this rank: [(name, cfg, leaves, x), ...]
+    """The MoE under the mesh on this rank: [(name, cfg, leaves, x), ...]
     with x the whole (B, S, d) batch -> {name: {"out": this rank's data
-    shard of the output, "aux", "counts": its collectives}}; a case whose
-    leaves are None runs the layer whole and returns the error it raises."""
+    shard of the output, "aux", "counts": its collectives, "wi_shape":
+    the rank's block of wi}}."""
     import torch
 
     from repro_torch import convert
@@ -422,27 +430,20 @@ def moe_ep_rank(mesh, rank, cases: list) -> dict:
 
     out = {}
     for name, cfg, leaves, x in cases:
-        if leaves is None:
-            layer = M.init_moe(torch.Generator().manual_seed(0), cfg, "cpu")
-            try:
-                with torch.no_grad(), mesh_context(mesh, ("data",)):
-                    M.moe_ffn(layer, torch.from_numpy(x), cfg)
-                out[name] = {"raised": None}
-            except NotImplementedError as e:
-                out[name] = {"raised": str(e)}
-            continue
         layer = convert.moe_block(moe_from_numpy(leaves, cfg), cfg, mesh)
         D.reset_collectives()
         with mesh_context(mesh, ("data",)):
             y, aux = M.moe_ffn(layer, torch.from_numpy(_data_shard(x, mesh)), cfg)
-        out[name] = {"out": _np(y), "aux": float(aux), "counts": dict(D.COLLECTIVES)}
+        out[name] = {"out": _np(y), "aux": float(aux), "counts": dict(D.COLLECTIVES),
+                     "wi_shape": list(layer.wi.shape)}
     return out
 
 
 def moe_forward_rank(mesh, rank, cases: list) -> dict:
     """A whole LM forward on this rank's data shard of the tokens under the
     mesh context: [(name, cfg, reference numpy tree, tokens), ...] ->
-    {name: {"logits", "aux"}}."""
+    {name: {"logits" (over the whole vocab), "aux"}}, or {"raised"} with
+    the NotImplementedError of a layer not laid out yet."""
     import torch
 
     from repro_torch import convert
@@ -452,7 +453,119 @@ def moe_forward_rank(mesh, rank, cases: list) -> dict:
     out = {}
     for name, cfg, params, tokens in cases:
         model = convert.lm_params_block(params, cfg, mesh, device="cpu")
+        try:
+            with mesh_context(mesh, ("data",)):
+                res = forward(model, cfg, tokens=torch.from_numpy(_data_shard(tokens, mesh)))
+        except NotImplementedError as e:
+            out[name] = {"raised": str(e)}
+            continue
+        out[name] = {"logits": _whole_vocab(res.logits, cfg, mesh), "aux": float(res.aux_loss)}
+    return out
+
+
+def _whole_vocab(logits, cfg, mesh) -> np.ndarray:
+    """The rank's logits over the whole vocab: its vocab shard gathered over
+    `model` (a test-side gather, not counted)."""
+    import torch
+
+    from repro_torch.core import distributed as D
+
+    if logits.shape[-1] == cfg.vocab:
+        return _np(logits)
+    g = D.all_gather(logits.contiguous(), mesh, "model", "test")
+    return _np(torch.cat(list(g.unbind(0)), dim=-1))
+
+
+def _sites(counter) -> dict:
+    """COLLECTIVE_SITES as {"primitive|site": calls}."""
+    return {f"{p}|{s}": n for (p, s), n in sorted(counter.items())}
+
+
+def tp_serve_rank(mesh, rank, cases: list) -> dict:
+    """Serving under the specs' layout on this rank: [(name, cfg, reference
+    numpy tree, inputs (the whole batch: tokens, and embeds / positions3
+    where the architecture takes them), decode steps), ...] -> {name:
+    {"logits": the prefill's logits of the rank's data shard over the
+    whole vocab, "sites": the forward's collectives by site, "tokens":
+    `generate`'s greedy tokens (decode steps > 0), "gen_sites", "sampled":
+    its temperature-0.7 tokens from seeded uniforms}}; a case
+    whose tree is None records the NotImplementedError a forward raises."""
+    import torch
+
+    from repro_torch import convert
+    from repro_torch.core import distributed as D
+    from repro_torch.models import forward, init_params
+    from repro_torch.serve.engine import generate
+    from repro_torch.sharding.ctx import mesh_context
+
+    out = {}
+    for name, cfg, params, inputs, steps in cases:
+        kw = {k: torch.from_numpy(v) for k, v in _batch_shard(inputs, mesh).items()}
+        if params is None:
+            model = convert.shard_module(init_params(cfg, seed=0, device="cpu"), cfg, mesh)
+            try:
+                with mesh_context(mesh, ("data",)):
+                    forward(model, cfg, **kw)
+                out[name] = {"raised": None}
+            except NotImplementedError as e:
+                out[name] = {"raised": str(e)}
+            continue
+        model = convert.lm_params_block(params, cfg, mesh, device="cpu")
         with mesh_context(mesh, ("data",)):
-            res = forward(model, cfg, tokens=torch.from_numpy(_data_shard(tokens, mesh)))
-        out[name] = {"logits": _np(res.logits), "aux": float(res.aux_loss)}
+            D.reset_collectives()
+            res = forward(model, cfg, **kw)
+            sites = _sites(D.COLLECTIVE_SITES)
+            rec = {"logits": _whole_vocab(res.logits, cfg, mesh), "sites": sites,
+                   "aux": float(res.aux_loss)}
+            if steps:
+                D.reset_collectives()
+                rec["tokens"] = _np(generate(model, cfg, kw["tokens"], steps))
+                rec["gen_sites"] = _sites(D.COLLECTIVE_SITES)
+                # temperature draws from the global batch's (steps - 1, B,
+                # vocab) uniforms: this rank's rows, all vocab ids
+                u = np.random.default_rng(11).random(
+                    (steps - 1, inputs["tokens"].shape[0], cfg.vocab), dtype=np.float32)
+                u = _data_shard(u.swapaxes(0, 1), mesh).swapaxes(0, 1)
+                rec["sampled"] = _np(generate(model, cfg, kw["tokens"], steps,
+                                              temperature=0.7,
+                                              uniforms=torch.from_numpy(u.copy())))
+        out[name] = rec
+    return out
+
+
+def tp_train_rank(mesh, rank, cases: list) -> dict:
+    """Training under the specs' layout: [(name, cfg, reference numpy tree,
+    [batch a step (the whole batch)], accum), ...] -> {name: {"losses",
+    "grad_norms": each step's, "params": each step's leaves after it, the
+    rank's blocks by name, "specs": their specs, "sites": the first step's
+    collectives by site}}."""
+    import torch
+
+    from repro_torch import convert
+    from repro_torch.core import distributed as D
+    from repro_torch.sharding.ctx import mesh_context
+    from repro_torch.train import OptConfig, make_train_step
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train.data import to_device
+
+    out = {}
+    for name, cfg, params, batches, accum in cases:
+        model = convert.lm_params_block(params, cfg, mesh, device="cpu").train_mode()
+        named = dict(model.named_parameters())
+        state = opt_lib.init_opt(cfg.optimizer, named, opt_lib.param_groups(cfg, named))
+        step = make_train_step(cfg, OptConfig(name=cfg.optimizer), accum=accum)
+        rec = {"losses": [], "grad_norms": [], "params": [],
+               "specs": {n: p.pspec for n, p in named.items()}}
+        with mesh_context(mesh, ("data",)):
+            for i, batch in enumerate(batches):
+                D.reset_collectives()
+                model, state, m = step(model, state,
+                                       to_device(_batch_shard(batch, mesh), cfg, "cpu"), i)
+                if i == 0:
+                    rec["sites"] = _sites(D.COLLECTIVE_SITES)
+                rec["losses"].append(float(m.loss))
+                rec["grad_norms"].append(float(m.grad_norm))
+                # copies: the step updates the parameters in place
+                rec["params"].append({n: _np(p).copy() for n, p in model.named_parameters()})
+        out[name] = rec
     return out
