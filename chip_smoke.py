@@ -196,8 +196,22 @@ Phases, each of which raises on failure (the script then exits non-zero):
              (CUDA events); (c) qwen1.5-0.5b trained at full width over
              8192 tokens, 6 steps, on the (1, 1) mesh against the unmeshed
              steps (losses within 1e-4 relative), collectives a step and
-             step times.  `--only tp` runs the build and this phase alone
-             and prints no result.
+             step times; (d) deepseek-v3 (MLA + MoE) at its published
+             widths, 4 of 61 layers, two 8000-token prompts into 8192, 16
+             decode steps with each MLA decode path, and (e) mamba2-130m's
+             24 layers, two 8192-token prompts, 32 steps, each through the
+             (1, 1) mesh against the unmeshed engine: logits and tokens
+             equal bit for bit, the collectives of a prefill and of a
+             decode step pinned by site, deepseek-v3's wgmma flash launches
+             at (192, 128); (f) one deepseek-v3 MLA layer and one
+             jamba-1.5-large Mamba2 layer at full width over 8192 tokens,
+             whole and as the four shares of a (1, 4) mesh (the collectives
+             by hand in rank order), summed against the whole, each share
+             timed (CUDA events), the MLA shares' flash launches at 32 heads
+             on the main path; (g) SMOKE deepseek-v3 (with MTP) and jamba,
+             float32, a training step on the (1, 1) mesh against the plain
+             step.  `--only tp` runs the build and this phase alone and
+             prints no result.
 
 The sharded phase's launches count with the main path's (its churn run's
 with the churn path's), and so do the moe_ep and tp phases' mesh arms'
@@ -2828,48 +2842,42 @@ def moe_ep_phase(torch, ops, dev, card: str) -> None:
 TP_ARCH, TP_LAYERS, TP_PROMPT, TP_S_MAX, TP_STEPS = "qwen2-72b", 4, 8192, 10240, 32
 TP_MODEL, TP_TOKENS, TP_HEAD_TOKENS, TP_TRAIN_STEPS = 4, 8192, 1024, 6
 TP_TRAIN_RTOL = 1e-4
+# the tp phase's MLA and Mamba2 cells: deepseek-v3 at the lm_archs phase's
+# cut (DS_*: 4 of 61 layers, two 8000-token prompts into 8192, 16 steps a
+# MLA decode path) and mamba2-130m's 24 layers (two 8192-token prompts, 32
+# steps) on the (1, 1) mesh; one deepseek-v3 MLA layer and one
+# jamba-1.5-large Mamba layer over TP_TOKENS as (1, TP_MODEL) shares; SMOKE
+# deepseek-v3 and jamba trained a step (TP_SMOKE_SEQ tokens, batch 2)
+TP_MAMBA_PROMPT, TP_MAMBA_STEPS, TP_SMOKE_SEQ = 8192, 32, 64
 
 
-def tp_serve(torch, ops, D, mesh, dev, card: str) -> None:
-    """(a) qwen2-72b through ServeEngine under the (1, 1) NCCL mesh (the
-    specs' layout: fsdp gathers, the partials' and the embedding's
-    all-reduces) against the same engine with no mesh: tokens equal,
-    prefill logits equal or close, the collectives of a prefill and a
-    decode step pinned, the flash kernel launched once a layer a
-    prefill."""
+def engine_arms(torch, ops, D, mesh, cfg, params, prompts, s_max: int, steps: int) -> dict:
+    """`params` through ServeEngine at batch len(prompts), with no mesh and
+    under the (1, 1) NCCL mesh (`convert.shard_module` first: at one rank
+    every block is the whole tensor, the same storage), each arm warmed up
+    by a 2-token request: {arm: {"prefill_ms": each prefill's ms, "step_ms",
+    "steps", "admitted", "pre" / "dec": (collectives by site, launches,
+    launches by shape) of the admission's prefills and of the decode steps,
+    "done": the finished tokens, "peak": peak memory}, "diffs": each mesh
+    prefill's logits against the plain one's (equal bit for bit, max
+    |diff|, max |logit|)}."""
     import contextlib
 
-    import numpy as np
-
     from repro_torch import convert
-    from repro_torch.configs import get_config
-    from repro_torch.models import init_params
     from repro_torch.serve import ServeEngine
     from repro_torch.sharding.ctx import mesh_context
 
-    full = get_config(TP_ARCH)
-    cfg = dataclasses.replace(full, n_layers=TP_LAYERS)
-    torch.cuda.reset_peak_memory_stats()
-    params, init_ms = _timed(torch, lambda: init_params(cfg, seed=0, device=dev))
-    n_params = sum(p.numel() for p in params.parameters())
-    log(f"tp (a) {TP_ARCH} [{card}]: full width (d {cfg.d_model}, {cfg.n_heads} heads, "
-        f"{cfg.n_kv_heads} kv, d_ff {cfg.d_ff}, vocab {cfg.vocab}, qkv_bias {cfg.qkv_bias}, "
-        f"fsdp {cfg.fsdp}), n_layers {full.n_layers} -> {TP_LAYERS}, {n_params} parameters "
-        f"({n_params * 2} bytes bf16) drawn in {init_ms} ms")
-    rng = np.random.default_rng(0)
-    prompts = [torch.from_numpy(rng.integers(0, cfg.vocab, TP_PROMPT)) for _ in range(2)]
-    warm = ServeEngine(params, cfg, batch=2, s_max=TP_S_MAX)
-    warm.submit(0, prompts[0], max_tokens=2)
-    _timed(torch, lambda: sum(1 for _ in iter(warm.step, False)))
-    del warm
-    D.all_reduce(torch.zeros(1, device=dev), mesh, "model", "warm-up")
+    def warm():
+        eng = ServeEngine(params, cfg, batch=len(prompts), s_max=s_max)
+        eng.submit(0, prompts[0], max_tokens=2)
+        _timed(torch, lambda: sum(1 for _ in iter(eng.step, False)))
+
+    warm()
+    D.all_reduce(torch.zeros(1, device=params.embed.device), mesh, "model", "warm-up")
     convert.shard_module(params, cfg, mesh)   # (1, 1): whole blocks, specs recorded
     with mesh_context(mesh, ("data",)):       # and the mesh arm's first calls
-        warm = ServeEngine(params, cfg, batch=2, s_max=TP_S_MAX)
-        warm.submit(0, prompts[0], max_tokens=2)
-        _timed(torch, lambda: sum(1 for _ in iter(warm.step, False)))
-        del warm
-    plain_logits, diffs, done, figs = [], [], {}, {}
+        warm()
+    plain_logits, diffs, out = [], [], {}
     for arm in ("plain", "mesh"):
         each_ms = []
 
@@ -2890,47 +2898,88 @@ def tp_serve(torch, ops, D, mesh, dev, card: str) -> None:
                 return logits, cache
             return prefill
 
+        torch.cuda.reset_peak_memory_stats()
         ctx = mesh_context(mesh, ("data",)) if arm == "mesh" else contextlib.nullcontext()
         with ctx:
-            eng = ServeEngine(params, cfg, batch=2, s_max=TP_S_MAX, wrap=wrap)
+            eng = ServeEngine(params, cfg, batch=len(prompts), s_max=s_max, wrap=wrap)
             for i, prompt in enumerate(prompts):
-                eng.submit(i, prompt, max_tokens=TP_STEPS)
+                eng.submit(i, prompt, max_tokens=steps)
             ops.reset_launches()
             D.reset_collectives()
-            admitted, prefill_ms = _timed(torch, eng._admit)
+            admitted, _ = _timed(torch, eng._admit)
             pre = (dict(D.COLLECTIVE_SITES), dict(ops.LAUNCHES), Counter(ops.SHAPE_LAUNCHES))
             ops.reset_launches()
             D.reset_collectives()
-            steps, decode_ms = _timed(torch, lambda: sum(1 for _ in iter(eng.step, False)))
+            n, decode_ms = _timed(torch, lambda: sum(1 for _ in iter(eng.step, False)))
             dec = (dict(D.COLLECTIVE_SITES), dict(ops.LAUNCHES), Counter(ops.SHAPE_LAUNCHES))
-        done[arm] = {k: list(v) for k, v in eng.done.items()}
-        # the prefills' own times: the admission's clock also holds the
-        # arms' logit copies and comparisons
-        figs[arm] = (sum(each_ms) / len(each_ms), decode_ms / steps)
-        log(f"  tp qwen2-72b {arm}: prefill_ms={prefill_ms / admitted} ({admitted} prompts of "
-            f"{TP_PROMPT} into {TP_S_MAX}; each prefill {each_ms} ms) decode_steps={steps} "
-            f"decode_tokens_per_s={2 * steps / (decode_ms / 1e3)} step_ms={decode_ms / steps}; "
-            f"prefill launches={pre[1]}; decode launches={dec[1]} "
-            f"max_memory_allocated={torch.cuda.max_memory_allocated()}")
+        out[arm] = {"prefill_ms": each_ms, "step_ms": decode_ms / n, "steps": n,
+                    "admitted": admitted, "pre": pre, "dec": dec,
+                    "done": {k: list(v) for k, v in eng.done.items()},
+                    "peak": torch.cuda.max_memory_allocated()}
         if arm == "mesh":
             MAIN_SHAPES.update(pre[2])
             MAIN_SHAPES.update(dec[2])
-            layer = {("all_gather", "fsdp"): 7, ("all_reduce", "attn_out"): 1,
-                     ("all_reduce", "mlp_out"): 1}
-            want = Counter({k: v * TP_LAYERS for k, v in layer.items()})
-            want.update({("all_gather", "fsdp"): 2, ("all_reduce", "embed"): 1})
-            for what, (sites, n) in (("a prefill", (pre[0], admitted)),
-                                     ("a decode step", (dec[0], steps))):
-                got = {k: v // n for k, v in sites.items()}
-                log(f"  tp qwen2-72b collectives {what}: {got}")
-                if got != dict(want) or any(v % n for v in sites.values()):
-                    raise AssertionError(f"tp qwen2-72b: collectives {sites} in {n} calls, "
-                                         f"expected {dict(want)} a call")
-        if pre[1].get("flash_attention_wgmma", 0) != TP_LAYERS * admitted:
-            raise AssertionError(f"tp qwen2-72b {arm}: {pre[1]} launches in {admitted} "
-                                 f"prefills of {TP_LAYERS} layers")
         del eng
         torch.cuda.empty_cache()
+    out["diffs"] = diffs
+    return out
+
+
+def per_call_sites(what: str, arms: dict, want: Counter) -> None:
+    """The mesh arm's collectives a prefill and a decode step, by site,
+    against `want` (a call's): raises on any other count."""
+    mesh = arms["mesh"]
+    for kind, (sites, n) in (("a prefill", (mesh["pre"][0], mesh["admitted"])),
+                             ("a decode step", (mesh["dec"][0], mesh["steps"]))):
+        got = {k: v // n for k, v in sites.items()}
+        log(f"  {what} collectives {kind}: {got}")
+        if got != dict(want) or any(v % n for v in sites.values()):
+            raise AssertionError(f"{what}: collectives {sites} in {n} calls, expected "
+                                 f"{dict(want)} a call")
+
+
+def tp_serve(torch, ops, D, mesh, dev, card: str) -> None:
+    """(a) qwen2-72b through ServeEngine under the (1, 1) NCCL mesh (the
+    specs' layout: fsdp gathers, the partials' and the embedding's
+    all-reduces) against the same engine with no mesh: tokens equal,
+    prefill logits equal or close, the collectives of a prefill and a
+    decode step pinned, the flash kernel launched once a layer a
+    prefill."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+
+    full = get_config(TP_ARCH)
+    cfg = dataclasses.replace(full, n_layers=TP_LAYERS)
+    params, init_ms = _timed(torch, lambda: init_params(cfg, seed=0, device=dev))
+    n_params = sum(p.numel() for p in params.parameters())
+    log(f"tp (a) {TP_ARCH} [{card}]: full width (d {cfg.d_model}, {cfg.n_heads} heads, "
+        f"{cfg.n_kv_heads} kv, d_ff {cfg.d_ff}, vocab {cfg.vocab}, qkv_bias {cfg.qkv_bias}, "
+        f"fsdp {cfg.fsdp}), n_layers {full.n_layers} -> {TP_LAYERS}, {n_params} parameters "
+        f"({n_params * 2} bytes bf16) drawn in {init_ms} ms")
+    rng = np.random.default_rng(0)
+    prompts = [torch.from_numpy(rng.integers(0, cfg.vocab, TP_PROMPT)) for _ in range(2)]
+    arms = engine_arms(torch, ops, D, mesh, cfg, params, prompts, TP_S_MAX, TP_STEPS)
+    for arm in ("plain", "mesh"):
+        a = arms[arm]
+        log(f"  tp qwen2-72b {arm}: prefill_ms={sum(a['prefill_ms']) / a['admitted']} "
+            f"({a['admitted']} prompts of {TP_PROMPT} into {TP_S_MAX}; each prefill "
+            f"{a['prefill_ms']} ms) decode_steps={a['steps']} "
+            f"decode_tokens_per_s={2 / (a['step_ms'] / 1e3)} step_ms={a['step_ms']}; "
+            f"prefill launches={a['pre'][1]}; decode launches={a['dec'][1]} "
+            f"max_memory_allocated={a['peak']}")
+        if a["pre"][1].get("flash_attention_wgmma", 0) != TP_LAYERS * a["admitted"]:
+            raise AssertionError(f"tp qwen2-72b {arm}: {a['pre'][1]} launches in "
+                                 f"{a['admitted']} prefills of {TP_LAYERS} layers")
+    layer = {("all_gather", "fsdp"): 7, ("all_reduce", "attn_out"): 1,
+             ("all_reduce", "mlp_out"): 1}
+    want = Counter({k: v * TP_LAYERS for k, v in layer.items()})
+    want.update({("all_gather", "fsdp"): 2, ("all_reduce", "embed"): 1})
+    per_call_sites("tp qwen2-72b", arms, want)
+    done, diffs = {k: arms[k]["done"] for k in ("plain", "mesh")}, arms["diffs"]
+    figs = {k: (sum(arms[k]["prefill_ms"]) / len(arms[k]["prefill_ms"]), arms[k]["step_ms"])
+            for k in ("plain", "mesh")}
     same_tokens = sum(a == b for i in range(2) for a, b in zip(done["plain"][i],
                                                                 done["mesh"][i]))
     log(f"  tp qwen2-72b: prefill logits (equal bit for bit, max |diff|, max |logit|) "
@@ -2942,8 +2991,89 @@ def tp_serve(torch, ops, D, mesh, dev, card: str) -> None:
             d > 1e-3 * m for _, d, m in diffs):
         raise AssertionError(f"tp qwen2-72b: the (1, 1) mesh differs from the unmeshed "
                              f"engine (logits {diffs}, tokens {done})")
-    del params, plain_logits
+    del params, arms
     torch.cuda.empty_cache()
+
+
+def tp_a12c_serve(torch, ops, D, mesh, dev, card: str) -> None:
+    """(d) deepseek-v3 (MLA + MoE, 4 of 61 layers, full width) with each
+    MLA decode path and (e) mamba2-130m (all 24 layers) through ServeEngine
+    under the (1, 1) NCCL mesh against the unmeshed engine: prefill logits
+    and every token equal bit for bit, the collectives of a prefill and of
+    a decode step pinned by site, deepseek-v3's wgmma flash launches at its
+    (192, 128) key."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+
+    rng = np.random.default_rng(0)
+    runs = [("deepseek-v3-671b", DS_LAYERS, DS_PROMPT, DS_S_MAX, DS_STEPS),
+            ("mamba2-130m", 24, TP_MAMBA_PROMPT, TP_MAMBA_PROMPT + TP_MAMBA_STEPS,
+             TP_MAMBA_STEPS)]
+    for arch, layers, prompt_len, s_max, steps in runs:
+        full = get_config(arch)
+        cfg = dataclasses.replace(full, n_layers=layers)
+        params, init_ms = _timed(torch, lambda: init_params(cfg, seed=0, device=dev))
+        n_params = sum(p.numel() for p in params.parameters())
+        prompts = [torch.from_numpy(rng.integers(0, cfg.vocab, prompt_len)) for _ in range(2)]
+        log(f"tp ({'d' if cfg.attn_type == 'mla' else 'e'}) {arch} [{card}]: full width, "
+            f"n_layers {full.n_layers} -> {layers}, {n_params} parameters ({n_params * 2} "
+            f"bytes bf16) drawn in {init_ms} ms; two {prompt_len}-token prompts into "
+            f"{s_max}, {steps} decode steps, the (1, 1) mesh against unmeshed")
+        if cfg.attn_type == "mla":
+            per_layer = {("all_gather", "fsdp"): 6, ("all_gather", "mla_q_a"): 1,
+                         ("all_gather", "mla_kv_a"): 1, ("all_reduce", "mla_out"): 1}
+            want = Counter({k: v * layers for k, v in per_layer.items()})
+            # dense FFNs (wi, wg, wo) in the prefix; the MoE layer's weights,
+            # aux, combine and shared expert (wi, wg, wo); embed and lm_head
+            n_moe = layers - cfg.moe_layer_start
+            want.update({("all_gather", "fsdp"): 3 * cfg.moe_layer_start + 3 * n_moe + 2,
+                         ("all_reduce", "mlp_out"): cfg.moe_layer_start + n_moe,
+                         ("all_gather", "moe_weights"): 4 * n_moe,
+                         ("all_reduce", "moe_aux"): n_moe,
+                         ("all_reduce", "moe_combine"): n_moe,
+                         ("all_reduce", "embed"): 1})
+            key = ops.flash_key((1, prompt_len, cfg.n_heads,
+                                 cfg.qk_nope_dim + cfg.qk_rope_dim),
+                                (1, s_max, cfg.n_heads, 0), True, 0, prompt_len,
+                                cfg.v_head_dim)
+            variants = (("materialized", False), ("absorbed", True))
+        else:
+            want = Counter({("all_gather", "ssm_in"): layers,
+                            ("all_gather", "ssm_conv"): layers,
+                            ("all_reduce", "ssm_norm"): layers,
+                            ("all_reduce", "ssm_out"): layers, ("all_reduce", "embed"): 1})
+            key, variants = None, (("recurrent", False),)
+        for path, absorbed in variants:
+            c = dataclasses.replace(cfg, mla_absorbed_decode=absorbed)
+            arms = engine_arms(torch, ops, D, mesh, c, params, prompts, s_max, steps)
+            what = f"tp {arch} {path} decode"
+            for arm in ("plain", "mesh"):
+                a = arms[arm]
+                at_key = a["pre"][2].get(("flash_attention_wgmma", key), 0) if key else 0
+                log(f"  {what} {arm}: each prefill {a['prefill_ms']} ms, decode "
+                    f"step_ms={a['step_ms']} decode_tokens_per_s="
+                    f"{2 / (a['step_ms'] / 1e3)} ({a['steps']} steps); prefill launches "
+                    f"{a['pre'][1]}, at {key}: {at_key}; decode launches {a['dec'][1]}; "
+                    f"max_memory_allocated={a['peak']}")
+                if key and at_key != layers * a["admitted"]:
+                    raise AssertionError(f"{what} {arm}: {at_key} wgmma flash launches at "
+                                         f"{key} in {a['admitted']} prefills")
+            per_call_sites(what, arms, want)
+            same = arms["plain"]["done"] == arms["mesh"]["done"]
+            log(f"  {what}: prefill logits (equal bit for bit, max |diff|, max |logit|) "
+                f"{arms['diffs']}; tokens equal {same}; the (1, 1) mesh's prefills "
+                f"{arms['mesh']['prefill_ms']} against {arms['plain']['prefill_ms']} ms, "
+                f"decode {arms['mesh']['step_ms']} against {arms['plain']['step_ms']} ms a "
+                f"step ({arms['mesh']['step_ms'] / arms['plain']['step_ms']} x)")
+            if not same or len(arms["diffs"]) != 2 or not all(e for e, _, _ in arms["diffs"]):
+                raise AssertionError(f"{what}: the (1, 1) mesh differs from the unmeshed "
+                                     f"engine ({arms['diffs']}, {arms['plain']['done']} "
+                                     f"against {arms['mesh']['done']})")
+            del arms
+        del params
+        torch.cuda.empty_cache()
 
 
 def _sum_check(torch, what, parts, whole) -> float:
@@ -2968,15 +3098,11 @@ def tp_shares(torch, ops, dev, card: str) -> None:
     bit for bit, the head's argmax tokens equal where the whole's top two
     are apart by more than the shares' difference).  Each share timed by
     CUDA events; the shares' flash launches count as the main path's."""
-    from types import SimpleNamespace
-
-    from repro_torch import convert
     from repro_torch.configs import get_config
     from repro_torch.models import layers as L
     from repro_torch.models import model as LMM
 
     cfg = get_config(TP_ARCH)
-    mesh_shape = {"data": 1, "model": TP_MODEL}
     torch.cuda.reset_peak_memory_stats()
     g = torch.Generator(device=dev).manual_seed(1)
     attn = L.init_attention(g, cfg, dev).requires_grad_(False)
@@ -2987,20 +3113,16 @@ def tp_shares(torch, ops, dev, card: str) -> None:
     x = torch.randn((1, TP_TOKENS, cfg.d_model), generator=g, device=dev,
                     dtype=torch.bfloat16)
     pos = torch.arange(TP_TOKENS, device=dev)[None]
-
-    def views(module, m):
-        blocks = convert.block_views(module, cfg, mesh_shape, {"data": 0, "model": m})
-        return SimpleNamespace(**{n: t for n, (t, _) in blocks.items()})
-
     log(f"tp (b) one {TP_ARCH} layer [{card}]: {TP_TOKENS} tokens, whole and as {TP_MODEL} "
         f"shares of a (1, {TP_MODEL}) mesh: {cfg.n_heads // TP_MODEL} heads, "
         f"{cfg.n_kv_heads // TP_MODEL} kv heads, d_ff {cfg.d_ff // TP_MODEL} a share")
     out = {}
     for name, whole_fn, share_fn in (
             ("attention", lambda: L.attention_local(attn, x, pos, cfg),
-             lambda m: L.attention_local(views(attn, m), x, pos, cfg, m, TP_MODEL)),
+             lambda m: L.attention_local(_share_views(attn, cfg, m), x, pos, cfg, m,
+                                         TP_MODEL)),
             ("mlp", lambda: L.mlp_local(ffn, x),
-             lambda m: L.mlp_local(views(ffn, m), x))):
+             lambda m: L.mlp_local(_share_views(ffn, cfg, m), x))):
         whole_fn()   # warm-up
         whole, whole_ms = _event_ms(torch, whole_fn)
         share_fn(0)  # warm-up
@@ -3120,10 +3242,204 @@ def tp_train(torch, ops, D, mesh, dev, card: str) -> None:
         raise AssertionError(f"tp train: collectives {sites}")
 
 
+def _share_views(module, cfg, m: int):
+    """The (1, TP_MODEL) mesh's rank m's blocks of a whole module (views)."""
+    from types import SimpleNamespace
+
+    from repro_torch import convert
+
+    blocks = convert.block_views(module, cfg, {"data": 1, "model": TP_MODEL},
+                                 {"data": 0, "model": m})
+    return SimpleNamespace(**{n: t for n, (t, _) in blocks.items()})
+
+
+def _staged_shares(torch, stages, n: int):
+    """Run `stages` (each fn(m, previous stage's result) -> share m's
+    output, then a combine(outputs) -> the next stage's input, the
+    collective done by hand in rank order) over the n shares; returns (the
+    last combine's result, each share's summed CUDA-event ms, the last
+    stage's outputs)."""
+    ms, prev, outs = [0.0] * n, None, None
+    for fn, combine in stages:
+        outs = []
+        for m in range(n):
+            o, t = _event_ms(torch, lambda m=m: fn(m, prev))
+            outs.append(o)
+            ms[m] += t
+        prev = combine(outs)
+    return prev, ms, outs
+
+
+def tp_a12c_shares(torch, ops, dev, card: str) -> None:
+    """(f) One deepseek-v3 MLA layer and one jamba-1.5-large Mamba2 layer at
+    full width over TP_TOKENS tokens, whole and as the four shares of a
+    (1, 4) mesh on `convert.block_views` (MLA: the latents' column blocks,
+    gathered by hand, then `mla_local` on 32 heads a share; Mamba2: in_proj's
+    and the conv's blocks gathered, the SSD on 64 of 256 heads, the norm's
+    sums of squares summed, out_proj's rows), the partials summed in rank
+    order against the whole; each share timed (CUDA events); the MLA shares'
+    flash launches count as the main path's."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import mla as MLA
+    from repro_torch.models import ssm as SSM
+
+    torch.cuda.reset_peak_memory_stats()
+    g = torch.Generator(device=dev).manual_seed(2)
+    pos = torch.arange(TP_TOKENS, device=dev)[None]
+    cfg = get_config("deepseek-v3-671b")
+    mla = MLA.init_mla(g, cfg, dev).requires_grad_(False)
+    x = torch.randn((1, TP_TOKENS, cfg.d_model), generator=g, device=dev,
+                    dtype=torch.bfloat16)
+
+    def mla_whole():
+        return MLA.mla_local(mla, x, *MLA.mla_latents(mla, x), pos, cfg)
+
+    mla_whole()   # warm-up
+    whole, whole_ms = _event_ms(torch, mla_whole)
+    views = [_share_views(mla, cfg, m) for m in range(TP_MODEL)]
+    MLA.mla_latents(views[0], x)   # warm-up: the shares' product shapes
+    stage1 = (lambda m, _: MLA.mla_latents(views[m], x),
+              lambda outs: [torch.cat(parts, dim=-1) for parts in zip(*outs)])
+    (q_lat, kv_lat), lat_ms, _ = _staged_shares(torch, [stage1], TP_MODEL)
+    MLA.mla_local(views[0], x, q_lat, kv_lat, pos, cfg, 0, TP_MODEL)   # warm-up
+    ops.reset_launches()
+    stage2 = (lambda m, _: MLA.mla_local(views[m], x, q_lat, kv_lat, pos, cfg, m, TP_MODEL),
+              lambda outs: None)
+    _, head_ms, parts = _staged_shares(torch, [stage2], TP_MODEL)
+    MAIN_SHAPES.update(ops.SHAPE_LAUNCHES)
+    hd = cfg.n_heads // TP_MODEL
+    key = ops.flash_key((1, TP_TOKENS, hd, cfg.qk_nope_dim + cfg.qk_rope_dim),
+                        (1, TP_TOKENS, hd, 0), True, 0, TP_TOKENS, cfg.v_head_dim)
+    at_key = ops.SHAPE_LAUNCHES[("flash_attention_wgmma", key)]
+    err = _sum_check(torch, "MLA", parts, whole)
+    ms = [a + b for a, b in zip(lat_ms, head_ms)]
+    log(f"tp (f) one deepseek-v3 MLA layer [{card}]: {TP_TOKENS} tokens, whole {whole_ms} ms; "
+        f"{TP_MODEL} shares of {hd} heads {ms} ms (latent blocks {lat_ms}, heads {head_ms}; "
+        f"CUDA events; sum {sum(ms)} ms, {sum(ms) / whole_ms} of the whole), the shares' sum "
+        f"within {err} of the whole (max |whole| {float(whole.float().abs().max())}); "
+        f"wgmma flash launches at {key}: {at_key}; share launches {dict(ops.LAUNCHES)}")
+    if at_key != TP_MODEL:
+        raise AssertionError(f"tp MLA shares: {at_key} wgmma flash launches at {key}, "
+                             f"expected {TP_MODEL}")
+    del mla, views, whole, parts, q_lat, kv_lat, x
+    torch.cuda.empty_cache()
+
+    cfg = get_config("jamba-1.5-large-398b")
+    mb = SSM.init_mamba(g, cfg, dev).requires_grad_(False)
+    n_bytes = sum(p.numel() * p.element_size() for p in mb.parameters())
+    x = torch.randn((1, TP_TOKENS, cfg.d_model), generator=g, device=dev,
+                    dtype=torch.bfloat16)
+    SSM.mamba_mixer(mb, x, cfg)   # warm-up
+    whole, whole_ms = _event_ms(torch, lambda: SSM.mamba_mixer(mb, x, cfg))
+    views = [_share_views(mb, cfg, m) for m in range(TP_MODEL)]
+
+    def cat(outs):
+        return torch.cat(outs, dim=-1)
+
+    def mamba_shares():
+        state = {}
+
+        def heads(m, conv):
+            return SSM.ssm_heads(views[m], state["proj"], conv, cfg, m)
+
+        def keep_proj(outs):
+            state["proj"] = cat(outs)
+            return state["proj"]
+
+        def norm(outs):
+            state["g"] = [o[0] for o in outs]
+            total = outs[0][1]
+            for o in outs[1:]:
+                total = total + o[1]
+            return total
+
+        return _staged_shares(torch, [
+            (lambda m, _: x @ views[m].in_proj, keep_proj),
+            (lambda m, proj: SSM.ssm_conv(views[m], proj, cfg, m), cat),
+            (heads, norm),
+            (lambda m, ssq: SSM.ssm_out(views[m], state["g"][m], ssq, cfg, m),
+             lambda outs: None)], TP_MODEL)
+
+    mamba_shares()   # warm-up
+    _, ms, parts = mamba_shares()
+    err = _sum_check(torch, "Mamba2", parts, whole)
+    log(f"tp (f) one jamba-1.5-large Mamba2 layer [{card}]: d_inner {cfg.d_inner}, "
+        f"{cfg.ssm_heads} heads, d_state {cfg.d_state}, {n_bytes} bytes of bf16 weights, "
+        f"{TP_TOKENS} tokens: whole {whole_ms} ms; {TP_MODEL} shares of "
+        f"{cfg.ssm_heads // TP_MODEL} heads {ms} ms (CUDA events; sum {sum(ms)} ms, "
+        f"{sum(ms) / whole_ms} of the whole), the shares' sum within {err} of the whole "
+        f"(max |whole| {float(whole.float().abs().max())}); peak memory "
+        f"{torch.cuda.max_memory_allocated()}")
+    del mb, views, whole, parts, x
+    torch.cuda.empty_cache()
+
+
+def tp_a12c_train(torch, ops, D, mesh, dev, card: str) -> None:
+    """(g) SMOKE deepseek-v3 (MLA + MoE + MTP, Adafactor) and SMOKE jamba
+    (Mamba2, attention, MoE), float32, one TrainStep each on the (1, 1)
+    mesh against the same step with no mesh (twice: the card's own spread
+    between two identical steps): the losses, and every leaf's gradient
+    (`TrainStep.grads`, before clipping) against its largest."""
+    import contextlib
+
+    from repro_torch import convert
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.sharding.ctx import mesh_context
+    from repro_torch.train import OptConfig, init_train_state, make_train_step
+    from repro_torch.train.data import SyntheticDataset, to_device
+
+    for arch in ("deepseek-v3-671b", "jamba-1.5-large-398b"):
+        cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32")
+        batch = to_device(SyntheticDataset(cfg, ShapeSpec("train", TP_SMOKE_SEQ, 2, "train"))
+                          .batch(0), cfg, dev)
+        losses, grads, sites = {}, {}, {}
+        for arm in ("plain", "plain again", "mesh"):
+            model, opt_state = init_train_state(cfg, seed=0, device=dev)
+            if arm == "mesh":
+                convert.shard_module(model, cfg, mesh)
+            step = make_train_step(cfg, OptConfig(name=cfg.optimizer))
+            ctx = mesh_context(mesh, ("data",)) if arm == "mesh" else contextlib.nullcontext()
+            with ctx:
+                D.reset_collectives()
+                _, _, m = step(model, opt_state, batch, 0)
+                sites[arm] = {k: v for k, v in D.COLLECTIVE_SITES.items()
+                              if k[1].split(".")[0] in ("mla_in", "mla_q_a", "mla_kv_a",
+                                                        "mla_out", "mtp_proj", "mtp_in",
+                                                        "ssm_in", "ssm_conv", "ssm_norm",
+                                                        "ssm_out", "ssm_mark")}
+            losses[arm] = float(m.loss)
+            grads[arm] = {n: t.detach().clone() for n, t in step.grads.items()}
+            del model, opt_state, step
+
+        def spread(a, b):
+            """(leaves equal bit for bit, the largest |a - b| / max |b| of a leaf)."""
+            same = sum(bool(torch.equal(a[n], b[n])) for n in b)
+            rel = max(float((a[n] - b[n]).abs().max() / b[n].abs().max().clamp_min(1e-30))
+                      for n in b)
+            return same, rel
+
+        repeat, mesh_vs = spread(grads["plain again"], grads["plain"]), spread(
+            grads["mesh"], grads["plain"])
+        log(f"tp (g) SMOKE {arch} trained a step [{card}]: losses plain "
+            f"{losses['plain']} / {losses['plain again']}, (1, 1) mesh {losses['mesh']}; "
+            f"gradients (leaves equal bit for bit of {len(grads['plain'])}, largest relative "
+            f"difference of a leaf): plain again {repeat}, mesh {mesh_vs}; the mesh step's "
+            f"layout collectives {sites['mesh']}")
+        if (abs(losses["mesh"] - losses["plain"]) > TP_TRAIN_RTOL * abs(losses["plain"])
+                or mesh_vs[1] > max(1e-5, 10 * repeat[1]) or not sites["mesh"]):
+            raise AssertionError(f"tp (g) {arch}: the (1, 1) mesh's step differs from the "
+                                 f"unmeshed one (losses {losses}, gradients {mesh_vs}, "
+                                 f"repeat {repeat}, sites {sites['mesh']})")
+        torch.cuda.empty_cache()
+
+
 def tp_phase(torch, ops, dev, card: str) -> None:
     """The specs' layout: (a) qwen2-72b served through the (1, 1) NCCL mesh,
     (b) one full-width qwen2-72b layer, its embedding and head as (1, 4)
-    shares, (c) qwen1.5-0.5b trained on the (1, 1) mesh."""
+    shares, (c) qwen1.5-0.5b trained on the (1, 1) mesh, (d) deepseek-v3
+    and (e) mamba2 served through the (1, 1) mesh, (f) one deepseek-v3 MLA
+    layer and one jamba Mamba2 layer as (1, 4) shares, (g) SMOKE
+    deepseek-v3 and jamba trained a step on the (1, 1) mesh."""
     from repro_torch.core import distributed as D
 
     t0 = time.perf_counter()
@@ -3133,12 +3449,21 @@ def tp_phase(torch, ops, dev, card: str) -> None:
         t1 = time.perf_counter()
         log(f"tp: (a) {t1 - t0} s")
         tp_train(torch, ops, D, mesh, dev, card)
-        log(f"tp: (c) {time.perf_counter() - t1} s")
+        t2 = time.perf_counter()
+        log(f"tp: (c) {t2 - t1} s")
+        tp_a12c_serve(torch, ops, D, mesh, dev, card)
+        t1 = time.perf_counter()
+        log(f"tp: (d) and (e) {t1 - t2} s")
+        tp_a12c_train(torch, ops, D, mesh, dev, card)
+        log(f"tp: (g) {time.perf_counter() - t1} s")
     finally:
         leave_world(store)
     t1 = time.perf_counter()
     tp_shares(torch, ops, dev, card)
-    log(f"tp: (b) {time.perf_counter() - t1} s; phase {time.perf_counter() - t0} s")
+    t2 = time.perf_counter()
+    log(f"tp: (b) {t2 - t1} s")
+    tp_a12c_shares(torch, ops, dev, card)
+    log(f"tp: (f) {time.perf_counter() - t2} s; phase {time.perf_counter() - t0} s")
 
 
 def flash_phase(torch, ops, ref, dev):

@@ -126,6 +126,10 @@ FLASH_LM = [
      128, 128, True, 0, 8192),
     ("qwen2-72b (1, 4) mesh share: 16 heads, 2 kv heads", 1, 8192, 8192, 16, 2, 128, 128,
      True, 0, None),
+    # and a deepseek-v3 MLA layer's (1, 4) share over 8192 tokens: 128 / 4
+    # heads at (Dk, Dv) (192, 128), no cache
+    ("deepseek-v3 MLA (1, 4) mesh share: 32 heads", 1, 8192, 8192, 32, 32, 192, 128, True,
+     0, None),
 ]
 
 # kernel-name substrings of each wrapper's kernels in the profiler's events

@@ -122,6 +122,39 @@ def empty_cache_cost_batch(d: torch.Tensor, k: int, c_f) -> torch.Tensor:
     return torch.sum(top, dim=1) + k * c_f
 
 
+def empty_cache_cost(d: torch.Tensor, k: int, c_f) -> torch.Tensor:
+    """C(r, (0..0,1..1)) of one request: all k answers fetched from the
+    server."""
+    return empty_cache_cost_batch(d[None], k, c_f)[0]
+
+
+def lower_bound_l(d: torch.Tensor, y: torch.Tensor, k: int, c_f) -> torch.Tensor:
+    """The multilinear lower bound L(r, y) of Eq. (15) (App. A) of one
+    request, d, y (C,) -> scalar:
+
+    L(r, y) = sum_i alpha_i (k - sigma_i) (1 - prod_{j in I_i} (1 - y_pi_j / (k - sigma_i)))
+
+    where I_i keeps the local copies in the prefix whose remote twin is
+    not in it.  Lemma 1: L(y) <= G(y) <= (1 - 1/e)^{-1} L(y).  A check of
+    the bound, O(C^2), not on any serving path."""
+    a = _augment_and_sort(d[None], y[None], c_f)
+    costs, weights, is_remote = a.costs[0], a.weights[0], a.is_remote[0]
+    two_c = costs.shape[0]
+    sig = torch.cumsum(is_remote.to(d.dtype), dim=0)
+    alpha = costs[1:] - costs[:-1]
+    active = sig[:-1] < k
+    pos = torch.arange(two_c, device=d.device)
+    local = ~is_remote
+    rpos_of_entry = a.rpos[0][a.cand_of_entry[0]]       # each entry's remote twin
+    yv = torch.where(local, weights, torch.zeros_like(weights))
+    i = pos[:-1, None]                                   # prefix i, entry p
+    member = (pos[None, :] <= i) & local[None, :] & (rpos_of_entry[None, :] > i)
+    c = torch.clamp_min(k - sig[:-1], 1.0)[:, None]
+    prod = torch.prod(torch.where(member, 1.0 - yv[None, :] / c, torch.ones_like(c)), dim=1)
+    terms = (k - sig[:-1]) * (1.0 - prod)
+    return torch.sum(torch.where(active, alpha * terms, torch.zeros_like(alpha)))
+
+
 def gain_value(d: torch.Tensor, y: torch.Tensor, k: int, c_f) -> torch.Tensor:
     """Single-request G(r, y): d, y (C,) -> scalar."""
     return gain_value_batch(d[None], y[None], k, c_f)[0]

@@ -8,6 +8,7 @@ mirror map (core.mirror), Bregman projection onto the capped simplex
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
@@ -24,6 +25,13 @@ class OMAConfig:
     rounding: str = "coupled"  # 'depround' | 'coupled' | 'independent'
     round_every: int = 1       # the paper's M
     projection_topk: int = 0   # 0 = exact full sort; >0 = accelerated top-A
+
+
+def theoretical_eta(c_dk: float, c_f: float, h: int, n: int, horizon: int) -> float:
+    """eta* of Theorem IV.1 (App. E, Eq. (78))."""
+    big_l = c_dk + c_f
+    big_d = h * math.log(max(n / max(h, 1), 1.0 + 1e-9))
+    return (1.0 / big_l) * math.sqrt(2.0 * big_d / (max(h, 1) * max(horizon, 1)))
 
 
 def project(z: torch.Tensor, h, cfg: OMAConfig) -> torch.Tensor:

@@ -158,6 +158,27 @@ def exact_candidate_fn_batched(catalog: torch.Tensor, c_remote: int,
     return fn
 
 
+def per_request_view(candidate_fn_batched: Callable) -> Callable:
+    """A batched candidate generator as the per-request fn(r (d,), x (N,))
+    -> (ids (C,), d (C,), valid (C,)): its B = 1 view, so sequential and
+    batched replays share one code path (`batched_view` goes the other
+    way).  A generator's `local_cap` carries over."""
+
+    def fn(r: torch.Tensor, x: torch.Tensor):
+        ids, d, valid = candidate_fn_batched(r[None, :], x)
+        return ids[0], d[0], valid[0]
+
+    if hasattr(candidate_fn_batched, "local_cap"):
+        fn.local_cap = candidate_fn_batched.local_cap
+    return fn
+
+
+def exact_candidate_fn(catalog: torch.Tensor, c_remote: int, c_local: int,
+                       metric: str = "sqeuclidean") -> Callable:
+    """Per-request view of `exact_candidate_fn_batched` (B = 1)."""
+    return per_request_view(exact_candidate_fn_batched(catalog, c_remote, c_local, metric))
+
+
 @dataclasses.dataclass(frozen=True)
 class AcaiConfig:
     h: int                      # cache capacity (objects)

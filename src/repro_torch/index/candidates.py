@@ -17,7 +17,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.costs import BIG_COST
-from repro_torch.core.policy import dedup_mask_batched
+from repro_torch.core.policy import dedup_mask_batched, per_request_view
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import smallest_k
 
@@ -105,6 +105,13 @@ def index_candidate_fn_batched(index, catalog: torch.Tensor, c_remote: int,
         return _assemble(*remote, *_local_slab(rs, x, catalog, cap, c_local), n)
 
     return fn
+
+
+def index_candidate_fn(index, catalog: torch.Tensor, c_remote: int, c_local: int,
+                       h: int | None = None):
+    """Per-request view of `index_candidate_fn_batched` (B = 1)."""
+    return per_request_view(index_candidate_fn_batched(index, catalog, c_remote, c_local,
+                                                       h=h))
 
 
 def mutable_index_candidate_fn(index, c_remote: int, c_local: int,

@@ -18,7 +18,8 @@ the Adafactor state of the reference's stacked leaves
 (`optimizer.param_groups`), its cache.  The reference's compile-derived
 fields (`cost_analysis`, `memory_analysis`, `hlo_analysis.summarize`'s
 FLOPs, bytes and collective bytes, `src/repro/launch/dryrun.py:140-178`)
-have no counterpart here yet: ROADMAP A12c.
+have no counterpart here yet: the cost record, the second half of
+ROADMAP A12c.
 
     python -m repro_torch.launch.dryrun --arch yi-6b --shape train_4k --mesh single \\
         --out DIR

@@ -20,6 +20,7 @@ and `cross_entropy` / `mtp_loss` are the reference's losses.
 
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple, Optional
 
 import torch
@@ -163,23 +164,33 @@ def _init_layer_cache(cfg: ModelConfig, kind: tuple, batch: int, s_max: int, dty
                 "v": torch.zeros(shape, dtype=dtype, device=device)}
     if mixer_kind == "mla":
         return MLA.init_mla_cache(cfg, batch, s_max, dtype, device)
-    return SSM.init_mamba_cache(cfg, batch, dtype, device)
+    return SSM.init_mamba_cache(cfg, batch, dtype, device,
+                                channels=_of_rank(cfg.d_inner + 2 * cfg.d_state),
+                                heads=_of_rank(cfg.ssm_heads))
+
+
+def _of_rank(n_whole: int) -> int:
+    """A rank's share of a cache dim that `specs.cache_pspecs` splits over
+    the mesh's `model` axis where it divides (all of it otherwise, and
+    with no mesh)."""
+    n = tp.size(tp.MODEL)
+    return n_whole // n if n_whole % n == 0 else n_whole
 
 
 def _kv_heads_of_rank(cfg: ModelConfig) -> int:
     """The kv heads a rank's attention cache holds: KV / n_model where the
     heads divide the mesh's `model` axis (`specs.cache_pspecs`), else all
     KV (the rank gathers whole heads); KV with no mesh."""
-    n = tp.size(tp.MODEL)
-    return cfg.n_kv_heads // n if cfg.n_kv_heads % n == 0 else cfg.n_kv_heads
+    return _of_rank(cfg.n_kv_heads)
 
 
 def init_cache(cfg: ModelConfig, batch: int, s_max: int, device=None) -> list:
     """Zeroed cache, one dict a layer by its mixer: attention {"k", "v"}
     (batch, T, KV, D), T = min(s_max, sliding_window) under a window
     (under a mesh context: batch the rank's, KV its kv heads);
-    MLA {"ckv", "krope"} (batch, s_max, ·); mamba {"conv" (batch, K-1, CH),
-    "ssm" (batch, H, P, N) float32}."""
+    MLA {"ckv", "krope"} (batch, s_max, ·), whole on every rank; mamba
+    {"conv" (batch, K-1, CH), "ssm" (batch, H, P, N) float32}, under a
+    mesh context the rank's block of CH and of H where they split."""
     device = resolve_device(device)
     dt = L.dtype_of(cfg)
     return [_init_layer_cache(cfg, layer_kind(cfg, i), batch, s_max, dt, device)
@@ -216,16 +227,21 @@ def lm_logits(params: "LM", cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     Under a mesh context: the rank's vocab columns (vocab-sharded logits)
     where the vocab splits over `model`, with x as their replicated
     input."""
+    if cfg.tie_embeddings:
+        return head_logits(params.embed, True, x)
+    return head_logits(params.lm_head, False, x)
+
+
+def head_logits(w: torch.Tensor, tied: bool, x: torch.Tensor) -> torch.Tensor:
+    """x @ w (lm_head), or x @ w.T where `tied` (the embed), float32;
+    vocab-sharded as `lm_logits` says under a mesh context."""
     if mesh_ctx.current() is None:
-        head = params.embed.T if cfg.tie_embeddings else params.lm_head
-        return (x @ head).float()
-    w = params.embed if cfg.tie_embeddings else params.lm_head
+        return (x @ (w.T if tied else w)).float()
     spec = tp.spec_of(w)
     head = tp.whole_over_data(w)
-    head = head.T if cfg.tie_embeddings else head
     if tp.over_model(spec):
         x = tp.replicated_input(x, "logits_in")
-    return (x @ head).float()
+    return (x @ (head.T if tied else head)).float()
 
 
 def vocab_lo(params: "LM", cfg: ModelConfig) -> int | None:
@@ -253,16 +269,10 @@ def _apply_layer(layer: Layer, x, positions, cfg: ModelConfig, cache, cache_len:
     if mixer_kind == "attn":
         y = L.attention(layer.mixer, h, positions, cfg, cache=cache, cache_len=cache_len,
                         positions3=positions3)
+    elif mixer_kind == "mla":
+        y = MLA.mla_attention(layer.mixer, h, positions, cfg, cache=cache, cache_len=cache_len)
     else:
-        mixer = layer.mixer
-        if mesh_ctx.current() is not None:
-            # not laid out over `model` yet: whole at model 1, fsdp-gathered
-            tp.model_one("the MLA mixer" if mixer_kind == "mla" else "the Mamba2 mixer")
-            mixer = tp.gathered(mixer)
-        if mixer_kind == "mla":
-            y = MLA.mla_attention(mixer, h, positions, cfg, cache=cache, cache_len=cache_len)
-        else:
-            y = SSM.mamba_mixer(mixer, h, cfg, cache=cache)
+        y = SSM.mamba_mixer(layer.mixer, h, cfg, cache=cache)
     x = x + y
     aux = torch.zeros((), device=x.device)
     if ffn_kind == "none":
@@ -332,8 +342,11 @@ def _forward(params: LM, cfg: ModelConfig, tokens, embeds, positions, positions3
     for u in range(spec.n_units):
         first = spec.n_prefix + u * len(spec.kinds)
         if remat:
-            x, aux_unit = torch.utils.checkpoint.checkpoint(unit, x, first,
-                                                            use_reentrant=False)
+            # the recomputation may run on autograd's device thread: it
+            # reopens this thread's mesh context there
+            x, aux_unit = torch.utils.checkpoint.checkpoint(
+                unit, x, first, use_reentrant=False,
+                context_fn=lambda: (contextlib.nullcontext(), mesh_ctx.reopened()))
         else:
             x, aux_unit = unit(x, first)
         aux_total = aux_total + aux_unit
@@ -425,26 +438,28 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 def mtp_loss(params: LM, cfg: ModelConfig, hidden: torch.Tensor, tokens: torch.Tensor,
              positions: torch.Tensor) -> torch.Tensor:
     """DeepSeek MTP (depth 1): predict token t+2 from [h_t ; emb(x_{t+1})]
-    through the MTP block and the shared head."""
+    through the MTP block and the shared head (the embed's transpose).
+
+    Under a mesh context: proj's column block of d (the residual stream)
+    gathered over `model` (site "mtp_proj", keeping the rank's block of
+    the whole gradient), its input marked replicated ("mtp_in"); the
+    block runs the laid-out MLA and FFN; the shared head gives the rank's
+    vocab columns from the embed's rows, as `lm_logits`, into the
+    vocab-parallel loss."""
     if not cfg.mtp_depth:
         return torch.zeros((), device=hidden.device)
     p = params.mtp
-    proj = p.proj
-    if mesh_ctx.current() is not None:
-        tp.model_one("the MTP head")
-        proj = tp.whole_over_data(proj)
     emb_next = embed_lookup(params.embed, tokens[:, 1:])            # (B, S-1, d)
-    inp = torch.cat([hidden[:, :-1], emb_next], dim=-1) @ proj
+    inp = torch.cat([hidden[:, :-1], emb_next], dim=-1)
+    if mesh_ctx.current() is None:
+        inp = inp @ p.proj
+    elif tp.over_model(tp.spec_of(p.proj)):
+        inp = tp.gather_model_replicated(tp.replicated_input(inp, "mtp_in")
+                                         @ tp.whole_over_data(p.proj), -1, "mtp_proj")
+    else:
+        inp = inp @ tp.whole_over_data(p.proj)
     out, _ = _apply_layer(p.block, inp, positions[:, :-1], cfg, None, 0, None)
     out = L.rms_norm(out, p.norm, cfg.norm_eps)
-    logits = (out @ _tied_head(params)).float()                    # shared head
+    logits = head_logits(params.embed, True, out)                  # shared head
     return cross_entropy(logits[:, :-1], tokens[:, 2:],
                          vocab_lo=tp.vocab_shard(params.embed, 0))
-
-
-def _tied_head(params: LM) -> torch.Tensor:
-    """embed.T, whole over `data` under a mesh (the MTP head runs at model
-    1 only)."""
-    if mesh_ctx.current() is None:
-        return params.embed.T
-    return tp.whole_over_data(params.embed).T

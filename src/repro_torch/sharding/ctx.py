@@ -4,7 +4,9 @@ Model code stays mesh-agnostic: a launcher opens `mesh_context(mesh,
 batch_axes)` around a forward or a training step, and the layers look the
 context up to run on the rank's blocks (`sharding/tp.py`).
 The context is thread-local, nests, and restores the previous one on
-exit.  `mesh` is the port's `DeviceMesh` (`repro_torch.launch.mesh`),
+exit.  Autograd runs a CUDA backward on threads of its own, so work that
+a backward recomputes (a checkpointed unit) reopens the context of its
+forward there (`reopened`).  `mesh` is the port's `DeviceMesh` (`repro_torch.launch.mesh`),
 `batch_axes` the mesh axes that carry the batch, e.g. ("data",) or
 ("pod", "data").
 
@@ -36,6 +38,17 @@ def current() -> Optional[MeshContext]:
 
 def mesh_active() -> bool:
     return current() is not None
+
+
+def reopened():
+    """A context manager that opens, on whatever thread enters it later, the
+    context open on this thread now (none: a no-op).  A checkpointed
+    unit's recomputation runs where autograd runs the backward, on a CUDA
+    device thread of its own that has no context: `model.forward` hands
+    this to `torch.utils.checkpoint` so the recomputation runs the rank's
+    layout as its forward did."""
+    ctx = current()
+    return contextlib.nullcontext() if ctx is None else mesh_context(*ctx)
 
 
 @contextlib.contextmanager

@@ -14,17 +14,24 @@ batch.  The layers read the specs from here:
     backward reduce-scatters the gradient over `data`);
   - `over_model(spec)`: whether a dimension of the spec splits over the
     `model` axis (then the layer's output is a partial, reduced over
-    `model`, and its replicated input takes `replicated_input`);
-  - `model_one(what)`: the layers this slice does not lay out (MLA and the
-    Mamba2 mixer) raise NotImplementedError under a model axis of more
-    than one rank (ROADMAP A12c), and run on the fsdp-gathered weights at
-    model 1.
+    `model`, and its replicated input takes `replicated_input`).
+
+Every layer runs at any (data, model) mesh: the attention and FFN
+(`models/layers.py`), MLA (`models/mla.py`), the Mamba2 mixer
+(`models/ssm.py`), the MoE (`models/moe.py`), the embedding, head and
+losses, and the MTP head (`models/model.py`).
 
 Collective sites (`core.distributed.COLLECTIVE_SITES`): "fsdp" (the dense
 weights' data gathers), "embed" (the vocab-parallel lookup), "attn_in" /
 "attn_out" / "attn_heads" (the attention's replicated input, its partial
 and a misaligned projection's model gather), "mlp_in" / "mlp_out",
-"logits_in" (the head's input), "ce" and "ce_max" (the vocab-parallel
+"logits_in" (the head's input), "mla_q_a" / "mla_kv_a" / "mla_heads" /
+"mla_out" / "mla_in" (MLA's latent gathers, a misaligned head
+projection's gather, its partial and its replicated inputs), "ssm_in" /
+"ssm_conv" / "ssm_norm" / "ssm_out" / "ssm_mark" (the Mamba2 mixer's
+in_proj and conv gathers, the norm's sum of squares, its partial and its
+replicated inputs), "mtp_proj" / "mtp_in" (the MTP head's residual
+gather and its input), "ce" and "ce_max" (the vocab-parallel
 loss over `model`), "loss" (the loss's sums over the batch axes),
 "sample" (greedy tokens over vocab shards; `vocab_shard` says whether
 the logits are), "attn_bias" (a split bias of a whole matrix,
@@ -120,16 +127,6 @@ def gathered(module, site: str = "fsdp") -> SimpleNamespace:
     out = SimpleNamespace(**{n: whole_over_data(p, site) for n, p in named.items()})
     out.specs = {n: spec_of(p) for n, p in named.items()}
     return out
-
-
-def model_one(what: str) -> None:
-    """Raise where a layer of `what` kind meets a model axis of more than
-    one rank: its tensor-parallel form is ROADMAP A12c."""
-    n = size(MODEL)
-    if n > 1:
-        raise NotImplementedError(
-            f"{what} under a {n}-rank `model` axis: its tensor-parallel layout is not "
-            f"ported yet (ROADMAP A12c); it runs on (D, 1) meshes")
 
 
 def replicated_input(x: torch.Tensor, site: str) -> torch.Tensor:

@@ -317,9 +317,9 @@ def test_collective_counts_of_each_branch(worlds, shape):
                                       else {"all_reduce": 2})
 
 
-def test_experts_that_do_not_divide_the_model_axis_raise(ref, worlds):
-    """Kept name: 6 experts on a 4-rank `model` axis no longer raise, they
-    run the reference's TP inside experts (every expert on every rank, the
+def test_experts_that_do_not_divide_the_model_axis_run_tp_inside_experts(ref, worlds):
+    """6 experts on a 4-rank `model` axis run the reference's TP inside
+    experts (every expert on every rank, the
     rank's block of the expert FFN dim, the partials summed over `model`),
     in the two-stage branch (moe_dp 2) and the single-stage one (moe_dp
     0), and match the reference's moe_ffn of those branches; collectives: the fsdp
@@ -370,20 +370,13 @@ def test_forward_under_mesh_matches_unmeshed_reference(worlds, arch, shape):
     Dropless, so the shard_map branch's output is the single-stage
     layer's; the aux loss too where the data axis has one rank (with two,
     the branch averages the shards' Switch losses, as the reference's).
-    jamba's Mamba2 layers raise at model > 1 (ROADMAP A12c)."""
+    jamba's Mamba2 layers run laid out over `model` too."""
     jcfg, tree, toks = _fwd_pair(arch)
     want = j_forward(jax.tree.map(np.asarray, tree), jcfg, tokens=toks)
     ranks = worlds[shape]
     n_data, n_model = shape
     for fsdp in (False, True):
         name = f"{arch}|{fsdp}"
-        if arch.startswith("jamba") and n_model > 1:
-            # the whole model is laid out by the specs: jamba's Mamba2
-            # mixer under a model axis of more than one rank is A12c
-            # (tests/test_torch_tp.py runs jamba at (2, 1))
-            for r in ranks:
-                assert "A12c" in r[name]["raised"], name
-            continue
         got = np.concatenate([ranks[r * n_model][name]["logits"] for r in range(n_data)])
         np.testing.assert_allclose(got, np.asarray(want.logits), rtol=FWD_TOL, atol=FWD_TOL,
                                    err_msg=name)

@@ -17,8 +17,9 @@ replicate_misaligned_heads, the opt variant, and with 2 query heads, so
 wo's rows split heads too), minitron-8b (squared ReLU), mixtral (expert
 parallel; and with 3 experts, TP inside experts, in the single-stage
 and the two-stage branch), qwen2-vl-7b (M-RoPE, a vision prefix) and
-hubert-xlarge (the encoder); deepseek-v3, mamba2 and jamba raise naming
-ROADMAP A12c at model > 1 and run at (2, 1).
+hubert-xlarge (the encoder).  MLA, the Mamba2 mixer and the MTP head
+(deepseek-v3, mamba2, jamba) are held the same way in
+tests/test_torch_tp_a12c.py.
 
 Tolerances: the prefill logits to 1e-5 (the partials' all-reduces sum in
 another order), 5 greedy tokens equal; at (1, 1) logits and tokens equal
@@ -67,9 +68,6 @@ CASES = {
     "qwen2-vl-7b": ("qwen2-vl-7b", F, False),
     "hubert-xlarge": ("hubert-xlarge", F, False),
 }
-A12C = {"deepseek-v3": ("deepseek-v3-671b", F, True),
-        "mamba2": ("mamba2-130m", {}, True),
-        "jamba": ("jamba-1.5-large-398b", F, True)}
 _REF: dict = {}
 
 
@@ -104,17 +102,13 @@ def _cases(names, table):
 
 @pytest.fixture(scope="module")
 def worlds(tmp_path_factory):
-    """Each mesh's ranks serve every case; (1, 2) also runs the A12c
-    architectures (they raise), (2, 1) runs them."""
+    """Each mesh's ranks serve every case."""
     tmp = tmp_path_factory.mktemp("tp_worlds")
     cases = _cases(CASES, CASES)
-    a12c = _cases(A12C, A12C)
-    raising = [(n, c, None, i, 0) for n, c, _, i, _ in a12c]
 
     def world(shape):
-        extra = a12c if shape == (2, 1) else raising if shape == (1, 2) else []
         return [r["tp_serve"] for r in
-                run_world(jobs_rank, shape, tmp, [("tp_serve", cases + extra)])]
+                run_world(jobs_rank, shape, tmp, [("tp_serve", cases)])]
 
     with concurrent.futures.ThreadPoolExecutor(len(MESHES)) as pool:
         return dict(zip(MESHES, pool.map(world, MESHES)))
@@ -160,18 +154,6 @@ def test_temperature_sampling_over_vocab_shards_matches_the_whole_engine(worlds,
         np.testing.assert_array_equal(_whole(worlds[shape], shape, name, "sampled"), want)
 
 
-@pytest.mark.parametrize("name", list(A12C))
-def test_mla_and_mamba_raise_naming_a12c_and_run_at_model_one(worlds, name):
-    arch, changes, gen = A12C[name]
-    _, _, _, want, toks = _setup(name, arch, changes, gen)
-    for r in worlds[(1, 2)]:
-        assert r[name]["raised"] and "A12c" in r[name]["raised"], r[name]
-    ranks = worlds[(2, 1)]
-    np.testing.assert_allclose(_whole(ranks, (2, 1), name, "logits"), want, rtol=TOL,
-                               atol=TOL, err_msg=name)
-    np.testing.assert_array_equal(_whole(ranks, (2, 1), name, "tokens"), toks)
-
-
 def _dense_sites(shape, layers=2, fsdp=True, misaligned_kv=False, tied=False):
     """A dense GQA model's forward collectives by site."""
     sites = {"all_reduce|attn_out": layers, "all_reduce|mlp_out": layers,
@@ -207,8 +189,8 @@ def test_collectives_by_site(worlds, shape):
 def test_one_rank_mesh_is_bit_for_bit_the_unmeshed_port(host_mesh):
     """(1, 1): every case's logits and tokens equal the unmeshed port's bit
     for bit (the same arithmetic; all-reduces over one rank)."""
-    for name, table in [(n, CASES) for n in CASES] + [(n, A12C) for n in A12C]:
-        arch, changes, gen = table[name]
+    for name in CASES:
+        arch, changes, gen = CASES[name]
         cfg, tree, inputs, _, _ = _setup(name, arch, changes, gen)
         kw = {k: torch.from_numpy(v) for k, v in inputs.items()}
         model = convert.lm_params_from_numpy(tree, cfg, device="cpu")

@@ -442,8 +442,7 @@ def moe_ep_rank(mesh, rank, cases: list) -> dict:
 def moe_forward_rank(mesh, rank, cases: list) -> dict:
     """A whole LM forward on this rank's data shard of the tokens under the
     mesh context: [(name, cfg, reference numpy tree, tokens), ...] ->
-    {name: {"logits" (over the whole vocab), "aux"}}, or {"raised"} with
-    the NotImplementedError of a layer not laid out yet."""
+    {name: {"logits" (over the whole vocab), "aux"}}."""
     import torch
 
     from repro_torch import convert
@@ -453,12 +452,8 @@ def moe_forward_rank(mesh, rank, cases: list) -> dict:
     out = {}
     for name, cfg, params, tokens in cases:
         model = convert.lm_params_block(params, cfg, mesh, device="cpu")
-        try:
-            with mesh_context(mesh, ("data",)):
-                res = forward(model, cfg, tokens=torch.from_numpy(_data_shard(tokens, mesh)))
-        except NotImplementedError as e:
-            out[name] = {"raised": str(e)}
-            continue
+        with mesh_context(mesh, ("data",)):
+            res = forward(model, cfg, tokens=torch.from_numpy(_data_shard(tokens, mesh)))
         out[name] = {"logits": _whole_vocab(res.logits, cfg, mesh), "aux": float(res.aux_loss)}
     return out
 
@@ -488,39 +483,53 @@ def tp_serve_rank(mesh, rank, cases: list) -> dict:
     {"logits": the prefill's logits of the rank's data shard over the
     whole vocab, "sites": the forward's collectives by site, "tokens":
     `generate`'s greedy tokens (decode steps > 0), "gen_sites", "sampled":
-    its temperature-0.7 tokens from seeded uniforms}}; a case
-    whose tree is None records the NotImplementedError a forward raises."""
+    its temperature-0.7 tokens from seeded uniforms (unless a sixth
+    element of the case is False), "heads": the head
+    counts the prefill's attention cores and SSD scans ran over, "cache":
+    the shapes of `init_cache`'s first layer under the mesh, "blocks": the
+    rank's parameter shapes by name}}."""
     import torch
 
     from repro_torch import convert
     from repro_torch.core import distributed as D
-    from repro_torch.models import forward, init_params
+    from repro_torch.models import forward, init_cache
+    from repro_torch.models import layers as L
+    from repro_torch.models import ssm as SSM
     from repro_torch.serve.engine import generate
     from repro_torch.sharding.ctx import mesh_context
 
+    heads = {"attention": [], "ssd": []}
+
+    def probe(fn, what):
+        def wrapped(*a, **k):
+            heads[what].append(int(a[0].shape[2]))
+            return fn(*a, **k)
+        return wrapped
+
+    L.attention_core = probe(L.attention_core, "attention")
+    SSM.ssd_chunked = probe(SSM.ssd_chunked, "ssd")
     out = {}
-    for name, cfg, params, inputs, steps in cases:
+    for name, cfg, params, inputs, steps, *sample in cases:
         kw = {k: torch.from_numpy(v) for k, v in _batch_shard(inputs, mesh).items()}
-        if params is None:
-            model = convert.shard_module(init_params(cfg, seed=0, device="cpu"), cfg, mesh)
-            try:
-                with mesh_context(mesh, ("data",)):
-                    forward(model, cfg, **kw)
-                out[name] = {"raised": None}
-            except NotImplementedError as e:
-                out[name] = {"raised": str(e)}
-            continue
         model = convert.lm_params_block(params, cfg, mesh, device="cpu")
         with mesh_context(mesh, ("data",)):
             D.reset_collectives()
+            for v in heads.values():
+                v.clear()
             res = forward(model, cfg, **kw)
             sites = _sites(D.COLLECTIVE_SITES)
             rec = {"logits": _whole_vocab(res.logits, cfg, mesh), "sites": sites,
-                   "aux": float(res.aux_loss)}
+                   "aux": float(res.aux_loss), "heads": {k: list(v) for k, v in heads.items()},
+                   "cache": {k: list(t.shape)
+                             for k, t in init_cache(cfg, 1, 8, device="cpu")[0].items()},
+                   "blocks": {n: list(p.shape) for n, p in model.named_parameters()}}
             if steps:
                 D.reset_collectives()
                 rec["tokens"] = _np(generate(model, cfg, kw["tokens"], steps))
                 rec["gen_sites"] = _sites(D.COLLECTIVE_SITES)
+                if sample and not sample[0]:
+                    out[name] = rec
+                    continue
                 # temperature draws from the global batch's (steps - 1, B,
                 # vocab) uniforms: this rank's rows, all vocab ids
                 u = np.random.default_rng(11).random(
