@@ -211,7 +211,27 @@ Phases, each of which raises on failure (the script then exits non-zero):
              on the main path; (g) SMOKE deepseek-v3 (with MTP) and jamba,
              float32, a training step on the (1, 1) mesh against the plain
              step.  `--only tp` runs the build and this phase alone and
-             prints no result.
+             prints no result;
+15. cost — the dry-run's cost record (repro_torch.launch.cost, after
+             every profiled phase): (a) `python -m repro_torch.launch.dryrun`
+             in four processes of the card's host, side by side with (b):
+             qwen2-72b prefill_32k on the single-pod mesh, deepseek-v3
+             train_4k (--variant opt), mixtral-8x22b decode_32k across pods
+             and the AÇAI cell, each rank 0 of a world-less production mesh
+             on meta tensors, every record `ok`, its FLOPs, bytes,
+             collective bytes by class and seconds printed; (b)
+             qwen1.5-0.5b at its published widths (24 layers, seed 0)
+             prefilling one 8192-token prompt through the (1, 1) NCCL mesh
+             under the cost mode, the wgmma flash kernel launched a layer:
+             FLOPs, collective calls and bytes and kernel launches equal to
+             the meta count of the same program on a one-rank fake world
+             (a fifth process), its matmul FLOPs within 1% of
+             torch.profiler's (with_flops) over the same ops, its peak of
+             live bytes within 10% of the rise of
+             torch.cuda.max_memory_allocated; (c) the counted FLOPs over
+             the prefill's time (CUDA events, taken before the phase's
+             profiler) as TFLOP/s beside the card.  `--only cost` runs the
+             build and this phase alone and prints no result.
 
 The sharded phase's launches count with the main path's (its churn run's
 with the churn path's), and so do the moe_ep and tp phases' mesh arms'
@@ -242,12 +262,6 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
-
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 FMA-unit FLOP/s
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOPS = 67e12
-TF32_FLOPS = 495e12  # dense TF32 tensor-core rate (l2_topk's products)
-BF16_FLOPS = 989e12  # dense bf16 tensor-core rate
 
 # the slice's configuration: benchmarks/churn_bench.py's 1M x 128 cell
 N_FULL, D_FULL, T_FULL = 1_000_000, 128, 2048
@@ -427,11 +441,6 @@ def time_ms(torch, fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
-
-
-def bound_ms(nbytes: float, flops: float, peak: float = FP32_FLOPS):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def compare(torch, what, got, want, ids=None):
@@ -3466,12 +3475,178 @@ def tp_phase(torch, ops, dev, card: str) -> None:
     log(f"tp: (f) {time.perf_counter() - t2} s; phase {time.perf_counter() - t0} s")
 
 
+# the cost phase: the dry-run's production cells run by its command line
+# (arch, shape, mesh, variant), and the prefill counted on the card
+COST_CELLS = [("qwen2-72b", "prefill_32k", "single", "baseline"),
+              ("deepseek-v3-671b", "train_4k", "single", "opt"),
+              ("mixtral-8x22b", "decode_32k", "multi", "baseline"),
+              ("acai-retrieval", None, "single", "baseline")]
+COST_ARCH, COST_SEQ = "qwen1.5-0.5b", 8192
+COST_PEAK_RTOL, COST_PROFILER_RTOL = 0.10, 0.01
+COST_CHILD_TIMEOUT_S = 600
+# the matmul family as torch.profiler names it (the ops the cost mode
+# counts as dots)
+PROFILER_DOTS = ("aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm", "aten::addbmm",
+                 "aten::mv", "aten::addmv", "aten::dot")
+# the meta count of the card's prefill: rank 0 of a one-rank fake world
+_COST_META_CHILD = """
+import json, sys
+from repro_torch.configs import ShapeSpec, get_config
+from repro_torch.launch import dryrun
+arch, seq = sys.argv[1], int(sys.argv[2])
+with dryrun.world_less_mesh(False, smoke=True) as mesh:
+    run, args, info = dryrun.build_lowering(
+        get_config(arch), ShapeSpec("prefill", seq, 1, "prefill"), mesh, False)
+    rec = dryrun.analyse(run, args, info, 1)
+print(json.dumps(rec))
+"""
+
+
+def _cost_children(out_dir):
+    """Start the phase's CPU processes (no card: CUDA_VISIBLE_DEVICES
+    empty): the dry-run's command line on each COST_CELLS cell, and the
+    meta count of the card's prefill.  Returns {name: process}."""
+    import os
+
+    env = {**os.environ, "PYTHONPATH": str(SRC), "CUDA_VISIBLE_DEVICES": ""}
+    procs = {}
+    for arch, shape, mesh_kind, variant in COST_CELLS:
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+               "--mesh", mesh_kind, "--variant", variant, "--out", str(out_dir), "--force"]
+        if shape:
+            cmd += ["--shape", shape]
+        procs[(arch, shape, mesh_kind)] = subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+    procs["meta"] = subprocess.Popen(
+        [sys.executable, "-c", _COST_META_CHILD, COST_ARCH, str(COST_SEQ)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+    return procs
+
+
+def _finish(proc, what: str) -> str:
+    out, err = proc.communicate(timeout=COST_CHILD_TIMEOUT_S)
+    if proc.returncode != 0:
+        raise AssertionError(f"cost: {what} exited {proc.returncode}:\n{err[-3000:]}")
+    return out
+
+
+def cost_phase(torch, ops, dev, card: str) -> None:
+    """(a) the dry-run's production cells by its command line, (b) the
+    card's count of a full-width prefill against its meta count and
+    torch.profiler, (c) its FLOPs over its time (the module's docstring,
+    phase 15)."""
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.core import distributed as D
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.cost import COLLECTIVES, CostMode
+    from repro_torch.launch.mesh import fake_backend_source
+
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    log(f"cost: the fake backend of the world-less meshes: {fake_backend_source()}")
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    procs = _cost_children(out_dir)
+    try:
+        cfg = get_config(COST_ARCH)
+        mesh, store = nccl_world(torch)
+        try:
+            run, args, info = dryrun.build_lowering(
+                cfg, ShapeSpec("prefill", COST_SEQ, 1, "prefill"), mesh, False)
+            torch.cuda.synchronize()
+            # (c) the prefill's time first: no profiler has run in this phase
+            ms = time_ms(torch, run, 3, warmup=1)
+            ops.reset_launches()
+            D.reset_collectives()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            with CostMode(args) as mode:
+                run()
+            torch.cuda.synchronize()
+            rise = torch.cuda.max_memory_allocated() - base
+            launches = {k: n for k, n in ops.LAUNCHES.items() if n}
+            MAIN_SHAPES.update(ops.SHAPE_LAUNCHES)
+            card_sum = mode.summary
+            prof_kw = dict(activities=[torch.profiler.ProfilerActivity.CPU,
+                                       torch.profiler.ProfilerActivity.CUDA],
+                           with_flops=True)
+            with torch.profiler.profile(**prof_kw) as prof:
+                run()
+                torch.cuda.synchronize()
+            by_op = {e.key: e.flops for e in prof.key_averages() if e.key in PROFILER_DOTS}
+            del run, args
+        finally:
+            leave_world(store)
+        torch.cuda.empty_cache()
+        meta = json.loads(_finish(procs.pop("meta"), "the meta count").strip().splitlines()[-1])
+        mh = meta["hlo"]
+        rec = card_sum.record()
+        log(f"cost (b) {COST_ARCH} prefill of {COST_SEQ} tokens on the (1, 1) NCCL mesh "
+            f"[{card}]: flops={card_sum.flops} (aten dots {card_sum.aten_flops}, kernels "
+            f"{rec['counted_ops']['kernels']}), hbm_bytes={card_sum.bytes}, collective "
+            f"bytes {card_sum.coll_bytes}, calls {card_sum.coll_counts}, launches {launches}; "
+            f"meta: flops={mh['flops_per_device']}, hbm_bytes={mh['hbm_bytes_per_device']}, "
+            f"bytes {mh['collective_bytes_per_shard']}, calls {mh['collective_counts']}, "
+            f"kernels {meta['counted_ops']['kernels']}")
+        if card_sum.flops != mh["flops_per_device"]:
+            raise AssertionError(f"cost (b): card flops {card_sum.flops} != meta "
+                                 f"{mh['flops_per_device']}")
+        if (card_sum.coll_counts != mh["collective_counts"]
+                or card_sum.coll_bytes != mh["collective_bytes_per_shard"]):
+            raise AssertionError("cost (b): the card's collectives differ from the meta count")
+        meta_launches = {k: v["launches"] for k, v in meta["counted_ops"]["kernels"].items()}
+        if launches != meta_launches or launches.get("flash_attention_wgmma") != cfg.n_layers:
+            raise AssertionError(f"cost (b): launches {launches}, meta {meta_launches}, "
+                                 f"expected one wgmma flash launch a layer")
+        prof_flops = float(sum(by_op.values()))
+        rel = abs(card_sum.aten_flops - prof_flops) / prof_flops
+        log(f"cost (b) torch.profiler (with_flops) over the matmul family: {prof_flops} "
+            f"({by_op}); the cost mode's {card_sum.aten_flops}: relative difference {rel}")
+        if not rel <= COST_PROFILER_RTOL:
+            raise AssertionError(f"cost (b): matmul flops {card_sum.aten_flops} against the "
+                                 f"profiler's {prof_flops}: {rel} > {COST_PROFILER_RTOL}")
+        peak = card_sum.temp_peak_bytes
+        rel = abs(peak - rise) / rise
+        log(f"cost (b) peak of live bytes {peak} (meta {meta['live_memory']['temp_peak_bytes']})"
+            f" against the rise of max_memory_allocated {rise}: relative difference {rel}")
+        if not rel <= COST_PEAK_RTOL:
+            raise AssertionError(f"cost (b): peak {peak} against the allocator's {rise}: "
+                                 f"{rel} > {COST_PEAK_RTOL}")
+        log(f"cost (c) {COST_ARCH} prefill of {COST_SEQ} tokens [{card}]: {ms} ms (CUDA "
+            f"events, 3 calls after 1), {card_sum.flops / ms / 1e9} TFLOP/s counted")
+
+        for (arch, shape, mesh_kind), proc in procs.items():
+            out = _finish(proc, f"the dry-run of {arch} {shape or ''} {mesh_kind}")
+            shape = shape or dryrun.ACAI_SHAPE
+            with open(dryrun.cell_path(out_dir, arch, shape, mesh_kind)) as f:
+                r = json.load(f)
+            if r["status"] != "ok":
+                raise AssertionError(f"cost (a): {arch} {shape} {mesh_kind}: {r['status']} "
+                                     f"{r.get('error')}\n{out}")
+            h = r["hlo"]
+            log(f"cost (a) {arch} {shape} {mesh_kind} {r['variant']}: flops_per_device="
+                f"{h['flops_per_device']} hbm_bytes_per_device={h['hbm_bytes_per_device']} "
+                f"collective_bytes_per_shard="
+                f"{ {c: h['collective_bytes_per_shard'][c] for c in COLLECTIVES} } "
+                f"calls {h['collective_counts']} peak_bytes={r['live_memory']['peak_bytes']} "
+                f"run_seconds={r['run_seconds']} total_seconds={r['total_seconds']}")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(out_dir, ignore_errors=True)
+    log(f"cost: phase {time.perf_counter() - t0} s")
+
+
 def flash_phase(torch, ops, ref, dev):
     """flash_attention against its plain version, f32 (the FMA kernel) and
     bf16 (the wgmma kernel), with FLASH_BF16's shapes timed in the log (the
     JSON rows come by shape, in shapes_phase)."""
-    from kernel_shapes import kept_pairs
     from repro_torch.kernels import _build
+    from repro_torch.kernels import cost as W
 
     g = torch.Generator(device=dev).manual_seed(2)
     err = 0.0
@@ -3527,9 +3702,11 @@ def flash_phase(torch, ops, ref, dev):
         q, k, v, kw, e = check_flash_bf16(name, b, s, t, h, kv, d, causal, window, q_off, wu)
         err = max(err, e)
 
-        pairs = kept_pairs(b, s, t, causal, window, q_off, wu)
-        nbytes = 2.0 * (2 * b * s * h * d + 2 * b * t * kv * d)
-        bms, by = bound_ms(nbytes, 4.0 * h * d * pairs, BF16_FLOPS)
+        pairs = W.kept_pairs(b, s, t, causal, window, q_off, wu)
+        work = W.flash_attention(b, s, t, h, kv, d, d, causal=causal, window=window,
+                                 q_offset=q_off, written_upto=wu)
+        nbytes = work.bytes
+        bms, by = W.bound_ms(work)
         t_k = time_ms(torch, lambda: ops.flash_attention(q, k, v, **kw), 20)
         t_p = time_ms(torch, lambda: ref.flash_attention_ref(q, k, v, **kw), 3, 1)
         wuu = t if wu is None else wu
@@ -3582,6 +3759,7 @@ def topk_wide_phase(torch, ops, ref, dev) -> None:
     kernel's smem formula must equal the library's wherever the tests plan
     with it."""
     from repro_torch.kernels import _build
+    from repro_torch.kernels import cost as W
 
     lib = _build.load("l2_topk")
     for d, k in TOPK_PLAN_DK:
@@ -3604,11 +3782,11 @@ def topk_wide_phase(torch, ops, ref, dev) -> None:
         del gd, gi, wd, wi
         t_k = time_ms(torch, lambda: ops.topk_l2(q, x, k), 5, 1)
         t_l = time_ms(torch, lambda: torch.topk(torch.cdist(q, x), k, largest=False), 3, 1)
-        nbytes, flops = 4.0 * (n * d + nq * d) + 8.0 * nq * k, 2.0 * nq * n * d
-        bms, by = bound_ms(nbytes, flops, TF32_FLOPS)
+        work = W.l2_topk(nq, n, d, k)
+        bms, by = W.bound_ms(work)
         log(f"  time l2_topk [Q={nq} N={n} D={d} k={k}]: kernel_ms={t_k} "
             f"library_ms={t_l} bound_ms={bms} ({by}; at the float32 FMA rate "
-            f"{bound_ms(nbytes, flops)[0]})")
+            f"{W.bound_ms(work._replace(peak=W.FP32_FLOPS))[0]})")
         del x, q
         torch.cuda.empty_cache()
 
@@ -4251,8 +4429,9 @@ def train_profile(torch, ops, card: str) -> None:
 
 def main() -> int:
     only = sys.argv[2] if sys.argv[1:2] == ["--only"] and len(sys.argv) == 3 else None
-    if sys.argv[1:] and only not in ("serving", "sharded", "moe_ep", "tp"):
-        print("usage: chip_smoke.py [--only serving|sharded|moe_ep|tp]", file=sys.stderr)
+    if sys.argv[1:] and only not in ("serving", "sharded", "moe_ep", "tp", "cost"):
+        print("usage: chip_smoke.py [--only serving|sharded|moe_ep|tp|cost]",
+              file=sys.stderr)
         return 2
     if not (SRC / "repro_torch").is_dir():
         print(f"chip_smoke: {SRC / 'repro_torch'} not found — run from the "
@@ -4298,6 +4477,8 @@ def main() -> int:
             moe_ep_phase(torch, ops, dev, card)
         elif only == "tp":
             tp_phase(torch, ops, dev, card)
+        elif only == "cost":
+            cost_phase(torch, ops, dev, card)
         else:
             cat_np, reqs_np, _ = trace.sift_like(n=N_FULL, d=D_FULL, t=T_FULL, seed=0)
             sharded_phase(torch, ops, ref, torch.from_numpy(cat_np).to(dev),
@@ -4355,6 +4536,8 @@ def main() -> int:
     train_profile(torch, ops, card)
     sharded_nccl_profile(torch, dev)
     del ivf_index, pq_index, catalog, reqs, churn_cases, sharded_cases
+    torch.cuda.empty_cache()
+    cost_phase(torch, ops, dev, card)
     for name in sorted({k for k, _ in MAIN_SHAPES}):
         total = sum(n for (k, _), n in MAIN_SHAPES.items() if k == name)
         log(f"main path {name}: {total} launches; by shape: "

@@ -17,7 +17,9 @@ For each shape it prints one line with
     the peak of the units the kernel runs them on (float32 FMA 67 TFLOP/s;
     `l2_topk`'s TF32 tensor cores 495, flash's bf16 989), whichever is
     larger (the data-dependent counts, distinct rows, valid slots and the
-    lists a batch probes, come from this run's data);
+    lists a batch probes, come from this run's data).  The formulas are
+    the package's (`repro_torch/kernels/cost.py`, the cost record's),
+    loaded from this checkout whatever `--src` names;
   - plain_ms: the plain version (kernels/ref.py) by CUDA events;
   - library_ms: one PyTorch call that computes the same function.
 
@@ -81,15 +83,26 @@ of a list's groups over blocks (qsplit 1, 2, 4, 8); names after
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import subprocess
 import sys
 import time
 from pathlib import Path
 
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOPS = 67e12
-TF32_FLOPS = 495e12  # dense TF32 tensor cores (l2_topk's products)
-BF16_FLOPS = 989e12  # dense bf16 tensor cores (the flash kernel's)
+
+def _load_work():
+    """This checkout's `repro_torch/kernels/cost.py` (each kernel's FLOPs and
+    bytes), as a module of its own, so `--src` can import another tree's
+    `repro_torch` beside it."""
+    path = Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "kernels" / "cost.py"
+    spec = importlib.util.spec_from_file_location("_kernel_work", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+W = _load_work()
+bound_ms = W.bound_ms
 N_FULL, D_FULL, T_FULL = 1_000_000, 128, 2048
 IVF = {"nlist": 256, "nprobe": 16, "train_iters": 4}
 IVFPQ = {"nlist": 256, "nprobe": 16, "m": 8, "refine": 4}  # chip_smoke.py's IVFPQ_FULL
@@ -140,11 +153,6 @@ KERNEL_NAMES = {"pairwise_l2": ("pairwise_l2",), "ivf_scan": ("ivf_scan",),
                 "flash_attention_fma": ("flash_kernel",)}
 
 
-def bound_ms(nbytes: float, flops: float, peak: float = FP32_FLOPS):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
 def pq_adc_library(torch, lut, codes, cand=None):
     """The ADC scan in PyTorch ops (the per-query pq_adc's library
     yardstick): the (B, P, M) code slab gathered, offset into the
@@ -156,18 +164,6 @@ def pq_adc_library(torch, lut, codes, cand=None):
     idx = idx.reshape(1 if cand is None else b, -1).expand(b, -1)
     d = torch.gather(lut.reshape(b, m * c), 1, idx).reshape(b, -1, m).sum(-1)
     return d if cand is None else d.masked_fill(cand < 0, float("inf"))
-
-
-def kept_pairs(b, s, t, causal, window, q_offset, written_upto) -> int:
-    """(query, key) pairs the flash mask keeps, summed over the batch."""
-    import torch
-
-    qp = q_offset + torch.arange(s, dtype=torch.int64)
-    hi = torch.full_like(qp, t if written_upto is None else min(t, written_upto))
-    if causal:
-        hi = torch.minimum(hi, qp + 1)
-    lo = (qp - window + 1).clamp_min(0) if window else torch.zeros_like(qp)
-    return b * int((hi - lo).clamp_min(0).sum())
 
 
 def call_ms(torch, fn, iters: int, warmup: int = 2) -> float:
@@ -256,8 +252,7 @@ def topk_case(torch, ops, ref, label, q, x, k, iters=20, main=True) -> dict:
     return case("l2_topk", label, f"Q={nq} N={nx} D={dd} k={k}", ("l2_topk", (nq, nx, dd, k)),
                 lambda: ops.topk_l2(q, x, k), lambda: ref.l2_topk_ref(q, x, k),
                 lambda: torch.topk(torch.cdist(q, x), k, largest=False),
-                bound_ms(4.0 * (nx * dd + nq * dd) + 8.0 * nq * k, 2.0 * nq * nx * dd,
-                         TF32_FLOPS), iters=iters, main=main)
+                bound_ms(W.l2_topk(nq, nx, dd, k)), iters=iters, main=main)
 
 
 def l2_case(torch, ops, ref, label, q, x, main=True, iters=50) -> dict:
@@ -266,7 +261,7 @@ def l2_case(torch, ops, ref, label, q, x, main=True, iters=50) -> dict:
     return case("pairwise_l2", label, f"Q={nq} N={nx} D={dd}", ("pairwise_l2", (nq, nx, dd)),
                 lambda: ops.pairwise_l2(q, x), lambda: ref.pairwise_l2_ref(q, x),
                 lambda: torch.cdist(q, x),
-                bound_ms(4.0 * (nq * dd + nx * dd + nq * nx), 2.0 * nq * nx * dd), main, iters)
+                bound_ms(W.pairwise_l2(nq, nx, dd)), main, iters)
 
 
 def table_case(torch, ops, ref, label, q, x, cand, k, main=True, iters=20) -> dict:
@@ -286,8 +281,8 @@ def table_case(torch, ops, ref, label, q, x, cand, k, main=True, iters=20) -> di
                 f"B={b} P={p} valid={nvalid} distinct={ndistinct} D={d} k={k}",
                 ("ivf_scan", (b, p, d, k)), lambda: ops.ivf_scan_topk(q, x, cand, k),
                 lambda: ref.ivf_scan_ref(q, x, cand, k), library,
-                bound_ms(4.0 * (ndistinct * d + b * p + b * d) + 8.0 * b * k,
-                         3.0 * nvalid * d), main=main, iters=iters)
+                bound_ms(W.ivf_scan(b, p, d, k, nvalid=nvalid, ndistinct=ndistinct)),
+                main=main, iters=iters)
 
 
 def sharded_cases(torch, ops, ref, reqs, shards, dev) -> list:
@@ -376,8 +371,8 @@ def cases(torch, ops, ref, catalog, reqs, ivf_index, pq_index, dev, wide=True):
             # each probed list's code rows and ids once (at their true
             # lengths), the probe table, the list lengths, the LUTs, the
             # partials written; one add a probed live slot and subspace
-            nbytes = (slots * (m + 4.0) + 4.0 * (probe.numel() + pq_index.nlist + b * m * c)
-                      + 8.0 * b * width)
+            work = W.pq_adc_lists(b, nprobe, cap, m, kk, c=c, nlist=pq_index.nlist,
+                                  width=width, slots=slots, nvalid=nvalid)
             add("pq_adc_lists", f"IVF-PQ shortlist B {b}",
                 f"B={b} nprobe={nprobe} lists={lists.numel()} slots={slots} M={m} C={c} "
                 f"kk={kk} partials={width}", ("pq_adc_lists", (b, nprobe, cap, m, kk)),
@@ -385,7 +380,7 @@ def cases(torch, ops, ref, catalog, reqs, ivf_index, pq_index, dev, wide=True):
                     lut, pq_index.codes_lists, pq_index.invlists, probe, kk, lens=pq_index.lens),
                 lambda lut=lut, probe=probe: ref.pq_shortlist_ref(
                     lut, pq_index.codes_lists, pq_index.invlists, probe, kk),
-                library, bound_ms(nbytes, float(nvalid * m)), check="exact",
+                library, bound_ms(work), check="exact",
                 all_kernels=True)
         # the per-query kernel over the (B, P) table: each distinct named
         # code row once, the table, the LUTs, the output
@@ -395,12 +390,12 @@ def cases(torch, ops, ref, catalog, reqs, ivf_index, pq_index, dev, wide=True):
                 lut, codes, cand),
             lambda lut=lut, cand=cand: ref.pq_adc_gather_ref(lut, codes, cand),
             lambda lut=lut, cand=cand: pq_adc_library(torch, lut, codes, cand),
-            bound_ms(8.0 * b * p + ndistinct * m + 4.0 * b * m * c, float(nvalid * m)),
+            bound_ms(W.pq_adc(b, p, m, c, nvalid=nvalid, ndistinct=ndistinct)),
             main=False, row=True, check="exact")
         add("pq_adc", f"IVF-PQ shortlist B {b}, per-query pq_adc + sort (parent's)",
             f"B={b} P={p} M={m} C={c} kk={kk}", None, old,
             lambda: old(gather=ref.pq_adc_gather_ref), library,
-            bound_ms(8.0 * b * p + ndistinct * m + 4.0 * b * m * c, float(nvalid * m)),
+            bound_ms(W.pq_adc(b, p, m, c, nvalid=nvalid, ndistinct=ndistinct)),
             main=False, check="exact", all_kernels=True)
 
     def flash_case(s_len):
@@ -415,7 +410,6 @@ def cases(torch, ops, ref, catalog, reqs, ivf_index, pq_index, dev, wide=True):
         kpos = torch.arange(t, device=dev)[None, :]
         mask = (kpos < s_len) & (kpos <= torch.arange(s_len, device=dev)[:, None])
         qt, kt, vt = (a.transpose(1, 2) for a in (qf, kf, vf))
-        pairs = kept_pairs(1, s_len, t, True, 0, 0, s_len)
         label = ("semantic-tier prefill" if s_len == 512
                  else "engine prefill (prompts of 2048-8000, timed at 4096)")
         add("flash_attention", label,
@@ -425,8 +419,8 @@ def cases(torch, ops, ref, catalog, reqs, ivf_index, pq_index, dev, wide=True):
             lambda: ref.flash_attention_ref(qf.float(), kf.float(), vf.float(), **kw),
             lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt,
                                                                      attn_mask=mask),
-            bound_ms(2.0 * (2 * s_len * h * dd + 2 * t * h * dd), 4.0 * h * dd * pairs,
-                     BF16_FLOPS), check="bf16", iters=20)
+            bound_ms(W.flash_attention(1, s_len, t, h, h, dd, dd, causal=True,
+                                       written_upto=s_len)), check="bf16", iters=20)
 
     for b in (64, 8):
         q = reqs[:b].contiguous()
@@ -448,7 +442,7 @@ def cases(torch, ops, ref, catalog, reqs, ivf_index, pq_index, dev, wide=True):
             lambda subs=subs: torch.stack([ref.pairwise_l2_ref(s, codebooks[i])
                                            for i, s in enumerate(subs)], dim=1),
             lambda qv=qv: torch.cdist(qv, codebooks),
-            bound_ms(4.0 * m * (b * dsub + ksub * dsub + b * ksub), 2.0 * m * b * ksub * dsub))
+            bound_ms(W.pairwise_l2(b, ksub, dsub, m)))
         l2(f"topk_l2 sample bound B {b}", q, catalog[:SAMPLE])
 
         # ivf_scan: the IVF probe over the index's lists, and the IVF-PQ
@@ -465,14 +459,15 @@ def cases(torch, ops, ref, catalog, reqs, ivf_index, pq_index, dev, wide=True):
                                       K_REMOTE))
             # list-major: each distinct row and its id once, the probe
             # table, the list lengths, the queries, the output
-            nbytes = 4.0 * (ndistinct * (d + 1) + probe.numel() + ivf_index.lens.numel()
-                            + b * d) + 8.0 * b * K_REMOTE
+            work = W.ivf_scan_lists(b, probe.shape[1], ivf_index.invlists.shape[1], d,
+                                    K_REMOTE, nlist=ivf_index.lens.numel(), nvalid=nvalid,
+                                    ndistinct=ndistinct)
         else:
             fn = lambda q=q, cand=cand: ops.ivf_scan_topk(q, catalog, cand, K_REMOTE)  # noqa: E731
             key = ("ivf_scan", (b, p, d, K_REMOTE))
             # per query: each distinct row once, the (B, P) table, the
             # queries, the output
-            nbytes = 4.0 * (ndistinct * d + b * p + b * d) + 8.0 * b * K_REMOTE
+            work = W.ivf_scan(b, p, d, K_REMOTE, nvalid=nvalid, ndistinct=ndistinct)
 
         def lib_scan(q, cand):
             rows_ = catalog[cand.clamp_min(0).long()]
@@ -483,7 +478,7 @@ def cases(torch, ops, ref, catalog, reqs, ivf_index, pq_index, dev, wide=True):
             f"B={b} P={p} valid={nvalid} distinct={ndistinct} D={d} k={K_REMOTE}", key, fn,
             lambda q=q, cand=cand: ref.ivf_scan_ref(q, catalog, cand, K_REMOTE),
             lambda q=q, cand=cand: lib_scan(q, cand),
-            bound_ms(nbytes, 3.0 * nvalid * d), iters=20)
+            bound_ms(work), iters=20)
         if hasattr(pq_index, "shortlist"):
             short = pq_index.shortlist(q, K_REMOTE)[1].to(torch.int32).contiguous()
         else:
@@ -528,8 +523,9 @@ def cases(torch, ops, ref, catalog, reqs, ivf_index, pq_index, dev, wide=True):
                 lambda k=k: torch.topk(torch.cdist(q[:, None, :], catalog[
                     cand.clamp_min(0).long()])[:, 0].masked_fill(cand < 0, float("inf")),
                     k, largest=False),
-                bound_ms(4.0 * (ndistinct * (d + 1) + probe.numel() + ivf_index.lens.numel()
-                                + 64 * d) + 8.0 * 64 * k, 3.0 * nvalid * d),
+                bound_ms(W.ivf_scan_lists(64, probe.shape[1], ivf_index.invlists.shape[1], d,
+                                          k, nlist=ivf_index.lens.numel(), nvalid=nvalid,
+                                          ndistinct=ndistinct)),
                 iters=10, main=False)
     topk("server oracle online B 8", reqs[:8].contiguous(), catalog, ONLINE_K)
     topk(f"c_f calibration Q {CF_SAMPLE}", cal, catalog, CF_K)
@@ -581,7 +577,6 @@ def lm_flash_cases(torch, ops, ref, dev) -> list:
             mask &= kp > qp - window
         qt = qf.transpose(1, 2)
         kt, vt = (a.repeat_interleave(h // kv, dim=2).transpose(1, 2) for a in (kf, vf))
-        pairs = kept_pairs(b, s_len, t, causal, window, 0, wu)
         counter = ops.flash_kernel_for(torch.bfloat16, dk, dv)
         mask_kind = ("causal" if causal else "full") + (f" window={window}" if window else "")
         out.append({
@@ -598,8 +593,8 @@ def lm_flash_cases(torch, ops, ref, dev) -> list:
                 torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask),
             # q, k, v read once, the output written; 2 (Dk + Dv) operations a
             # kept pair and head on the bf16 tensor cores
-            "bound": bound_ms(2.0 * (b * s_len * h * (dk + dv) + b * t * kv * (dk + dv)),
-                              2.0 * (dk + dv) * h * pairs, BF16_FLOPS),
+            "bound": bound_ms(W.flash_attention(b, s_len, t, h, kv, dk, dv, causal=causal,
+                                                window=window, written_upto=wu)),
             "main": True, "row": True, "check": "bf16", "all_kernels": False,
             "iters": 5})
         if dk == 80 and counter == "flash_attention_wgmma":
@@ -673,20 +668,18 @@ def churn_cases(torch, ops, ref, reqs, flat, ivf, pq, dev, b: int = 8):
         f"Q={b} N={cap // 2} D={d} k={K_REMOTE}", ("l2_topk", (b, cap // 2, d, K_REMOTE)),
         lambda: ops.topk_l2(q, warm, K_REMOTE), lambda: ref.l2_topk_ref(q, warm, K_REMOTE),
         lambda: torch.topk(torch.cdist(q, warm), K_REMOTE, largest=False),
-        bound_ms(4.0 * (cap // 2 * d + b * d) + 8.0 * b * K_REMOTE,
-                 2.0 * b * cap // 2 * d, TF32_FLOPS))
+        bound_ms(W.l2_topk(b, cap // 2, d, K_REMOTE)))
     add("l2_topk", f"churn: flat index masked B {b}",
         f"Q={b} N={cap} live={n_live} D={d} k={K_REMOTE}", ("l2_topk", (b, cap, d, K_REMOTE)),
         lambda: ops.topk_l2(q, slab, K_REMOTE, valid=valid),
         lambda: ref.l2_topk_ref(q, slab, K_REMOTE, valid),
         lambda: torch.topk(torch.cdist(q, slab).masked_fill(~valid, float("inf")), K_REMOTE,
                            largest=False),
-        bound_ms(4.0 * (n_live * d + b * d) + cap + 8.0 * b * K_REMOTE,
-                 2.0 * b * n_live * d, TF32_FLOPS))
+        bound_ms(W.l2_topk(b, cap, d, K_REMOTE, live=n_live, masked=True)))
     add("pairwise_l2", f"churn: AÇAI exact candidates B {b}", f"Q={b} N={cap} D={d}",
         ("pairwise_l2", (b, cap, d)), lambda: ops.pairwise_l2(q, slab),
         lambda: ref.pairwise_l2_ref(q, slab), lambda: torch.cdist(q, slab),
-        bound_ms(4.0 * (b * d + cap * d + b * cap), 2.0 * b * cap * d))
+        bound_ms(W.pairwise_l2(b, cap, d)))
     # the exact scan before the first insert (the warm half, its own
     # capacity) and after a compaction (the live rows at the smallest
     # doubling that holds them and one write batch more: 524288)
@@ -696,7 +689,7 @@ def churn_cases(torch, ops, ref, reqs, flat, ivf, pq, dev, b: int = 8):
         add("pairwise_l2", f"churn: AÇAI exact candidates B {b} {label}", f"Q={b} N={nx} D={d}",
             ("pairwise_l2", (b, nx, d)), lambda x=x: ops.pairwise_l2(q, x),
             lambda x=x: ref.pairwise_l2_ref(q, x), lambda x=x: torch.cdist(q, x),
-            bound_ms(4.0 * (b * d + nx * d + b * nx), 2.0 * b * nx * d))
+            bound_ms(W.pairwise_l2(b, nx, d)))
     nl = ivf.centroids.shape[0]
     # k-means' assignment step at a refresh: the live rows against the lists'
     # centroids (the slab's first n_live rows stand in for the live ones)
@@ -706,12 +699,12 @@ def churn_cases(torch, ops, ref, reqs, flat, ivf, pq, dev, b: int = 8):
         lambda: ops.pairwise_l2(live_rows, ivf.centroids),
         lambda: ref.pairwise_l2_ref(live_rows, ivf.centroids),
         lambda: torch.cdist(live_rows, ivf.centroids),
-        bound_ms(4.0 * (n_live * d + nl * d + n_live * nl), 2.0 * n_live * nl * d), iters=5)
+        bound_ms(W.pairwise_l2(n_live, nl, d)), iters=5)
     row = reqs[:1].contiguous()
     add("pairwise_l2", "churn: add-time list assignment", f"Q=1 N={nl} D={d}",
         ("pairwise_l2", (1, nl, d)), lambda: ops.pairwise_l2(row, ivf.centroids),
         lambda: ref.pairwise_l2_ref(row, ivf.centroids), lambda: torch.cdist(row, ivf.centroids),
-        bound_ms(4.0 * (d + nl * d + nl), 2.0 * nl * d), iters=50)
+        bound_ms(W.pairwise_l2(1, nl, d)), iters=50)
 
     probe = ivf.probe_lists(q)
     table = ops.probed_table(ivf.invlists, probe)
@@ -730,8 +723,9 @@ def churn_cases(torch, ops, ref, reqs, flat, ivf, pq, dev, b: int = 8):
         lambda table=table, live=live: torch.topk(
             torch.cdist(q[:, None, :], ivf.embeddings[table.clamp_min(0).long()])[:, 0]
             .masked_fill(~live, float("inf")), K_REMOTE, largest=False),
-        bound_ms(4.0 * (ndistinct * (d + 1) + probe.numel() + nl + b * d)
-                 + int(ivf.lens[lists].sum()) + 8.0 * b * K_REMOTE, 3.0 * nvalid * d))
+        bound_ms(W.ivf_scan_lists(b, probe.shape[1], cols, d, K_REMOTE, nlist=nl,
+                                  nvalid=nvalid, ndistinct=ndistinct,
+                                  mask_bytes=int(ivf.lens[lists].sum()))))
 
     kk = REFINE * K_REMOTE
     probe = pq.probe_lists(q)
@@ -755,8 +749,9 @@ def churn_cases(torch, ops, ref, reqs, flat, ivf, pq, dev, b: int = 8):
             ~live, float("inf")), kk, largest=False),
         # each probed slot's code row, id and liveness once, the probe
         # table, the lengths, the LUTs, the partials written
-        bound_ms(slots * (m + 5.0) + 4.0 * (probe.numel() + pq.nlist + b * m * c)
-                 + 8.0 * b * width, float(int(live.sum()) * m)),
+        bound_ms(W.pq_adc_lists(b, probe.shape[1], cols, m, kk, c=c, nlist=pq.nlist,
+                                width=width, slots=slots, nvalid=int(live.sum()),
+                                masked=True)),
         check="exact", all_kernels=True)
     return out
 

@@ -20,7 +20,8 @@ its `data` slice of it.  One serve + update step per batch:
      tie rule);
   3. gain and subgradient on the merged candidates (Eq. 55);
   4. the subgradients routed to their owners: one packed [g, id] gather
-     over `data` (skipped when that axis has one rank), carrying the
+     over each batch axis of more than one rank (`all_gather_axes`, in
+     the axes' row-major order; none on a one-rank batch), carrying the
      batch's per-request metrics with it, and the fixed-order scatter
      `policy.scatter_rows_sum`;
   5. the OMA step and the distributed capped-simplex projection: each
@@ -35,15 +36,19 @@ Every collective goes through `all_gather` / `all_reduce` here, which
 count their calls in `COLLECTIVES` (by primitive) and `COLLECTIVE_SITES`
 (by primitive and purpose); `collectives_per_step` reads one call's.  The
 exact step spends {"all_gather": 2, "all_reduce": 1} on a (1, P) mesh,
-one gather more with a data axis, and the IVF / `scan_chunk` step one
-merge gather more (its remote merge is sent before the cached-row scan).
+one gather more a batch axis of more than one rank (two over ("pod",
+"data")), and the IVF / `scan_chunk` step one merge gather more (its
+remote merge is sent before the cached-row scan).
 
 On a (1, 1) mesh the exact, replay and mutable steps are bit for bit the
 single-device `policy.make_step_batched` + exact candidates and
 `policy.make_mutable_step`, given `top_a == cfg.oma.projection_topk`.
 
-Tensors and groups must agree: CUDA tensors need an NCCL group and CPU
-tensors a gloo one; a mismatch raises, nothing is staged through the host.
+Tensors and groups must agree: CUDA tensors need an NCCL group, CPU
+tensors a gloo one and meta tensors the fake backend of a world-less mesh
+(`launch.mesh.fake_world`, which moves no data); a mismatch raises,
+nothing is staged through the host.  Each counted call hands its
+operand's bytes to the open cost records (`kernels.cost.add_collective`).
 
 Over an axis of one rank a collective moves nothing: `all_gather`,
 `all_reduce` and `reduce_scatter` then return the input (a view or the
@@ -68,6 +73,7 @@ from repro_torch.core import policy as policy_lib
 from repro_torch.core import rounding as rounding_lib
 from repro_torch.core.costs import BIG_COST, pairwise_dissimilarity
 from repro_torch.core.projection import _negentropy_scale_from_sorted
+from repro_torch.kernels import cost as kernel_cost
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import probed_table, smallest_k
 
@@ -102,22 +108,19 @@ def _axis_rank(mesh, axes) -> int:
     return r
 
 
-def _exchange_axis(mesh, axes) -> str:
-    """The one axis of `axes` with more than one rank (the batch exchange
-    runs over one axis)."""
-    real = [ax for ax in _axes(axes) if _axis_size(mesh, ax) > 1]
-    if len(real) != 1:
-        raise NotImplementedError(
-            f"the batch exchange runs over one mesh axis; {_axes(axes)} has "
-            f"{len(real)} axes of more than one rank")
-    return real[0]
+def _real_axes(mesh, axes) -> list:
+    """The axes of `axes` with more than one rank, in their order."""
+    return [ax for ax in _axes(axes) if _axis_size(mesh, ax) > 1]
 
 
 def mesh_device(mesh) -> torch.device:
     """The device this rank's tensors live on: the CPU for a "cpu" mesh, the
-    current CUDA device for a "cuda" one."""
+    current CUDA device for a "cuda" one, the meta device on a world-less
+    mesh (`launch.mesh.fake_world`: no peers, no data)."""
     from repro_torch import resolve_device
 
+    if dist.get_backend() == FAKE_BACKEND:
+        return torch.device("meta")
     return resolve_device(mesh.device_type)
 
 
@@ -145,21 +148,34 @@ def reset_collectives() -> None:
     COLLECTIVE_SITES.clear()
 
 
+# the backend of a world-less mesh (`launch.mesh.fake_world`): groups with
+# no peers, for meta tensors only
+FAKE_BACKEND = "fake"
+# the backend each device's tensors need
+_BACKEND_FOR = {"cuda": "nccl", "cpu": "gloo", "meta": FAKE_BACKEND}
+
+
 def _group(mesh, axis: str, t: torch.Tensor, what: str):
+    """The mesh's group of `axis`, whose backend must be the one `t`'s
+    device takes: NCCL for CUDA, gloo for the CPU, and the fake backend
+    (no peers, no data) for meta tensors, and for them only."""
     group = mesh.get_group(axis)
     backend = dist.get_backend(group)
-    want = "nccl" if t.device.type == "cuda" else "gloo"
-    if want not in backend:
+    want = _BACKEND_FOR.get(t.device.type)
+    if want is None or want not in backend:
         raise ValueError(
             f"{what}: a {t.device.type} tensor needs a {want} group; the mesh's "
-            f"{axis!r} group is {backend!r} (build the mesh on "
-            f"{'cuda' if want == 'nccl' else 'cpu'})")
+            f"{axis!r} group is {backend!r} (nccl: a cuda mesh; gloo: a cpu mesh; "
+            f"{FAKE_BACKEND}: a world-less mesh, meta tensors only)")
     return group
 
 
-def _book(primitive: str, site: str) -> None:
+def _book(primitive: str, site: str, t: torch.Tensor) -> None:
+    """Count a call of `primitive` at `site` on the operand `t`, and hand its
+    bytes (a shard's, per call) to the open cost records."""
     COLLECTIVES[primitive] += 1
     COLLECTIVE_SITES[(primitive, site)] += 1
+    kernel_cost.add_collective(primitive, t.numel() * t.element_size())
 
 
 def all_gather(t: torch.Tensor, mesh, axis: str, site: str) -> torch.Tensor:
@@ -168,12 +184,13 @@ def all_gather(t: torch.Tensor, mesh, axis: str, site: str) -> torch.Tensor:
     group = _group(mesh, axis, t, f"all_gather ({site})")
     size = _axis_size(mesh, axis)
     if size == 1:
-        _book("all_gather", site)
+        _book("all_gather", site, t)
         return t.detach().unsqueeze(0)
     flat = t.contiguous().reshape(-1)
     out = torch.empty(size * flat.numel(), dtype=t.dtype, device=t.device)
-    _ALL_GATHER(out, flat, group=group)
-    _book("all_gather", site)
+    if not t.is_meta:  # a meta tensor has no data to send
+        _ALL_GATHER(out, flat, group=group)
+    _book("all_gather", site, t)
     return out.view((size,) + tuple(t.shape))
 
 
@@ -184,12 +201,37 @@ def all_reduce(t: torch.Tensor, mesh, axis: str, site: str, op: str = "sum") -> 
     are `reduce_partials`, `replicated_input` and `gather_shards`."""
     group = _group(mesh, axis, t, f"all_reduce ({site})")
     if _axis_size(mesh, axis) == 1:
-        _book("all_reduce", site)
+        _book("all_reduce", site, t)
         return t.detach()
     out = t.detach().contiguous().clone()
-    dist.all_reduce(out, op=dist.ReduceOp.MAX if op == "max" else dist.ReduceOp.SUM,
-                    group=group)
-    _book("all_reduce", site)
+    if not t.is_meta:
+        dist.all_reduce(out, op=dist.ReduceOp.MAX if op == "max" else dist.ReduceOp.SUM,
+                        group=group)
+    _book("all_reduce", site, t)
+    return out
+
+
+def all_gather_axes(t: torch.Tensor, mesh, axes, site: str) -> torch.Tensor:
+    """(P, *t.shape): `t` of every rank of the axes `axes`, in their
+    row-major rank order (`_axis_rank`'s), P the product of their sizes,
+    as the reference's all-gather over a tuple of axes.  One counted
+    `all_gather` an axis of more than one rank, the innermost first, so a
+    batch over (pod, data) costs two calls where one axis costs one; no
+    call where every axis has one rank."""
+    g = t.detach().unsqueeze(0)
+    for ax in reversed(_real_axes(mesh, axes)):
+        g = all_gather(g, mesh, ax, site)
+        g = g.reshape((-1,) + tuple(t.shape))
+    return g
+
+
+def all_reduce_axes(t: torch.Tensor, mesh, axes, site: str) -> torch.Tensor:
+    """The sum of `t` over the ranks of the axes `axes`: one counted
+    `all_reduce` an axis of more than one rank (`t` itself, detached,
+    where there is none)."""
+    out = t.detach()
+    for ax in _real_axes(mesh, axes):
+        out = all_reduce(out, mesh, ax, site)
     return out
 
 
@@ -202,9 +244,11 @@ def reduce_scatter(t: torch.Tensor, mesh, axis: str, dim: int, site: str) -> tor
     n, r = _axis_size(mesh, axis), _axis_rank(mesh, axis)
     dim = dim % t.dim()
     if n == 1:
-        _book("reduce_scatter", site)
+        _book("reduce_scatter", site, t)
         return t.detach()
-    if "nccl" in dist.get_backend(group):
+    if t.is_meta:
+        out = t.detach().narrow(dim, 0, t.shape[dim] // n).clone()
+    elif "nccl" in dist.get_backend(group):
         src = t.detach().movedim(dim, 0).contiguous()
         out = torch.empty((src.shape[0] // n,) + tuple(src.shape[1:]), dtype=t.dtype,
                           device=t.device)
@@ -214,7 +258,7 @@ def reduce_scatter(t: torch.Tensor, mesh, axis: str, dim: int, site: str) -> tor
         whole = t.detach().contiguous().clone()
         dist.all_reduce(whole, group=group)
         out = whole.narrow(dim, r * (t.shape[dim] // n), t.shape[dim] // n)
-    _book("reduce_scatter", site)
+    _book("reduce_scatter", site, t)
     return out.contiguous()
 
 
@@ -506,8 +550,7 @@ def _route_subgradients(g_cand, ids, valid, off: int, n_s: int, mesh, batch_axes
     if n_batch > 1:
         b, c = g_cand.shape
         parts = [g_cand, _ids_to_f32(ids_eff)] + ([] if extra is None else [extra])
-        packed = all_gather(torch.cat(parts, dim=1), mesh,
-                            _exchange_axis(mesh, batch_axes), "route")
+        packed = all_gather_axes(torch.cat(parts, dim=1), mesh, batch_axes, "route")
         packed = packed.reshape(-1, packed.shape[-1])
         g_all, ids_all = packed[:, :c], _f32_to_ids(packed[:, c:2 * c])
         extra = None if extra is None else packed[:, 2 * c:]
@@ -602,9 +645,8 @@ def make_retrieval_step(mesh, *, n_shard: int, d: int, c: int, k: int, c_f: floa
         gain = torch.mean(served.gain)
         local = torch.mean(torch.sum(served.from_cache, dim=1).to(torch.float32))
         if n_batch > 1:
-            axis = _exchange_axis(mesh, batch_axes)
-            gain = all_reduce(gain, mesh, axis, "metrics") / n_batch
-            local = all_reduce(local, mesh, axis, "metrics") / n_batch
+            gain = all_reduce_axes(gain, mesh, batch_axes, "metrics") / n_batch
+            local = all_reduce_axes(local, mesh, batch_axes, "metrics") / n_batch
         return y_new, _f32_to_ids(ans_all), {"gain": gain, "served_local": local}
 
     return step

@@ -60,7 +60,8 @@ def _negentropy_scale_from_sorted(zs_desc: torch.Tensor, tail_sum, h):
     # torch.argmax on an int cast returns the first maximum, like
     # jnp.argmax: the smallest feasible m
     idx = torch.argmax(valid.to(torch.int32))
-    return s_m[idx], valid.any()
+    # a gather, not s_m[idx]: indexing by a 0-d tensor reads it back
+    return s_m.index_select(0, idx.reshape(1))[0], valid.any()
 
 
 def capped_simplex_negentropy(z: torch.Tensor, h) -> torch.Tensor:

@@ -6,6 +6,12 @@ launch the hand-written kernel or raise — there is no fallback from the
 card to a plain version.  Each wrapper checks device, dtype, shape and
 contiguity before it hands pointers to the kernel, and counts its launches
 in `LAUNCHES`, so a run can show that its path went through the kernels.
+
+Meta tensors (the dry-run's, `repro_torch.launch.dryrun`) take the CUDA
+path's checks and its work around the launch, and in place of the launch
+get empty outputs of the kernel's shapes and dtypes: nothing is built or
+launched, and `LAUNCHES` does not move.  A launch and a meta call alike
+add the kernel's work (`kernels.cost`) to the open cost records.
 """
 
 from __future__ import annotations
@@ -14,7 +20,7 @@ from collections import Counter
 
 import torch
 
-from repro_torch.kernels import _build, ref
+from repro_torch.kernels import _build, cost, ref
 
 # kernel launches since the last reset_launches(), by kernel; flash_attention
 # has two: "flash_attention" (float32 FMA products: float32 inputs, and bf16
@@ -89,11 +95,6 @@ def reset_launches() -> None:
     SHAPE_LAUNCHES.clear()
 
 
-def _count(kernel: str, shape: tuple) -> None:
-    LAUNCHES[kernel] += 1
-    SHAPE_LAUNCHES[(kernel, shape)] += 1
-
-
 def l2_topk_key(nq: int, n: int, d: int, k: int) -> tuple:
     """The shape an `l2_topk` launch is counted under: (Q, N, D, k)."""
     return (nq, n, d, k)
@@ -118,16 +119,28 @@ def flash_key(q_shape, k_shape, causal: bool, window: int, written_upto: int,
     return (b, s, t, h, kvh, d, d if dv is None else dv, kind)
 
 
-def _on_cuda(*tensors) -> bool:
-    """True when every tensor lies on one CUDA device, False when all lie
-    on the CPU; raises on a mix or on any other device."""
+def _device(*tensors) -> str:
+    """"cuda" when every tensor lies on one CUDA device, "cpu" when all lie
+    on the CPU, "meta" when all are meta tensors; raises on a mix or on
+    any other device."""
     devs = {t.device for t in tensors}
     if len(devs) != 1:
         raise ValueError(f"kernel inputs lie on several devices: {devs}")
     dev = devs.pop()
-    if dev.type not in ("cpu", "cuda"):
+    if dev.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"kernel inputs on unsupported device {dev}")
-    return dev.type == "cuda"
+    return dev.type
+
+
+def _launch_or_meta(meta: bool, kernel: str, shape: tuple, work: cost.Work, launch) -> None:
+    """launch() and count it in LAUNCHES and under `shape` in
+    SHAPE_LAUNCHES, or on meta tensors launch nothing; either way add the
+    kernel's `work` to the open cost records."""
+    if not meta:
+        launch()
+        LAUNCHES[kernel] += 1
+        SHAPE_LAUNCHES[(kernel, shape)] += 1
+    cost.add_launch(kernel, work)
 
 
 def _check(name: str, t: torch.Tensor, dtype, ndim: int) -> None:
@@ -224,7 +237,8 @@ def pairwise_l2(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     CUDA: float32 contiguous inputs, the `pairwise_l2` kernel in the design
     `pairwise_l2_plan` picks from the shape (IEEE float32 FMAs in every
     one, bitwise the same sums)."""
-    if not _on_cuda(q, x):
+    dev = _device(q, x)
+    if dev == "cpu":
         return ref.pairwise_l2_ref(q, x)
     _ieee_fp32()
     _check("pairwise_l2 q", q, torch.float32, 2)
@@ -235,9 +249,12 @@ def pairwise_l2(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     nq, n, d = q.shape[0], x.shape[0], q.shape[1]
     out = torch.empty((nq, n), dtype=torch.float32, device=q.device)
     if nq and n:
-        kind, qm, blocks = pairwise_l2_plan(nq, n, d, 1, x.data_ptr() % 16 == 0)
-        _pairwise_launch(q, x, out, nq, n, d, 1, (0, d, 0, n, 0), kind, qm, blocks)
-        _count("pairwise_l2", (nq, n, d))
+        def launch():
+            kind, qm, blocks = pairwise_l2_plan(nq, n, d, 1, x.data_ptr() % 16 == 0)
+            _pairwise_launch(q, x, out, nq, n, d, 1, (0, d, 0, n, 0), kind, qm, blocks)
+
+        _launch_or_meta(dev == "meta", "pairwise_l2", (nq, n, d),
+                        cost.pairwise_l2(nq, n, d), launch)
     return out
 
 
@@ -249,7 +266,8 @@ def pairwise_l2_batched(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     CUDA: one launch with grid z = M; q may be a strided view whose rows
     are contiguous (the (M, B, d) view of (B, M * d) requests), x
     contiguous.  Counted as a `pairwise_l2` launch."""
-    if not _on_cuda(q, x):
+    dev = _device(q, x)
+    if dev == "cpu":
         return ref.pairwise_l2_batched_ref(q, x)
     _ieee_fp32()
     if q.dtype != torch.float32 or x.dtype != torch.float32:
@@ -263,11 +281,14 @@ def pairwise_l2_batched(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     c = x.shape[1]
     out = torch.empty((nq, m, c), dtype=torch.float32, device=q.device)
     if m and nq and c:
-        # the tiles read q through strides; skinny takes one contiguous pair
-        kind, qm, blocks = pairwise_l2_plan(nq, c, d, m, streamable=False)
-        _pairwise_launch(q, x, out, nq, c, d, m,
-                         (q.stride(0), q.stride(1), c * d, m * c, c), kind, qm, blocks)
-        _count("pairwise_l2", (nq, c, d, m))
+        def launch():
+            # the tiles read q through strides; skinny takes one contiguous pair
+            kind, qm, blocks = pairwise_l2_plan(nq, c, d, m, streamable=False)
+            _pairwise_launch(q, x, out, nq, c, d, m,
+                             (q.stride(0), q.stride(1), c * d, m * c, c), kind, qm, blocks)
+
+        _launch_or_meta(dev == "meta", "pairwise_l2", (nq, c, d, m),
+                        cost.pairwise_l2(nq, c, d, m), launch)
     return out
 
 
@@ -372,7 +393,8 @@ def topk_l2(q: torch.Tensor, x: torch.Tensor, k: int, *, valid=None):
     without `valid`.  A catalog whose width is not a multiple of 4, or that
     does not start on 16 bytes, is copied padded first (TMA's rows are
     16-byte multiples)."""
-    if not _on_cuda(q, x, *([] if valid is None else [valid])):
+    dev = _device(q, x, *([] if valid is None else [valid]))
+    if dev == "cpu":
         return ref.l2_topk_ref(q, x, k, valid)
     _ieee_fp32()
     _check_k("topk_l2", k)
@@ -388,8 +410,10 @@ def topk_l2(q: torch.Tensor, x: torch.Tensor, k: int, *, valid=None):
                          f"{tuple(x.shape)}")
     if nq == 0 or n == 0:
         raise ValueError(f"topk_l2: empty input, Q = {nq}, N = {n}")
-    lib = _build.load("l2_topk")
-    qt, chunk, nchunks = topk_l2_plan(nq, n, d, k, lib.l2_topk_smem_bytes)
+    meta = dev == "meta"
+    lib = None if meta else _build.load("l2_topk")
+    qt, chunk, nchunks = topk_l2_plan(nq, n, d, k, l2_topk_smem_bytes_host if meta
+                                      else lib.l2_topk_smem_bytes)
     if nchunks > 65535:
         raise NotImplementedError(f"topk_l2: N = {n} exceeds the grid")
     qn = torch.sum(q * q, dim=1)  # as the plain version sums them
@@ -398,13 +422,16 @@ def topk_l2(q: torch.Tensor, x: torch.Tensor, k: int, *, valid=None):
     q_hi, q_lo = tf32_split(qk)
     pd = torch.empty((nq, nchunks * k), dtype=torch.float32, device=q.device)
     pi = torch.empty(pd.shape, dtype=torch.int32, device=q.device)
-    rc = lib.l2_topk_partial(
-        q_hi.data_ptr(), q_lo.data_ptr(), qn.data_ptr(), xk.data_ptr(),
-        None if valid is None else valid.data_ptr(),
-        None if bound is None else bound.data_ptr(), pd.data_ptr(), pi.data_ptr(),
-        nq, n, xk.shape[1], k, chunk, nchunks, qt, _stream())
-    _raise_on(rc, "l2_topk")
-    _count("l2_topk", l2_topk_key(nq, n, d, k))
+    def launch():
+        rc = lib.l2_topk_partial(
+            q_hi.data_ptr(), q_lo.data_ptr(), qn.data_ptr(), xk.data_ptr(),
+            None if valid is None else valid.data_ptr(),
+            None if bound is None else bound.data_ptr(), pd.data_ptr(), pi.data_ptr(),
+            nq, n, xk.shape[1], k, chunk, nchunks, qt, _stream())
+        _raise_on(rc, "l2_topk")
+
+    _launch_or_meta(meta, "l2_topk", l2_topk_key(nq, n, d, k),
+                    cost.l2_topk(nq, n, d, k, masked=valid is not None), launch)
     return _merge_partials(pd, pi, k)
 
 
@@ -415,7 +442,7 @@ def topk_l2_fused(q: torch.Tensor, x: torch.Tensor, k: int, *, chunk: int,
     `l2_topk` kernel (counted under `l2_topk`), on the CPU the plain
     version scanning `chunk` catalog rows at a time.  Same outputs and
     tail conventions as `topk_l2`."""
-    if not _on_cuda(q, x, *([] if valid is None else [valid])):
+    if _device(q, x, *([] if valid is None else [valid])) == "cpu":
         return ref.l2_topk_chunked_ref(q, x, k, chunk, valid)
     return topk_l2(q, x, k, valid=valid)
 
@@ -456,7 +483,8 @@ def ivf_scan_topk(q: torch.Tensor, x: torch.Tensor, cand: torch.Tensor, k: int,
     tombstoned id is an invalid slot.  On CUDA one `ivf_scan` launch
     (`ivf_scan_plan`) returns the final outputs, the tombstones read in the
     kernel; k <= MAX_K (larger k raises NotImplementedError)."""
-    if not _on_cuda(q, x, cand, *([] if valid is None else [valid])):
+    dev = _device(q, x, cand, *([] if valid is None else [valid]))
+    if dev == "cpu":
         return ref.ivf_scan_ref(q, x, cand, k, valid)
     _ieee_fp32()
     _check("ivf_scan_topk q", q, torch.float32, 2)
@@ -481,13 +509,16 @@ def ivf_scan_topk(q: torch.Tensor, x: torch.Tensor, cand: torch.Tensor, k: int,
     _, run, cluster = ivf_scan_plan(b, p, k)
     dists = torch.empty((b, k), dtype=torch.float32, device=q.device)
     ids = torch.empty((b, k), dtype=torch.int32, device=q.device)
-    rc = _build.load("ivf_scan").ivf_scan_topk(
-        q.data_ptr(), x.data_ptr(), cand.data_ptr(),
-        None if valid is None else valid.data_ptr(), dists.data_ptr(), ids.data_ptr(),
-        b, x.shape[0], d, p, k, run, cluster, int(d % 4 == 0 and x.data_ptr() % 16 == 0),
-        _stream())
-    _raise_on(rc, "ivf_scan")
-    _count("ivf_scan", (b, p, d, k))
+    def launch():
+        rc = _build.load("ivf_scan").ivf_scan_topk(
+            q.data_ptr(), x.data_ptr(), cand.data_ptr(),
+            None if valid is None else valid.data_ptr(), dists.data_ptr(), ids.data_ptr(),
+            b, x.shape[0], d, p, k, run, cluster, int(d % 4 == 0 and x.data_ptr() % 16 == 0),
+            _stream())
+        _raise_on(rc, "ivf_scan")
+
+    _launch_or_meta(dev == "meta", "ivf_scan", (b, p, d, k), cost.ivf_scan(b, p, d, k),
+                    launch)
     return dists, ids
 
 
@@ -563,8 +594,9 @@ def ivf_scan_lists(q: torch.Tensor, x: torch.Tensor, invlists: torch.Tensor,
     every query that probes it), or at D > IVF_LISTS_MAX_D the per-query
     `ivf_scan` over the gathered table.  k <= MAX_K."""
     b = q.shape[0]
-    if not _on_cuda(q, x, invlists, probe, *([] if valid is None else [valid]),
-                    *([] if lens is None else [lens])):
+    dev = _device(q, x, invlists, probe, *([] if valid is None else [valid]),
+                  *([] if lens is None else [lens]))
+    if dev == "cpu":
         return ivf_scan_topk(q, x, probed_table(invlists, probe), k, valid=valid)
     _ieee_fp32()
     _check_k("ivf_scan_lists", k)
@@ -590,10 +622,12 @@ def ivf_scan_lists(q: torch.Tensor, x: torch.Tensor, invlists: torch.Tensor,
     if lens.shape[0] != nlist:
         raise ValueError(f"ivf_scan_lists: {lens.shape[0]} lengths for {nlist} lists")
     probe = probe.to(torch.int32).contiguous()
-    lib = _build.load("ivf_scan_lists")
+    meta = dev == "meta"
+    lib = None if meta else _build.load("ivf_scan_lists")
     nruns, run = ivf_lists_plan(nlist, cap, nprobe, k)
     vec4 = int(d % 4 == 0 and x.data_ptr() % 16 == 0)
-    if lib.ivf_scan_lists_smem_bytes(d, vec4, k) > SMEM_LIMIT:
+    smem = ivf_scan_lists_smem_bytes_host if meta else lib.ivf_scan_lists_smem_bytes
+    if smem(d, vec4, k) > SMEM_LIMIT:
         raise NotImplementedError(f"ivf_scan_lists: D = {d}, k = {k} need more shared "
                                   f"memory than a block has")
     if nlist * nruns >= 2 ** 31:
@@ -603,12 +637,18 @@ def ivf_scan_lists(q: torch.Tensor, x: torch.Tensor, invlists: torch.Tensor,
     # the partials, and each query's bound on its k-th distance (scratch)
     pd, bound = buf[:b * width].view(b, width), buf[b * width:]
     pi = torch.empty((b, width), dtype=torch.int32, device=q.device)
-    rc = lib.ivf_scan_lists(
-        q.data_ptr(), x.data_ptr(), invlists.data_ptr(), lens.data_ptr(), probe.data_ptr(),
-        None if valid is None else valid.data_ptr(), pd.data_ptr(), pi.data_ptr(),
-        bound.data_ptr(), b, x.shape[0], d, nlist, cap, nprobe, k, nruns, run, vec4, _stream())
-    _raise_on(rc, "ivf_scan_lists")
-    _count("ivf_scan_lists", (b, nprobe, cap, d, k))
+    def launch():
+        rc = lib.ivf_scan_lists(
+            q.data_ptr(), x.data_ptr(), invlists.data_ptr(), lens.data_ptr(),
+            probe.data_ptr(), None if valid is None else valid.data_ptr(), pd.data_ptr(),
+            pi.data_ptr(), bound.data_ptr(), b, x.shape[0], d, nlist, cap, nprobe, k, nruns,
+            run, vec4, _stream())
+        _raise_on(rc, "ivf_scan_lists")
+
+    _launch_or_meta(meta, "ivf_scan_lists", (b, nprobe, cap, d, k),
+                    cost.ivf_scan_lists(b, nprobe, cap, d, k, nlist=nlist,
+                                        mask_bytes=0 if valid is None else b * nprobe * cap),
+                    launch)
     vals, ids = _merge_partials(pd, pi, k)
     ids = torch.where(torch.isfinite(vals), ids, torch.full_like(ids, -1))
     return vals, ids
@@ -624,8 +664,9 @@ def pq_adc_chunks(b: int, p: int) -> tuple[int, int]:
     return chunk, -(-p // chunk)
 
 
-def _pq_adc_launch(lut: torch.Tensor, codes: torch.Tensor, cand):
-    """Checks and one `pq_adc` launch; cand None is the dense form."""
+def _pq_adc_launch(lut: torch.Tensor, codes: torch.Tensor, cand, meta: bool = False):
+    """Checks and one `pq_adc` launch (on meta tensors its outputs only);
+    cand None is the dense form."""
     _check("pq_adc lut", lut, torch.float32, 3)
     _check("pq_adc codes", codes, torch.uint8, 2)
     b, m, c = lut.shape
@@ -643,8 +684,8 @@ def _pq_adc_launch(lut: torch.Tensor, codes: torch.Tensor, cand):
     if c > PQ_MAX_C:
         raise NotImplementedError(f"pq_adc: C = {c} > {PQ_MAX_C} does not fit "
                                   f"the kernel's uint8 codes")
-    lib = _build.load("pq_adc")
-    if lib.pq_adc_smem_bytes(m, c) > SMEM_LIMIT:
+    lib = None if meta else _build.load("pq_adc")
+    if not meta and lib.pq_adc_smem_bytes(m, c) > SMEM_LIMIT:
         raise NotImplementedError(
             f"pq_adc: an M = {m} x C = {c} LUT needs more shared memory than "
             f"a block has")
@@ -653,13 +694,16 @@ def _pq_adc_launch(lut: torch.Tensor, codes: torch.Tensor, cand):
     out = torch.empty((b, p), dtype=torch.float32, device=lut.device)
     if b == 0 or p == 0:
         return out
-    chunk, nchunks = pq_adc_chunks(b, p)
-    vec8 = int(m % 8 == 0 and codes.data_ptr() % 8 == 0)
-    rc = lib.pq_adc(lut.data_ptr(), codes.data_ptr(),
-                    None if cand is None else cand.data_ptr(), out.data_ptr(),
-                    b, n, m, c, p, chunk, nchunks, vec8, _stream())
-    _raise_on(rc, "pq_adc")
-    _count("pq_adc", pq_adc_key(b, p, m, c))
+    def launch():
+        chunk, nchunks = pq_adc_chunks(b, p)
+        vec8 = int(m % 8 == 0 and codes.data_ptr() % 8 == 0)
+        rc = lib.pq_adc(lut.data_ptr(), codes.data_ptr(),
+                        None if cand is None else cand.data_ptr(), out.data_ptr(),
+                        b, n, m, c, p, chunk, nchunks, vec8, _stream())
+        _raise_on(rc, "pq_adc")
+
+    _launch_or_meta(meta, "pq_adc", pq_adc_key(b, p, m, c),
+                    cost.pq_adc(b, p, m, c, ndistinct=n if cand is None else None), launch)
     return out
 
 
@@ -670,9 +714,10 @@ def pq_adc(lut: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
 
     CUDA: contiguous float32 LUT with C <= 256, uint8 codes, the `pq_adc`
     kernel."""
-    if not _on_cuda(lut, codes):
+    dev = _device(lut, codes)
+    if dev == "cpu":
         return ref.pq_adc_ref(lut, codes)
-    return _pq_adc_launch(lut, codes, None)
+    return _pq_adc_launch(lut, codes, None, dev == "meta")
 
 
 def pq_adc_gather(lut: torch.Tensor, codes: torch.Tensor,
@@ -683,9 +728,10 @@ def pq_adc_gather(lut: torch.Tensor, codes: torch.Tensor,
     slot's code row from `codes` itself; no (B, P, M) copy is made.
 
     CUDA: as `pq_adc`, with contiguous int32 cand."""
-    if not _on_cuda(lut, codes, cand):
+    dev = _device(lut, codes, cand)
+    if dev == "cpu":
         return ref.pq_adc_gather_ref(lut, codes, cand)
-    return _pq_adc_launch(lut, codes, cand)
+    return _pq_adc_launch(lut, codes, cand, dev == "meta")
 
 
 def codes_by_list(codes: torch.Tensor, invlists: torch.Tensor) -> torch.Tensor:
@@ -770,8 +816,9 @@ def pq_shortlist_lists(lut: torch.Tensor, codes_lists: torch.Tensor,
     partials (`pq_lists_plan`).  The kernel keeps no per-query list, so kk
     has no limit of its own; the sums are the plain version's, bit for
     bit, so its ids and distances equal the plain version's exactly."""
-    if not _on_cuda(lut, codes_lists, invlists, probe,
-                    *([] if valid is None else [valid]), *([] if lens is None else [lens])):
+    dev = _device(lut, codes_lists, invlists, probe, *([] if valid is None else [valid]),
+                  *([] if lens is None else [lens]))
+    if dev == "cpu":
         return ref.pq_shortlist_ref(lut, codes_lists, invlists, probe, kk, valid)
     _check("pq_shortlist_lists lut", lut, torch.float32, 3)
     _check("pq_shortlist_lists codes_lists", codes_lists, torch.uint8, 3)
@@ -800,7 +847,8 @@ def pq_shortlist_lists(lut: torch.Tensor, codes_lists: torch.Tensor,
     if lens.shape[0] != nlist:
         raise ValueError(f"pq_shortlist_lists: {lens.shape[0]} lengths for {nlist} lists")
     probe = probe.to(torch.int32).contiguous()
-    lib = _build.load("pq_adc_lists")
+    meta = dev == "meta"
+    lib = None if meta else _build.load("pq_adc_lists")
     nruns, run, gmax, qsplit = pq_lists_plan(nlist, cap, nprobe, kk, m, c, b)
     if nlist * nruns * qsplit >= 2 ** 31:
         raise NotImplementedError(f"pq_shortlist_lists: {nlist} lists exceed the grid")
@@ -813,13 +861,18 @@ def pq_shortlist_lists(lut: torch.Tensor, codes_lists: torch.Tensor,
     ccap = codes_lists.shape[1]
     vec8 = int(m == 8 and ccap % 2 == 0 and run % 2 == 0
                and codes_lists.data_ptr() % 16 == 0)
-    rc = lib.pq_adc_lists(
-        lut.data_ptr(), codes_lists.data_ptr(), invlists.data_ptr(), lens.data_ptr(),
-        probe.data_ptr(), None if valid is None else valid.data_ptr(), pd.data_ptr(),
-        pi.data_ptr(), bound.data_ptr(), b, n, m, c,
-        nlist, cap, ccap, nprobe, kp, nruns, run, gmax, qsplit, vec8, _stream())
-    _raise_on(rc, "pq_adc_lists")
-    _count("pq_adc_lists", (b, nprobe, cap, m, kk))
+
+    def launch():
+        rc = lib.pq_adc_lists(
+            lut.data_ptr(), codes_lists.data_ptr(), invlists.data_ptr(), lens.data_ptr(),
+            probe.data_ptr(), None if valid is None else valid.data_ptr(), pd.data_ptr(),
+            pi.data_ptr(), bound.data_ptr(), b, n, m, c,
+            nlist, cap, ccap, nprobe, kp, nruns, run, gmax, qsplit, vec8, _stream())
+        _raise_on(rc, "pq_adc_lists")
+
+    _launch_or_meta(meta, "pq_adc_lists", (b, nprobe, cap, m, kk),
+                    cost.pq_adc_lists(b, nprobe, cap, m, kk, c=c, nlist=nlist, width=width,
+                                      masked=valid is not None), launch)
     vals, ids = _merge_partials(pd, pi, min(kk, width))
     if width < kk:  # kk beyond the probed slots: padded as the plain version
         return ref._underflow(vals, ids, kk)
@@ -861,7 +914,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         which tensor cores cannot promise).
     Either kernel raises when its build or launch fails; neither falls
     back to the other."""
-    if not _on_cuda(q, k, v):
+    dev = _device(q, k, v)
+    if dev == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                        q_offset=q_offset, written_upto=written_upto)
     dtype = q.dtype
@@ -894,19 +948,26 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             kvh, d, dv, int(bool(causal)), int(window), int(q_offset), wu,
             1.0 / d ** 0.5)
     key = flash_key(q.shape, k.shape, causal, window, wu, dv)
-    if flash_kernel_for(dtype, d, dv) == "flash_attention_wgmma":
-        if any(a.data_ptr() % 16 for a in (q, k, v)):
-            raise ValueError("flash_attention: bf16 q, k, v must start on 16 "
-                             "bytes (the kernel loads them by TMA)")
-        rc = _build.load("flash_attention_wgmma").flash_attention_wgmma(
-            *args, _stream())
-        _raise_on(rc, "flash_attention_wgmma")
-        _count("flash_attention_wgmma", key)
-    else:
-        rc = _build.load("flash_attention").flash_attention(
-            *args, int(dtype == torch.bfloat16), _stream())
-        _raise_on(rc, "flash_attention")
-        _count("flash_attention", key)
+    kernel = flash_kernel_for(dtype, d, dv)
+    work = cost.flash_attention(b, s, t, h, kvh, d, dv, causal=bool(causal),
+                                window=int(window), q_offset=int(q_offset), written_upto=wu,
+                                itemsize=q.element_size())
+    if kernel == "flash_attention":  # float32 FMA products, bf16 inputs included
+        work = work._replace(peak=cost.FP32_FLOPS)
+    if kernel == "flash_attention_wgmma" and dev != "meta" and any(
+            a.data_ptr() % 16 for a in (q, k, v)):
+        raise ValueError("flash_attention: bf16 q, k, v must start on 16 "
+                         "bytes (the kernel loads them by TMA)")
+
+    def launch():
+        if kernel == "flash_attention_wgmma":
+            rc = _build.load(kernel).flash_attention_wgmma(*args, _stream())
+        else:
+            rc = _build.load(kernel).flash_attention(*args, int(dtype == torch.bfloat16),
+                                                     _stream())
+        _raise_on(rc, kernel)
+
+    _launch_or_meta(dev == "meta", kernel, key, work, launch)
     return out
 
 

@@ -9,7 +9,10 @@ process a rank (`torchrun --nproc-per-node P`).  The serving meshes are
 
 The world is the caller's: every function here takes an initialised
 default process group (gloo for a "cpu" mesh, NCCL for a "cuda" one) and
-none touches process-group state at import.
+none touches process-group state at import.  The one exception is
+`fake_world`, which opens a world with no peers (the fake backend): one
+rank of a mesh of any size, whose collectives move nothing, for the
+dry-run's meta tensors (`launch.dryrun`) and for them only.
 """
 
 from __future__ import annotations
@@ -17,7 +20,10 @@ from __future__ import annotations
 import torch.distributed as dist
 from torch.distributed.device_mesh import init_device_mesh
 
+from repro_torch.core.distributed import FAKE_BACKEND
+
 SERVING_AXES = ("data", "model")
+POD_AXES = ("pod", "data", "model")
 
 
 def _world(device_type: str) -> int:
@@ -26,6 +32,8 @@ def _world(device_type: str) -> int:
             "no torch.distributed world: call torch.distributed.init_process_group "
             "(gloo for a cpu mesh, nccl for a cuda one) or run under torchrun first")
     backend = dist.get_backend()
+    if backend == FAKE_BACKEND:  # a world-less mesh (meta tensors only)
+        return dist.get_world_size()
     want = "nccl" if device_type == "cuda" else "gloo"
     if want not in backend:
         raise ValueError(f"a {device_type} mesh needs a {want} process group; the world's "
@@ -60,6 +68,44 @@ def make_production_mesh(*, multi_pod: bool = False, device_type: str = "cuda"):
     """The production layout's mesh: a world of 256 (512) ranks."""
     shape = production_mesh_shape(multi_pod)
     return make_mesh(tuple(shape.values()), tuple(shape), device_type)
+
+
+def fake_backend_source() -> str:
+    """Register the fake backend (`FAKE_BACKEND`) and say whose it is:
+    PyTorch's own (`torch.testing._internal.distributed.fake_pg`, which
+    registers it on import), else the C++ `FakeProcessGroup` registered
+    here under the same name.  Raises where this PyTorch has neither."""
+    try:
+        import torch.testing._internal.distributed.fake_pg  # noqa: F401  (registers it)
+
+        return "torch.testing._internal.distributed.fake_pg"
+    except ImportError:
+        pass
+    from torch._C._distributed_c10d import FakeProcessGroup
+
+    if FAKE_BACKEND not in dist.Backend.backend_list:
+        dist.Backend.register_backend(
+            FAKE_BACKEND, lambda store, rank, size, timeout: FakeProcessGroup(rank, size),
+            devices=["cpu", "cuda"])
+    return "torch._C._distributed_c10d.FakeProcessGroup (registered by repro_torch)"
+
+
+def fake_world(world_size: int, rank: int = 0) -> str:
+    """Open a world of `world_size` ranks in which this process is `rank`
+    and no other process exists: the fake backend's groups send nothing,
+    so a mesh over it lays out one rank of a production mesh with no
+    world and no card, for meta tensors only (`core.distributed._group`
+    refuses CPU and CUDA tensors on it).  The world is the process's:
+    open it in a process of its own (the dry-run's CLI, a spawned test
+    worker) and close it with `torch.distributed.destroy_process_group`.
+    Returns `fake_backend_source()`."""
+    source = fake_backend_source()
+    if dist.is_initialized():
+        raise ValueError("a torch.distributed world is open already; a fake world needs "
+                         "a process of its own")
+    dist.init_process_group(FAKE_BACKEND, store=dist.HashStore(), rank=rank,
+                            world_size=world_size)
+    return source
 
 
 def make_host_mesh(device_type: str = "cpu"):

@@ -100,8 +100,8 @@ def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
     if sum(sections) != half:
         raise ValueError(f"mrope sections {sections} do not sum to {half}")
     freqs = rope_freqs(d, theta, device=x.device)                  # (half,)
-    sec_id = torch.repeat_interleave(torch.arange(3, device=x.device),
-                                     torch.tensor(sections, device=x.device))
+    sec_id = torch.tensor([i for i, n in enumerate(sections) for _ in range(n)],
+                          device=x.device)
     pos_per_pair = positions3.float()[sec_id]                      # (half, B, S)
     return _rotate(x, torch.movedim(pos_per_pair, 0, -1) * freqs)
 
@@ -149,6 +149,9 @@ def attention_core(q, k, v, q_offset: int, cfg: ModelConfig, kv_positions=None,
     chunk = cfg.flash_chunk or FLASH_CHUNK
     use_flash = (s > 1 and t >= thresh and t % chunk == 0 and kv_positions is None)
     if use_flash:
+        # a rank whose query heads read some of the cache's kv heads gets a
+        # strided slice of them (`_kv_for`); the kernel takes whole rows
+        k, v = k.contiguous(), v.contiguous()
         if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                         or v.requires_grad):
             return ops.FlashAttentionFn.apply(q, k, v, cfg.causal, cfg.sliding_window,
@@ -387,10 +390,18 @@ def mlp_local(p, x: torch.Tensor) -> torch.Tensor:
 def mlp(p: MLP, x: torch.Tensor) -> torch.Tensor:
     """The FFN; under a mesh context on the rank's blocks: gathered over
     `data` under fsdp, and where the FFN dim splits over `model`, x as
-    the replicated input and the partial reduced over `model`."""
+    the replicated input and the partial reduced over `model`.  Under
+    replicate_misaligned_heads the specs keep wo whole over `model` where
+    the heads do not divide it (the reference's rule names the FFN's wo
+    with attention's) while wi / wg stay column blocks: the rank then
+    takes its rows of the whole wo, whose gradient sums the ranks' rows
+    (site "mlp_wo")."""
     if mesh_ctx.current() is None:
         return mlp_local(p, x)
     w = tp.gathered(p)
-    if not tp.over_model(w.specs["wo"]):
+    if not tp.over_model(w.specs["wi"]):
         return mlp_local(w, x)
+    if not tp.over_model(w.specs["wo"]):
+        rows = w.wi.shape[1]
+        w.wo = tp.replicated_input(w.wo, "mlp_wo").narrow(0, tp.rank(tp.MODEL) * rows, rows)
     return tp.reduce_model(mlp_local(w, tp.replicated_input(x, "mlp_in")), "mlp_out")

@@ -388,8 +388,10 @@ class _VocabParallelLogProb(torch.autograd.Function):
     def backward(ctx, grad):
         probs, local, mine = ctx.saved_tensors
         g = -probs * grad[:, None]
-        rows = torch.arange(g.shape[0], device=g.device)[mine]
-        g[rows, local[mine]] += grad[mine]
+        # + grad at each row's label column where the rank holds it (+ 0
+        # elsewhere): no row count read back, so meta tensors take it too
+        col = local.clamp(0, g.shape[-1] - 1)[:, None]
+        g.scatter_add_(-1, col, torch.where(mine, grad, torch.zeros_like(grad))[:, None])
         return g, None, None
 
 

@@ -37,15 +37,16 @@ of `core/distributed.py`:
   - the shard_map branch (expert parallel, moe_dp > 1 divides the GLOBAL
     token count): capacity and positions per (data shard, local expert),
     the aux the per-shard Switch loss averaged over the batch axes (one
-    all-reduce);
+    all-reduce a batch axis of more than one rank, at least one);
   - every other call (decode's B tokens, and TP inside experts): the
     reference's unmeshed dispatch over the global token order, data rank
     first, in moe_dp blocks when moe_dp > 1 divides the tokens (the
     two-stage form) else one (the single-stage form), capacity and
-    positions counted a block (one all-gather of the (t_local, k) expert
-    ids over the batch axis when it has more than one rank); the aux the
-    formula over all tokens (one all-reduce of the shards' first-choice
-    fractions and mean probabilities);
+    positions counted a block (the (t_local, k) expert ids gathered over
+    the batch axes of more than one rank, one all-gather each, in their
+    row-major order); the aux the formula over all tokens (the shards'
+    first-choice fractions and mean probabilities all-reduced, as the
+    aux above);
   - both: the (t_local, d) partials all-reduced over `model` in the
     model's dtype, the shared experts (an MLP under the mesh's layout)
     added after the sum.
@@ -230,30 +231,33 @@ def moe_local(x_local, router, wi, wg, wo, my_model_rank: int, n_model: int,
     return out, _aux_loss(logits, eidx, e)
 
 
-def _batch_axis(mesh, batch_axes) -> str:
-    """The axis of `batch_axes` the batch's exchanges run over: the one
-    with more than one rank, else the last."""
-    from repro_torch.core.distributed import _axis_size
+def _batch_exchange_axes(mesh, batch_axes) -> list:
+    """The axes of `batch_axes` the batch's reductions run over, one counted
+    call each: those with more than one rank (both of ("pod", "data")
+    across pods), else the last."""
+    from repro_torch.core.distributed import _real_axes
 
-    real = [a for a in batch_axes if _axis_size(mesh, a) > 1]
-    if len(real) > 1:
-        raise NotImplementedError(f"the expert-parallel MoE exchanges over one batch axis; "
-                                  f"{batch_axes} has {len(real)} of more than one rank")
-    return real[0] if real else batch_axes[-1]
+    return _real_axes(mesh, batch_axes) or [batch_axes[-1]]
 
 
 def _moe_expert_parallel(p: MoE, xf: torch.Tensor, cfg: ModelConfig, ctx):
     """The mesh form (see the module's docstring), with gradients.  xf
     (t_local, d) -> ((t_local, d), aux)."""
-    from repro_torch.core.distributed import (_axis_rank, _axis_size, all_gather,
+    from repro_torch.core.distributed import (_axis_rank, _axis_size, all_gather_axes,
                                               reduce_partials, replicated_input)
 
     mesh = ctx.mesh
     e = cfg.n_experts
     n_model = _axis_size(mesh, "model")
     my = _axis_rank(mesh, "model")
-    b_ax = _batch_axis(mesh, ctx.batch_axes)
+    b_axes = _batch_exchange_axes(mesh, ctx.batch_axes)
     n_batch = _axis_size(mesh, ctx.batch_axes)
+
+    def over_batch(t, site):
+        for a in b_axes:
+            t = reduce_partials(t, mesh, a, site)
+        return t
+
     w = SimpleNamespace(**{n: tp.whole_over_data(getattr(p, n), "moe_weights")
                            for n in ("router", "wi", "wg", "wo")})
     expert_parallel = 0 in tp.dims_over(tp.spec_of(p.wi), "model")
@@ -273,14 +277,14 @@ def _moe_expert_parallel(p: MoE, xf: torch.Tensor, cfg: ModelConfig, ctx):
     blocks = cfg.moe_dp if cfg.moe_dp > 1 and t % cfg.moe_dp == 0 else 1
     if expert_parallel and blocks > 1:
         out, aux = moe_local(xf, w.router, w.wi, w.wg, w.wo, my, n_model, cfg, share)
-        aux = reduce_partials(aux.reshape(1), mesh, b_ax, "moe_aux")[0] / n_batch
+        aux = over_batch(aux.reshape(1), "moe_aux")[0] / n_batch
     else:
         logits, gate, eidx = route(w.router, xf, cfg)
-        ids = (all_gather(eidx, mesh, b_ax, "moe_ids") if n_batch > 1
+        ids = (all_gather_axes(eidx, mesh, ctx.batch_axes, "moe_ids") if n_batch > 1
                else eidx[None])                               # (n_batch, tl, k)
         cap = capacity(t // blocks, cfg)
         pos = slot_positions(ids.reshape(blocks, -1), e).reshape(n_batch, tl, k)
-        me = _axis_rank(mesh, b_ax) if n_batch > 1 else 0
+        me = _axis_rank(mesh, ctx.batch_axes) if n_batch > 1 else 0
         pos = pos[me]
         safe, mine = _local_experts(eidx, e_rank, w.wi.shape[0])
         keep = mine & (pos < cap)
@@ -290,8 +294,8 @@ def _moe_expert_parallel(p: MoE, xf: torch.Tensor, cfg: ModelConfig, ctx):
         out = _expert_sum(share(xf), safe, block[:, None] * cap + pos, keep, share(gate),
                           w.wi, w.wg, w.wo, blocks * cap)
         f = nn.functional.one_hot(eidx[:, 0], e).float().mean(0)
-        fp = reduce_partials(torch.stack([f, torch.softmax(logits, dim=-1).mean(0)]), mesh,
-                             b_ax, "moe_aux") / n_batch
+        fp = over_batch(torch.stack([f, torch.softmax(logits, dim=-1).mean(0)]),
+                        "moe_aux") / n_batch
         aux = e * torch.sum(fp[0] * fp[1])
     out = reduce_partials(out, mesh, "model", "moe_combine")
     if cfg.n_shared_experts:

@@ -381,6 +381,13 @@ def world_2x4(retrieval_data, tmp_path_factory):
         ("retrieval", data), ("budgets", _budget_data()), ("replay", replay)]))
 
 
+@pytest.fixture(scope="module")
+def world_2x2x2(retrieval_data, tmp_path_factory):
+    data = {k: retrieval_data[k] for k in ("cat", "y0", "reqs", "kw")}
+    return _by_job(run_world(jobs_rank, (2, 2, 2), tmp_path_factory.mktemp("w222"), [
+        ("two_axis", data)]))
+
+
 def _same_answer_sets(got, want) -> bool:
     return all(set(a.tolist()) == set(b.tolist()) for a, b in zip(got, want))
 
@@ -423,6 +430,42 @@ def test_sharded_replay_nag_close_to_batched(world_2x4):
         assert r["nag_sharded"] > 0.95 * r["nag_batched"] and r["nag_sharded"] > 0
         assert abs(r["ivf_y_sum"] - RET_H) < 1e-2 and r["ivf_gain_finite"]
     assert len({r["nag_sharded"] for r in world_2x4["replay"]}) == 1
+
+
+@pytest.mark.parametrize("variant", ["plain", "chunk"])
+def test_retrieval_step_over_two_batch_axes_matches_reference(world_2x2x2, retrieval_data,
+                                                              variant):
+    """The batch over ("pod", "data") on a (pod 2, data 2, model 2) gloo
+    world (ROADMAP C9: the exchange once raised NotImplementedError for two
+    batch axes of more than one rank): make_retrieval_step against the
+    reference's single-device reference_step, y within 2e-4 and equal
+    answer sets on every rank; the routing gather and each metric's
+    all-reduce run once an axis (sites route 2, metrics 4)."""
+    ranks = world_2x2x2["two_axis"]
+    for res in ranks:
+        r = res[variant]
+        assert float(np.abs(r["y"] - retrieval_data["y_ref"]).max()) < 2e-4
+        assert _same_answer_sets(r["ans"], retrieval_data["ans_ref"])
+        assert r["sites"]["all_gather:route"] == 2
+        assert r["sites"]["all_reduce:metrics"] == 4
+        assert r["sites"]["all_gather:merge"] == 1
+    assert len({(r[variant]["gain"], r[variant]["local"]) for r in ranks}) == 1
+
+
+@pytest.mark.parametrize("kind", ["step", "mutable"])
+def test_sharded_steps_over_two_batch_axes_match_single_device(world_2x2x2, kind):
+    """make_step_sharded and make_mutable_step_sharded with the batch over
+    ("pod", "data") on (2, 2, 2): the whole batch's metrics come back in
+    request order and equal the single-device step's (1e-5), and so does
+    y (the same uniforms)."""
+    for res in world_2x2x2["two_axis"]:
+        r = res[kind]
+        for f in ("gain_int", "gain_frac", "cost", "served_local"):
+            want, got = r[f]
+            np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5, err_msg=f)
+        np.testing.assert_allclose(r["y"], r["y_ref"], rtol=1e-5, atol=1e-6)
+    counts = world_2x2x2["two_axis"][0]["step"]["counts"]
+    assert counts == {"all_gather": 4, "all_reduce": 1}
 
 
 @pytest.mark.parametrize("shape,path,want", [

@@ -142,7 +142,7 @@ def test_cuda_wrappers_refuse_what_the_kernels_do_not_take():
     Checked without a card through the argument checks that run before any
     launch."""
     with pytest.raises(ValueError):
-        tops._on_cuda(torch.zeros(1), torch.zeros(1, device="meta"))
+        tops._device(torch.zeros(1), torch.zeros(1, device="meta"))
     assert tops.MAX_K == 1024
     for k in (129, 160, 400, tops.MAX_K):
         tops._check_k("topk_l2", k)

@@ -344,19 +344,19 @@ FWD_ARCHS = ["mixtral-8x22b", "jamba-1.5-large-398b"]
 FWD_B, FWD_S = 2, 16
 
 
-def _fwd_pair(arch):
+def _fwd_pair(arch, b=FWD_B):
     """(reference float32 SMOKE config, numpy tree, tokens), dropless."""
     jcfg = dataclasses.replace(J_SMOKE[arch], dtype="float32")
     params = j_init_params(jax.random.PRNGKey(7), jcfg)
     tree = jax.tree.map(lambda a: np.asarray(a, np.float32), params)
-    toks = np.random.default_rng(8).integers(0, jcfg.vocab, (FWD_B, FWD_S)).astype(np.int32)
+    toks = np.random.default_rng(8).integers(0, jcfg.vocab, (b, FWD_S)).astype(np.int32)
     return jcfg, tree, toks
 
 
-def forward_cases():
+def forward_cases(b=FWD_B, archs=FWD_ARCHS):
     out = []
-    for arch in FWD_ARCHS:
-        jcfg, tree, toks = _fwd_pair(arch)
+    for arch in archs:
+        jcfg, tree, toks = _fwd_pair(arch, b)
         for fsdp in (False, True):
             out.append((f"{arch}|{fsdp}", _port_cfg(jcfg, moe_dp=MOE_DP, fsdp=fsdp), tree,
                         toks))
@@ -384,3 +384,31 @@ def test_forward_under_mesh_matches_unmeshed_reference(worlds, arch, shape):
             for r in ranks:
                 np.testing.assert_allclose(r[name]["aux"], float(want.aux_loss),
                                            rtol=FWD_TOL, atol=FWD_TOL, err_msg=name)
+
+
+POD_ARCHS = ["mixtral-8x22b", "jamba-1.5-large-398b", "deepseek-v3-671b"]
+
+
+@pytest.fixture(scope="module")
+def pod_world(tmp_path_factory):
+    """The SMOKE forwards on a (pod 2, data 2, model 2) world, the batch of 4
+    over ("pod", "data")."""
+    return run_world(moe_forward_rank, (2, 2, 2), tmp_path_factory.mktemp("moe_pod"),
+                     forward_cases(4, POD_ARCHS))
+
+
+@pytest.mark.parametrize("arch", POD_ARCHS)
+def test_forward_with_the_batch_over_two_axes_matches_unmeshed_reference(pod_world, arch):
+    """The batch over ("pod", "data"), as the multi-pod production mesh lays
+    it (ROADMAP C10: the expert-parallel MoE once raised NotImplementedError
+    for two batch axes of more than one rank): the whole model laid out
+    on (2, 2, 2), every rank's slice of the logits against the reference's
+    unmeshed forward (the ids and the aux sums gathered and reduced over
+    both axes, in row-major order)."""
+    jcfg, tree, toks = _fwd_pair(arch, 4)
+    want = j_forward(jax.tree.map(np.asarray, tree), jcfg, tokens=toks)
+    for fsdp in (False, True):
+        name = f"{arch}|{fsdp}"
+        got = np.concatenate([pod_world[r * 2][name]["logits"] for r in range(4)])
+        np.testing.assert_allclose(got, np.asarray(want.logits), rtol=FWD_TOL, atol=FWD_TOL,
+                                   err_msg=name)

@@ -14,9 +14,11 @@ Architectures at SMOKE size in float32, with fsdp where the published
 configuration has it: qwen1.5-0.5b (tied head, no fsdp), yi-6b (one kv head: its block splits it at model 2 and 4),
 qwen2-72b (QKV biases; 2 kv heads, misaligned at model 4; also with
 replicate_misaligned_heads, the opt variant, and with 2 query heads, so
-wo's rows split heads too), minitron-8b (squared ReLU), mixtral (expert
-parallel; and with 3 experts, TP inside experts, in the single-stage
-and the two-stage branch), qwen2-vl-7b (M-RoPE, a vision prefix) and
+wo's rows split heads too, alone and under replicate_misaligned_heads,
+where the FFN's wo stays whole over `model` at model 4: ROADMAP C13),
+minitron-8b (squared ReLU), mixtral (expert parallel; and with 3
+experts, TP inside experts, in the single-stage and the two-stage
+branch), qwen2-vl-7b (M-RoPE, a vision prefix) and
 hubert-xlarge (the encoder).  MLA, the Mamba2 mixer and the MTP head
 (deepseek-v3, mamba2, jamba) are held the same way in
 tests/test_torch_tp_a12c.py.
@@ -60,6 +62,10 @@ CASES = {
     "qwen2-72b": ("qwen2-72b", F, True),
     "qwen2-72b rmh": ("qwen2-72b", {**F, "replicate_misaligned_heads": True}, True),
     "qwen2-72b h2": ("qwen2-72b", {**F, "n_heads": 2, "n_kv_heads": 2}, True),
+    # ROADMAP C13: at model 4 the 2 heads are misaligned, so wo stays whole
+    # over `model`, the FFN's too, while its wi / wg are column blocks
+    "qwen2-72b h2 rmh": ("qwen2-72b", {**F, "n_heads": 2, "n_kv_heads": 2,
+                                       "replicate_misaligned_heads": True}, True),
     "minitron-8b": ("minitron-8b", F, True),
     "mixtral": ("mixtral-8x22b", {**F, "capacity_factor": 0.0}, True),
     "mixtral two-stage": ("mixtral-8x22b", {**F, "moe_dp": 2}, True),

@@ -2,7 +2,7 @@
 work their ranks do.
 
 `run_world(fn, shape, tmp_path, *args)` starts one process a rank of a
-(data, model) = `shape` mesh: a gloo world on the CPU whose store is a
+(data, model) = `shape` mesh (or (pod, data, model) for a 3-tuple): a gloo world on the CPU whose store is a
 file under `tmp_path` (so concurrent test workers never share a port),
 calls `fn(mesh, rank, *args)` in each and returns the ranks' results.  A
 world that has not finished within its time limit is killed and the test
@@ -45,17 +45,23 @@ def host_mesh(tmp_path_factory):
         dist.destroy_process_group()
 
 
-def _entry(fn, rank: int, world: int, shape, store: str, out: str, args) -> None:
+def _entry(fn, rank: int, world: int, shape, store: str, out: str, args,
+           fake: bool = False) -> None:
     import torch
     import torch.distributed as dist
 
     torch.set_num_threads(1)
     try:
-        dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
-                                world_size=world)
-        from repro_torch.launch.mesh import make_mesh
+        from repro_torch.launch.mesh import POD_AXES, SERVING_AXES, fake_world, make_mesh
 
-        res = ("ok", fn(make_mesh(shape), rank, *args))
+        if fake:
+            fake_world(world, rank)
+        else:
+            dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                                    world_size=world)
+
+        names = POD_AXES if len(shape) == 3 else SERVING_AXES
+        res = ("ok", fn(make_mesh(shape, names), rank, *args))
         dist.destroy_process_group()
     except (Exception, SystemExit):  # the parent reports it
         res = ("error", traceback.format_exc())
@@ -64,14 +70,20 @@ def _entry(fn, rank: int, world: int, shape, store: str, out: str, args) -> None
     Path(f"{out}/rank{rank}.tmp").rename(f"{out}/rank{rank}.pkl")
 
 
-def run_world(fn, shape, tmp_path, *args, timeout: float = WORLD_TIMEOUT_S) -> list:
+def run_world(fn, shape, tmp_path, *args, timeout: float = WORLD_TIMEOUT_S,
+              fake: bool = False) -> list:
+    """With `fake`, one process only: rank 0 of a world of the mesh's size
+    with no peers (`launch.mesh.fake_world`, meta tensors), its result
+    alone in the list."""
     world = int(np.prod(shape))
-    base = Path(tmp_path) / f"world_{fn.__name__}_{'x'.join(map(str, shape))}"
+    base = Path(tmp_path) / (f"{'fake' if fake else 'world'}_{fn.__name__}_"
+                             f"{'x'.join(map(str, shape))}")
     base.mkdir(parents=True, exist_ok=False)
     ctx = multiprocessing.get_context("spawn")
     procs = [ctx.Process(target=_entry, args=(fn, r, world, tuple(shape),
-                                              str(base / "store"), str(base), args),
-                         daemon=True) for r in range(world)]
+                                              str(base / "store"), str(base), args, fake),
+                         daemon=True) for r in range(1 if fake else world)]
+    world = len(procs)
     for p in procs:
         p.start()
     deadline = time.monotonic() + timeout
@@ -118,7 +130,7 @@ def jobs_rank(mesh, rank, jobs) -> dict:
     fns = {"retrieval": retrieval_rank, "budgets": budgets_rank, "replay": replay_rank,
            "slab": slab_rank, "serving": serving_rank, "churn": churn_rank,
            "moe_ep": moe_ep_rank, "moe_forward": moe_forward_rank, "tp_serve": tp_serve_rank,
-           "tp_train": tp_train_rank}
+           "tp_train": tp_train_rank, "two_axis": two_axis_rank}
     return {name: fns[name](mesh, rank, data) for name, data in jobs}
 
 def _np(t):
@@ -150,6 +162,59 @@ def retrieval_rank(mesh, rank, data: dict) -> dict:
         counts = dict(D.COLLECTIVES)
         out[name] = {"y": _np(D.gather_rows(y1, mesh)), "ans": _np(ans),
                      "gain": float(m["gain"]), "counts": counts}
+    return out
+
+
+def two_axis_rank(mesh, rank, data: dict) -> dict:
+    """The batch over two mesh axes, ("pod", "data"): make_retrieval_step
+    (plain and at scan_chunk 50) with y gathered whole, and one step of
+    make_step_sharded and of make_mutable_step_sharded beside the
+    single-device make_step_batched / make_mutable_step on the whole
+    catalog (the whole batch's metrics, in request order, and y)."""
+    import torch
+
+    from repro_torch.core import distributed as D
+    from repro_torch.core import oma, policy
+
+    axes = ("pod", "data")
+    cat, y0, reqs = (torch.from_numpy(data[k]) for k in ("cat", "y0", "reqs"))
+    n_model = D._axis_size(mesh, "model")
+    blk, yb = D.block_of(cat, mesh), D.block_of(y0, mesh)
+    out = {}
+    for name, extra in {"plain": {}, "chunk": {"scan_chunk": 50}}.items():
+        step = D.make_retrieval_step(mesh, n_shard=cat.shape[0] // n_model, **data["kw"],
+                                     batch_axes=axes, **extra)
+        D.reset_collectives()
+        y1, ans, m = step(blk, yb, reqs)
+        out[name] = {"y": _np(D.gather_rows(y1, mesh)), "ans": _np(ans),
+                     "gain": float(m["gain"]), "local": float(m["served_local"]),
+                     "counts": dict(D.COLLECTIVES),
+                     "sites": {f"{p}:{s}": v for (p, s), v in D.COLLECTIVE_SITES.items()}}
+    n, b = cat.shape[0], reqs.shape[0]
+    cfg = policy.AcaiConfig(h=16, k=4, c_f=1.0, c_remote=16, c_local=8,
+                            oma=oma.OMAConfig(eta=0.05, projection_topk=48))
+    s0 = policy.init_state(n, cfg, device="cpu")
+    fnb = policy.exact_candidate_fn_batched(cat, cfg.c_remote, cfg.c_local)
+    u = torch.rand(n, generator=torch.Generator().manual_seed(3))
+    sa, ma = policy.make_step_batched(cfg, fnb, b)(policy.copy_state(s0), reqs, u)
+    sb = policy.CacheState(D.block_of(s0.y, mesh).clone(), D.block_of(s0.x, mesh).clone(),
+                           0, s0.gen)
+    D.reset_collectives()
+    st, mb = D.make_step_sharded(cfg, mesh, blk, b, batch_axes=axes, top_a=48)(sb, reqs, u)
+    out["step"] = {"counts": dict(D.COLLECTIVES), "y": _np(D.gather_rows(st.y, mesh)),
+                   "y_ref": _np(sa.y)}
+    alive = torch.ones(n, dtype=torch.bool)
+    ids, dd, valid = policy.exact_mutable_candidates(reqs, s0.x, cat, alive, cfg.c_remote,
+                                                     cfg.c_local)
+    sm, mm = policy.make_mutable_step(cfg, b)(policy.copy_state(s0), ids, dd, valid, alive,
+                                              u)
+    sc, mc = D.make_mutable_step_sharded(cfg, mesh, b, batch_axes=axes, top_a=48)(
+        policy.CacheState(D.block_of(s0.y, mesh).clone(), D.block_of(s0.x, mesh).clone(),
+                          0, s0.gen), reqs, blk, D.block_of(alive, mesh), u)
+    out["mutable"] = {"y": _np(D.gather_rows(sc.y, mesh)), "y_ref": _np(sm.y)}
+    for key, (want, got) in {"step": (ma, mb), "mutable": (mm, mc)}.items():
+        for f in ("gain_int", "gain_frac", "cost", "served_local"):
+            out[key][f] = (_np(getattr(want, f)), _np(getattr(got, f)))
     return out
 
 
@@ -400,11 +465,19 @@ def moe_from_numpy(leaves: dict, cfg):
     return layer
 
 
+def _batch_axes(mesh) -> tuple:
+    """The axes the batch splits over: ("pod", "data") on a mesh with a pod
+    axis, else ("data",)."""
+    return ("pod", "data") if "pod" in mesh.mesh_dim_names else ("data",)
+
+
 def _data_shard(x: np.ndarray, mesh) -> np.ndarray:
-    """This rank's `data` shard of a whole batch (rows r B / n ...)."""
+    """This rank's shard of a whole batch over the batch axes (rows r B / n
+    ..., r the row-major coordinate)."""
     from repro_torch.core import distributed as D
 
-    n, r = D._axis_size(mesh, "data"), D._axis_rank(mesh, "data")
+    axes = _batch_axes(mesh)
+    n, r = D._axis_size(mesh, axes), D._axis_rank(mesh, axes)
     b = x.shape[0] // n
     return x[r * b:(r + 1) * b]
 
@@ -452,7 +525,7 @@ def moe_forward_rank(mesh, rank, cases: list) -> dict:
     out = {}
     for name, cfg, params, tokens in cases:
         model = convert.lm_params_block(params, cfg, mesh, device="cpu")
-        with mesh_context(mesh, ("data",)):
+        with mesh_context(mesh, _batch_axes(mesh)):
             res = forward(model, cfg, tokens=torch.from_numpy(_data_shard(tokens, mesh)))
         out[name] = {"logits": _whole_vocab(res.logits, cfg, mesh), "aux": float(res.aux_loss)}
     return out
@@ -577,4 +650,47 @@ def tp_train_rank(mesh, rank, cases: list) -> dict:
                 # copies: the step updates the parameters in place
                 rec["params"].append({n: _np(p).copy() for n, p in model.named_parameters()})
         out[name] = rec
+    return out
+
+
+def cost_rank(mesh, rank, cases: list) -> dict:
+    """The cost record of this rank's step (`launch.dryrun.build_lowering`
+    and `analyse`) on the mesh's device: CPU tensors on a gloo world, meta
+    on a fake one.  cases: [(name, SMOKE arch, SMOKE shape, overrides of
+    its config), ...], and "acai" runs `make_retrieval_step` at n 256, d 8,
+    a batch of 8 -> {name: {"flops", "coll_bytes", "coll_counts",
+    "kernels"}}."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import SMOKE_ARCHS, SMOKE_SHAPES
+    from repro_torch.core import distributed as D
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.cost import CostMode
+
+    def summary(s):
+        return {"flops": s.flops, "coll_bytes": s.coll_bytes, "coll_counts": s.coll_counts,
+                "kernels": {k: v["launches"] for k, v in s.kernels.items()}}
+
+    multi = "pod" in mesh.mesh_dim_names
+    out = {}
+    for name, arch, shape, over in cases:
+        if arch == "acai":
+            dev = D.mesh_device(mesh)
+            n_s = 256 // D._axis_size(mesh, "model")
+            step = D.make_retrieval_step(mesh, n_shard=n_s, d=8, c=16, k=4, c_f=1.0, h=32,
+                                         eta=0.01, top_a=32, batch_axes=_batch_axes(mesh))
+            g = torch.Generator().manual_seed(0)
+            args = [torch.rand(n_s, 8, generator=g).to(dev),
+                    torch.full((n_s,), 0.1).to(dev), torch.rand(8, 8, generator=g).to(dev)]
+            with CostMode(args) as mode:
+                step(*args)
+            out[name] = summary(mode.summary)
+            continue
+        cfg = dataclasses.replace(SMOKE_ARCHS[arch], **over)
+        run, args, info = dryrun.build_lowering(cfg, SMOKE_SHAPES[shape], mesh, multi)
+        with CostMode(args) as mode:
+            run()
+        out[name] = summary(mode.summary)
     return out
