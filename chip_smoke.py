@@ -212,7 +212,31 @@ Phases, each of which raises on failure (the script then exits non-zero):
              float32, a training step on the (1, 1) mesh against the plain
              step.  `--only tp` runs the build and this phase alone and
              prints no result;
-15. cost — the dry-run's cost record (repro_torch.launch.cost, after
+15. long — long_500k's decode at global batch 1, whose 16 `data` ranks of
+             the single-pod mesh each hold 1/16 of the sequence (the
+             sequence-sharded cache), run as those ranks' shares one after
+             another through `attention_local` (the rank's slots, its
+             softmax partials) and the rank-order `combine_partials`: (a)
+             jamba-1.5-large's attention layer at its published widths (d
+             8192, 64 heads, 8 kv heads, bf16, seed 4) over a 524288-slot
+             cache drawn from the seed, one decode step at its last slot, 16
+             shares of 32768 slots; (b) mixtral-8x22b's 4096-slot ring as 16
+             shares of 256, one step 1000 past the window; each against the
+             whole-cache unmeshed decode: the float32 attention before the
+             cast within 1e-5 of float64 over the largest |v| (the whole's
+             plain float32 beside it), the layer's bf16 output within 2e-2
+             of the whole's, every share and the whole timed (CUDA events);
+             (c) mixtral-8x22b's MoE layer at its published widths (4.83 GB
+             of bf16 experts) over 8192 tokens as 16 data shares of 512
+             tokens with whole experts (`moe_share`, ROADMAP C15): 512 rows
+             an expert a share against the whole's capacity of 2560, the
+             concatenated outputs within 2e-2 of the single-stage layer,
+             each share timed; (d) the dry-run's long_500k jamba cells on
+             both production meshes in a process of the host:
+             `argument_bytes` = parameters + the rank's cache + the token.
+             `--only long` runs the build and this phase alone and prints
+             no result;
+16. cost — the dry-run's cost record (repro_torch.launch.cost, after
              every profiled phase): (a) `python -m repro_torch.launch.dryrun`
              in four processes of the card's host, side by side with (b):
              qwen2-72b prefill_32k on the single-pod mesh, deepseek-v3
@@ -3502,6 +3526,246 @@ print(json.dumps(rec))
 """
 
 
+# the long phase (ROADMAP C14, C15): long_500k's decode at global batch 1 on
+# the single-pod mesh, whose LONG_SHARES `data` ranks each hold 1/16 of the
+# sequence, run as those shares one after another on the card (NCCL refuses
+# two ranks on one card); jamba-1.5-large's attention layer over its 524288
+# slots, mixtral-8x22b's 4096-slot ring one step past the window, mixtral's
+# MoE layer over LONG_MOE_TOKENS tokens as 16 data shares; the dry-run's
+# long_500k jamba cells
+LONG_SLOTS, LONG_SHARES, LONG_RING_PAST, LONG_MOE_TOKENS = 524288, 16, 1000, 8192
+LONG_F32_TOL = 1e-5     # float32 attention against float64, over the largest |v|
+LONG_BF16_TOL = 2e-2    # bf16 outputs against the whole's, over its largest |.|
+LONG_ARCH = "jamba-1.5-large-398b"
+
+
+def _long_dryrun_child(out_dir):
+    """The dry-run's long_500k cells of LONG_ARCH on both production meshes,
+    by its command line in a process of the card's host (no card)."""
+    import os
+
+    env = {**os.environ, "PYTHONPATH": str(SRC), "CUDA_VISIBLE_DEVICES": ""}
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", LONG_ARCH, "--shape",
+         "long_500k", "--mesh", "both", "--out", str(out_dir), "--force"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+
+
+def _softmax64(torch, q, k, v):
+    """One softmax over every slot in float64 (every slot kept): q (1, 1, H,
+    D), k / v (1, T, KV, D), GQA head h on kv head h // (H / KV) -> (1, 1,
+    H, D)."""
+    b, s, h, d = q.shape
+    kv = k.shape[2]
+    qg = q.double().reshape(b, s, kv, h // kv, d)
+    logits = torch.einsum("bskgd,btkd->bkgst", qg, k.double()) / d ** 0.5
+    out = torch.einsum("bkgst,btkd->bskgd", torch.softmax(logits, dim=-1), v.double())
+    return out.reshape(b, s, h, d)
+
+
+def _plain_f32(torch, q, k, v):
+    """The unmeshed decode's float32 attention before its cast (`_sdpa`'s
+    arithmetic, every slot kept)."""
+    b, s, h, d = q.shape
+    kv = k.shape[2]
+    qg = q.float().reshape(b, s, kv, h // kv, d)
+    logits = torch.einsum("bskgd,btkd->bkgst", qg, k.float()) / d ** 0.5
+    out = torch.einsum("bkgst,btkd->bskgd", torch.softmax(logits, dim=-1), v.float())
+    return out.reshape(b, s, h, d)
+
+
+def _seq_shares(torch, L, p, x, pos, cfg, cache, cache_len: int, n: int):
+    """`attention_local` as the n ranks of a sequence-sharded cache, one
+    after another: rank r on its slots [r T, (r + 1) T) (views of `cache`),
+    its exchange recording its softmax partials (the all-gather's input);
+    then the rank-order combine of all of them (`combine_partials`, what
+    every rank runs on the gathered partials), cast and times wo.  Returns
+    (the combined float32 attention, the layer's output, each rank's ms,
+    the combine's ms; CUDA events)."""
+    from repro_torch.sharding.tp import SeqShard
+
+    whole = cache["k"].shape[1]
+    t = whole // n
+    parts, ms = [], []
+
+    def record(part):
+        parts.append(part)
+        return part[None]
+
+    for r in range(n):
+        share = {name: leaf[:, r * t:(r + 1) * t] for name, leaf in cache.items()}
+        _, m = _event_ms(torch, lambda: L.attention_local(
+            p, x, pos, cfg, cache=share, cache_len=cache_len,
+            seq=SeqShard(r * t, whole, record)))
+        ms.append(m)
+    comb, comb_ms = _event_ms(torch, lambda: L.combine_partials(torch.stack(parts)))
+    out = comb.to(x.dtype).reshape(x.shape[0], x.shape[1], -1) @ p.wo
+    return comb, out, ms, comb_ms
+
+
+def _long_attention(torch, dev, card: str, arch: str, slots: int, cache_len: int,
+                    what: str) -> None:
+    """One decode step of `arch`'s attention layer at its published widths
+    (bf16, weights and a `slots`-slot cache drawn from a seed, every slot
+    kept at `cache_len`), whole (the unmeshed decode) and as LONG_SHARES
+    sequence shares: the shares' float32 attention and the whole's against
+    float64, the layers' bf16 outputs against each other."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+
+    cfg = get_config(arch)
+    g = torch.Generator(device=dev).manual_seed(4)
+    p = L.init_attention(g, cfg, dev).requires_grad_(False)
+    shape = (1, slots, cfg.n_kv_heads, cfg.head_dim)
+    cache = {"k": torch.randn(shape, generator=g, device=dev, dtype=torch.bfloat16),
+             "v": torch.randn(shape, generator=g, device=dev, dtype=torch.bfloat16)}
+    x = torch.randn((1, 1, cfg.d_model), generator=g, device=dev, dtype=torch.bfloat16)
+    pos = torch.full((1, 1), cache_len, device=dev)
+
+    def whole():
+        return L.attention_local(p, x, pos, cfg, cache=cache, cache_len=cache_len)
+
+    whole()   # warm-up (the step rewrites its own slot with the same k / v)
+    want, whole_ms = _event_ms(torch, whole)
+    _seq_shares(torch, L, p, x, pos, cfg, cache, cache_len, LONG_SHARES)   # warm-up
+    comb, got, ms, comb_ms = _seq_shares(torch, L, p, x, pos, cfg, cache, cache_len,
+                                         LONG_SHARES)
+    q = (x @ p.wq).reshape(1, 1, cfg.n_heads, cfg.head_dim)
+    if cfg.pos_emb == "rope":
+        q = L.apply_rope(q, pos, cfg.rope_theta)
+    ref = _softmax64(torch, q, cache["k"], cache["v"])
+    plain = _plain_f32(torch, q, cache["k"], cache["v"])
+    scale = float(cache["v"].float().abs().max())
+    err = float((comb.double() - ref).abs().max()) / scale
+    err_plain = float((plain.double() - ref).abs().max()) / scale
+    err_out = float((got.float() - want.float()).abs().max()) / float(want.float().abs().max())
+    kv_bytes = 2 * cache["k"].numel() * cache["k"].element_size()
+    log(f"long {what} [{card}]: d {cfg.d_model}, {cfg.n_heads} heads, {cfg.n_kv_heads} kv, "
+        f"head dim {cfg.head_dim}, bf16, one decode step at position {cache_len} over "
+        f"{slots} slots: whole {whole_ms} ms; {LONG_SHARES} shares of {slots // LONG_SHARES} "
+        f"slots {ms} ms (sum {sum(ms)}), combine {comb_ms} ms (CUDA events); k + v bytes "
+        f"{kv_bytes} whole, {kv_bytes // LONG_SHARES} a share; float32 attention against "
+        f"float64, over max |v| {scale}: shares combined {err}, the whole's plain {err_plain}; "
+        f"the layer's bf16 output against the whole's {err_out} (over its max)")
+    if not (err <= LONG_F32_TOL and err_out <= LONG_BF16_TOL):
+        raise AssertionError(f"long {what}: the shares' attention is {err} from float64 "
+                             f"(tolerance {LONG_F32_TOL}), their layer output {err_out} from "
+                             f"the whole's ({LONG_BF16_TOL})")
+    del p, cache, ref, plain
+    torch.cuda.empty_cache()
+
+
+def _long_moe(torch, dev, card: str) -> None:
+    """(c) mixtral-8x22b's MoE layer at its published widths over
+    LONG_MOE_TOKENS tokens, whole (the unmeshed single-stage layer) and as
+    LONG_SHARES data shares with whole experts: each routes its tokens, the
+    expert ids stacked in rank order (the gather by hand), then `moe_share`
+    on its own rows; the outputs concatenated against the whole."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as M
+
+    cfg = dataclasses.replace(get_config("mixtral-8x22b"), moe_dp=0)
+    g = torch.Generator(device=dev).manual_seed(5)
+    layer, init_ms = _timed(torch, lambda: M.init_moe(g, cfg, dev).requires_grad_(False))
+    expert_bytes = sum(t.numel() * t.element_size() for t in (layer.wi, layer.wg, layer.wo))
+    x = torch.randn((1, LONG_MOE_TOKENS, cfg.d_model), generator=g, device=dev,
+                    dtype=torch.bfloat16)
+    M.moe_ffn(layer, x, cfg)   # warm-up
+    (want, _), whole_ms = _event_ms(torch, lambda: M.moe_ffn(layer, x, cfg))
+    xf = x.reshape(-1, cfg.d_model)
+    tl = LONG_MOE_TOKENS // LONG_SHARES
+    rows = []
+    ffn = M.expert_ffn
+
+    def probe(wi, wg, wo, buf):
+        rows.append(buf.shape[1])
+        return ffn(wi, wg, wo, buf)
+
+    def shares():
+        routed = [M.route(layer, xf[r * tl:(r + 1) * tl], cfg) for r in range(LONG_SHARES)]
+        ids = torch.stack([e for _, _, e in routed])
+        outs, ms = [], []
+        for r, (_, gate, eidx) in enumerate(routed):
+            o, m = _event_ms(torch, lambda: M.moe_share(
+                xf[r * tl:(r + 1) * tl], gate, eidx, ids, r, layer.wi, layer.wg, layer.wo, 0,
+                cfg))
+            outs.append(o)
+            ms.append(m)
+        return torch.cat(outs), ms
+
+    M.expert_ffn = probe
+    try:
+        shares()   # warm-up
+        rows.clear()
+        got, ms = shares()
+    finally:
+        M.expert_ffn = ffn
+    cap = M.capacity(LONG_MOE_TOKENS, cfg)
+    err = float((got.float() - want.reshape(got.shape).float()).abs().max()) / float(
+        want.float().abs().max())
+    log(f"long (c) mixtral-8x22b MoE layer [{card}]: {cfg.n_experts} experts x 3 x "
+        f"{cfg.d_model} x {cfg.moe_d_ff} ({expert_bytes} bytes bf16, drawn in {init_ms} ms), "
+        f"{LONG_MOE_TOKENS} tokens, capacity {cap}: whole (single-stage, {cfg.n_experts} x "
+        f"{cap} rows) {whole_ms} ms; {LONG_SHARES} shares of {tl} tokens, rows an expert "
+        f"{rows} ({cfg.n_experts} x {rows[0] if rows else 0} a share; {cfg.n_experts} x {cap} "
+        f"before C15), {ms} ms (sum {sum(ms)}; CUDA events, the routing outside); the "
+        f"concatenated outputs against the whole's {err} (over its max |.|)")
+    if rows != [min(tl, cap)] * LONG_SHARES or not err <= LONG_BF16_TOL:
+        raise AssertionError(f"long (c): rows {rows}, expected {min(tl, cap)} a share; "
+                             f"outputs {err} from the whole's (tolerance {LONG_BF16_TOL})")
+    del layer, x, xf, want, got
+    torch.cuda.empty_cache()
+
+
+def long_phase(torch, dev, card: str) -> None:
+    """(a) jamba's attention layer at long_500k as the single-pod mesh's 16
+    sequence shares, (b) mixtral's ring past the window, (c) mixtral's MoE
+    layer as 16 data shares on their own rows, (d) the dry-run's long_500k
+    jamba cells: `argument_bytes` = parameters + the rank's cache + batch
+    (the module's docstring, phase 15)."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import get_config
+
+    t0 = time.perf_counter()
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_long_")
+    child = _long_dryrun_child(out_dir)
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        _long_attention(torch, dev, card, LONG_ARCH, LONG_SLOTS, LONG_SLOTS - 1,
+                        f"(a) {LONG_ARCH} attention layer, long_500k")
+        window = get_config("mixtral-8x22b").sliding_window
+        _long_attention(torch, dev, card, "mixtral-8x22b", window, window + LONG_RING_PAST,
+                        "(b) mixtral-8x22b ring")
+        _long_moe(torch, dev, card)
+        log(f"long: peak memory {torch.cuda.max_memory_allocated()}")
+        out = _finish(child, f"the dry-run of {LONG_ARCH} long_500k")
+        for mesh_kind in ("single", "multi"):
+            with open(f"{out_dir}/{LONG_ARCH}__long_500k__{mesh_kind}.json") as f:
+                r = json.load(f)
+            if r["status"] != "ok":
+                raise AssertionError(f"long (d): {mesh_kind}: {r['status']} {r.get('error')}"
+                                     f"\n{out}")
+            h, mem = r["hlo"], r["live_memory"]
+            want = r["params_bytes_per_device"] + r["cache_bytes_per_device"] + 4
+            log(f"long (d) {LONG_ARCH} long_500k {mesh_kind}: argument_bytes "
+                f"{mem['argument_bytes']} = params {r['params_bytes_per_device']} + cache "
+                f"{r['cache_bytes_per_device']} + 4 (the token) {mem['argument_bytes'] == want}"
+                f"; peak_bytes {mem['peak_bytes']} flops_per_device {h['flops_per_device']} "
+                f"hbm_bytes_per_device {h['hbm_bytes_per_device']} calls "
+                f"{h['collective_counts']} run_seconds {r['run_seconds']}")
+            if mem["argument_bytes"] != want:
+                raise AssertionError(f"long (d): {mesh_kind} argument_bytes "
+                                     f"{mem['argument_bytes']} != {want}")
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+        shutil.rmtree(out_dir, ignore_errors=True)
+    log(f"long: phase {time.perf_counter() - t0} s")
+
+
 def _cost_children(out_dir):
     """Start the phase's CPU processes (no card: CUDA_VISIBLE_DEVICES
     empty): the dry-run's command line on each COST_CELLS cell, and the
@@ -3534,7 +3798,7 @@ def cost_phase(torch, ops, dev, card: str) -> None:
     """(a) the dry-run's production cells by its command line, (b) the
     card's count of a full-width prefill against its meta count and
     torch.profiler, (c) its FLOPs over its time (the module's docstring,
-    phase 15)."""
+    phase 16)."""
     from repro_torch.configs import ShapeSpec, get_config
     from repro_torch.core import distributed as D
     from repro_torch.launch import dryrun
@@ -4429,8 +4693,8 @@ def train_profile(torch, ops, card: str) -> None:
 
 def main() -> int:
     only = sys.argv[2] if sys.argv[1:2] == ["--only"] and len(sys.argv) == 3 else None
-    if sys.argv[1:] and only not in ("serving", "sharded", "moe_ep", "tp", "cost"):
-        print("usage: chip_smoke.py [--only serving|sharded|moe_ep|tp|cost]",
+    if sys.argv[1:] and only not in ("serving", "sharded", "moe_ep", "tp", "long", "cost"):
+        print("usage: chip_smoke.py [--only serving|sharded|moe_ep|tp|long|cost]",
               file=sys.stderr)
         return 2
     if not (SRC / "repro_torch").is_dir():
@@ -4477,6 +4741,8 @@ def main() -> int:
             moe_ep_phase(torch, ops, dev, card)
         elif only == "tp":
             tp_phase(torch, ops, dev, card)
+        elif only == "long":
+            long_phase(torch, dev, card)
         elif only == "cost":
             cost_phase(torch, ops, dev, card)
         else:
@@ -4529,6 +4795,7 @@ def main() -> int:
     CHURN_SHAPES.update(SHARDED_CHURN_SHAPES)
     moe_ep_phase(torch, ops, dev, card)
     tp_phase(torch, ops, dev, card)
+    long_phase(torch, dev, card)
     # last: once torch.profiler has traced the card, every later launch in
     # this process pays its callbacks, so no host-clock figure comes after
     rows = shapes_phase(torch, ops, ref, catalog, reqs, ivf_index, pq_index, dev,

@@ -130,8 +130,9 @@ def mesh_device(mesh) -> torch.device:
 # on a growth or a compaction, "gather_rows" for a caller's gather of a
 # sharded tensor; the expert-parallel MoE's "moe_weights" (fsdp gathers),
 # "moe_ids", "moe_aux" and "moe_combine" (models/moe.py); the layout run's
-# sites (`sharding/tp.py`); a backward's collective at its forward's
-# site + ".grad"
+# sites (`sharding/tp.py`), "attn_seq" among them (a decode's softmax
+# partials over a sequence-sharded cache); a backward's collective at its
+# forward's site + ".grad"
 COLLECTIVES: Counter = Counter()
 COLLECTIVE_SITES: Counter = Counter()
 # one tensor in, the group's tensors concatenated out (newer PyTorch names

@@ -43,10 +43,15 @@ cache) and runs its step once under `launch.cost.CostMode`, which counts
 The reference's `loops` has no counterpart: an eager run executes every
 layer, microbatch and chunk, so nothing is multiplied by a trip count.
 Where the batch does not divide the batch axes (long_500k's global batch
-1) every rank runs the whole batch over its whole cache (the port has no
-sequence-sharded cache: `cache_bytes_per_device` counts the reference's
-layout, `live_memory` the port's).  A cell the layout cannot run is
-written `failed` with its error and traceback.
+1) every rank holds the whole batch and its slice S / (pod x data) of the
+sequence of every KV and latent cache, as the reference's layout
+(`specs.batch_whole`, `cache_pspecs`): `live_memory`'s argument bytes
+are the rank's parameters, that cache (`cache_bytes_per_device`) and the
+batch; a decode step writes the new token on the rank that owns its slot
+and gathers each attention layer's softmax partials over the batch axes
+(site "attn_seq"); its MoE routes the whole batch as the unmeshed layer.
+A cell the layout cannot run is written `failed` with its error and
+traceback.
 
 The fake world is the process's, so the cost record is computed only
 where the caller asks (`main(argv, cost=True)`, as the command line
@@ -91,21 +96,6 @@ from repro_torch.train.optimizer import OptConfig, init_opt, param_groups
 from repro_torch.train.train_step import TrainStep
 
 ACAI_ARCH, ACAI_SHAPE = "acai-retrieval", "retrieval_b4096"
-
-
-@contextlib.contextmanager
-def world_less_mesh(multi_pod: bool, smoke: bool = False):
-    """The production mesh (`production_mesh_shape`) over a fake world of
-    its size, this process its rank 0 (`launch.mesh.fake_world`), or with
-    `smoke` the (1, 1) mesh of a one-rank fake world; the world is closed
-    on exit."""
-    shape = {"data": 1, "model": 1} if smoke else production_mesh_shape(multi_pod)
-    fake_world(int(S.axis_size(shape, tuple(shape))))
-    try:
-        yield make_mesh(tuple(shape.values()),
-                        POD_AXES if len(shape) == 3 else SERVING_AXES)
-    finally:
-        dist.destroy_process_group()
 
 
 def _accum_for(shape) -> int:
@@ -171,8 +161,8 @@ def build_lowering(cfg, shape, mesh, multi_pod: bool, seed: int = 0):
     mesh_shape = mesh_shape_dict(mesh)
     info = cell_bytes(cfg, shape, mesh_shape, multi_pod)
     axes = batch_axes(multi_pod)
-    bsz = S.axis_size(mesh_shape, axes)
-    b = shape.global_batch // bsz if shape.global_batch % bsz == 0 else shape.global_batch
+    whole = S.batch_whole(shape.global_batch, mesh_shape, axes)
+    b = shape.global_batch if whole else shape.global_batch // S.axis_size(mesh_shape, axes)
     info["batch_per_device"] = b
     rank_shape = dataclasses.replace(shape, global_batch=b)
     batch = (input_specs(cfg, rank_shape) if dev.type == "meta"
@@ -185,22 +175,22 @@ def build_lowering(cfg, shape, mesh, multi_pod: bool, seed: int = 0):
         step = TrainStep(cfg, OptConfig(name=cfg.optimizer), info["accum"])
 
         def run():
-            with mesh_context(mesh, axes):
+            with mesh_context(mesh, axes, shape.global_batch):
                 step(model, state, batch, 0)
     else:
-        with mesh_context(mesh, axes):
+        with mesh_context(mesh, axes, shape.global_batch):
             state = init_cache(cfg, b, shape.seq_len, device=dev)
         if shape.kind == "prefill":
             prefill = make_prefill(cfg, shape.seq_len)
 
             def run():
-                with mesh_context(mesh, axes), torch.no_grad():
+                with mesh_context(mesh, axes, shape.global_batch), torch.no_grad():
                     prefill(model, batch, state)
         else:
             decode = make_decode_step(cfg)
 
             def run():
-                with mesh_context(mesh, axes), torch.no_grad():
+                with mesh_context(mesh, axes, shape.global_batch), torch.no_grad():
                     decode(model, state, batch["tokens"], shape.seq_len - 1,
                            positions3=batch.get("positions3"))
     args = _tensors(dict(model.named_parameters())) + _tensors(state) + _tensors(batch)

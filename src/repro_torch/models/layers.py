@@ -136,18 +136,99 @@ def _sdpa(q, k, v, mask):
     return out.reshape(b, s, h, v.shape[-1]).to(q.dtype)
 
 
+# --------------------------------------------------------------------------
+# Decode over a sequence-sharded cache: each rank's softmax partials over its
+# slots, combined in rank order
+# --------------------------------------------------------------------------
+
+def softmax_partials(logits: torch.Tensor, values) -> torch.Tensor:
+    """The partial softmax of masked float32 `logits` (..., T) over one
+    rank's T slots: (..., Dv + 2) float32 holding the unnormalised output
+    `values(p)` (..., Dv) with p = exp(logits - m), then the row max m and
+    the sum l of p.  A row with no kept slot has m = -inf, l = 0 and o =
+    0."""
+    m = logits.amax(-1)
+    p = torch.exp(logits - torch.where(torch.isfinite(m), m, 0.0)[..., None])
+    return torch.cat([values(p), m[..., None], p.sum(-1)[..., None]], dim=-1)
+
+
+def combine_partials(parts: torch.Tensor) -> torch.Tensor:
+    """Every rank's `softmax_partials` stacked (n, ..., Dv + 2) in rank order
+    -> the softmax-weighted output (..., Dv) float32: each rank's o and l
+    scaled by exp(m_r - max m) and summed in rank order, so every rank
+    that combines the same gathered partials holds the same numbers.  A
+    rank with no kept slot adds nothing; a row no rank keeps gives 0."""
+    o, m, l = parts[..., :-2], parts[..., -2], parts[..., -1]
+    big = m.amax(0)
+    big = torch.where(torch.isfinite(big), big, 0.0)
+    acc = torch.zeros_like(o[0])
+    den = torch.zeros_like(l[0])
+    for r in range(parts.shape[0]):
+        a = torch.exp(m[r] - big)                 # 0 where m_r = -inf
+        acc = acc + a[..., None] * o[r]
+        den = den + a * l[r]
+    return acc / torch.clamp_min(den, 1e-30)[..., None]
+
+
+def sdpa_partials(q, k, v, mask) -> torch.Tensor:
+    """`_sdpa`'s float32 logits over one rank's slots (q (B, S, H, D), k / v
+    (B, T, KV, D), the additive (S, T) mask) as `softmax_partials`: (B, S,
+    H, Dv + 2)."""
+    b, s, h, dd = q.shape
+    kvh = k.shape[2]
+    qg = q.reshape(b, s, kvh, h // kvh, dd)
+    logits = torch.einsum("bskgd,btkd->bkgst", qg.float(), k.float()) / dd ** 0.5
+    part = softmax_partials(logits + mask,
+                            lambda p: torch.einsum("bkgst,btkd->bkgsd", p, v.float()))
+    return part.permute(0, 3, 1, 2, 4).reshape(b, s, h, part.shape[-1])
+
+
+def seq_mask(s: int, q_offset: int, kv_positions: torch.Tensor, cfg: ModelConfig,
+             written_upto: int | None = None) -> torch.Tensor:
+    """The (s, T) additive mask of a rank's slots at absolute positions
+    `kv_positions` (< 0: never written), query rows from `q_offset`: the
+    causal and window rules, and slots at or past `written_upto`."""
+    mask = _attention_mask(s, kv_positions.shape[0], q_offset, cfg,
+                           kv_positions=kv_positions, device=kv_positions.device)
+    dead = kv_positions < 0
+    if written_upto is not None:
+        dead = dead | (kv_positions >= written_upto)
+    return mask.masked_fill(dead[None, :], float("-inf"))
+
+
+def write_slots(leaf: torch.Tensor, new: torch.Tensor, first: int, lo: int) -> None:
+    """Write `new` (B, s, ...) at the whole cache's slots [first, first + s)
+    into `leaf`, a rank's block of slots [lo, lo + T): only the slots the
+    block owns."""
+    t, s = leaf.shape[1], new.shape[1]
+    a, b = max(first, lo), min(first + s, lo + t)
+    if a < b:
+        leaf[:, a - lo:b - lo] = new[:, a - first:b - first].to(leaf.dtype)
+
+
+def seq_attention(q, k, v, mask, seq) -> torch.Tensor:
+    """q over a rank's slots k / v under `mask` (`seq_mask`), combined with
+    every rank's over theirs (`seq.exchange`, then `combine_partials`):
+    (B, S, H, Dv) in q's dtype, the whole cache's softmax attention."""
+    return combine_partials(seq.exchange(sdpa_partials(q, k, v, mask))).to(q.dtype)
+
+
 def attention_core(q, k, v, q_offset: int, cfg: ModelConfig, kv_positions=None,
-                   written_upto: int | None = None):
+                   written_upto: int | None = None, flash_t: int | None = None):
     """Dispatch between the dense-mask and flash paths, on the reference's
-    condition.  The flash path is `ops.flash_attention`: the CUDA kernel
-    on a CUDA tensor (whatever `use_pallas_attention` says), its plain
-    version on the CPU; where autograd records (the training forward), it
-    goes through `ops.FlashAttentionFn`, whose backward recomputes the
-    plain version chunk by chunk (chunk cfg.flash_chunk)."""
+    condition, which reads the key length `flash_t` (default k's: a
+    prefill into a sequence-sharded cache attends over the prompt's own
+    keys and passes the whole cache's).  The flash path is
+    `ops.flash_attention`: the CUDA kernel on a CUDA tensor (whatever
+    `use_pallas_attention` says), its plain version on the CPU; where
+    autograd records (the training forward), it goes through
+    `ops.FlashAttentionFn`, whose backward recomputes the plain version
+    chunk by chunk (chunk cfg.flash_chunk)."""
     s, t = q.shape[1], k.shape[1]
+    ft = t if flash_t is None else flash_t
     thresh = cfg.flash_threshold or FLASH_THRESHOLD
     chunk = cfg.flash_chunk or FLASH_CHUNK
-    use_flash = (s > 1 and t >= thresh and t % chunk == 0 and kv_positions is None)
+    use_flash = (s > 1 and ft >= thresh and ft % chunk == 0 and kv_positions is None)
     if use_flash:
         # a rank whose query heads read some of the cache's kv heads gets a
         # strided slice of them (`_kv_for`); the kernel takes whole rows
@@ -232,7 +313,7 @@ def _kv_for(k, k_lo: int, h_lo: int, h_hi: int, group: int):
 def attention_local(p, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig,
                     rank: int = 0, n_model: int = 1, cache: dict | None = None,
                     cache_len: int = 0, positions3: torch.Tensor | None = None,
-                    share=None, gather=None) -> torch.Tensor:
+                    share=None, gather=None, seq=None) -> torch.Tensor:
     """One rank's attention with no collective: `p` holds the rank's blocks
     (wq / wk / wv (d, ·) column blocks, or whole; wo (·, d) a row block,
     or whole; the biases with their columns), `rank` / `n_model` its
@@ -247,7 +328,15 @@ def attention_local(p, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfi
     partial: x before a column block, and a whole projection's output.
     The cache holds the kv heads the rank has: its block's, or all of
     them where its block split heads.  With rank 0 of 1 and whole weights
-    this is the unsharded attention."""
+    this is the unsharded attention.
+
+    `seq` (`tp.SeqShard`): the cache holds the rank's slots [seq.lo, seq.lo
+    + T) of seq.whole, the batch whole on every rank.  A token is written
+    by the rank that owns its slot (the ring's p mod W); a prefill attends
+    over the prompt's own keys, a decode step over the rank's slots, each
+    masked by its absolute position, as `sdpa_partials` whose every
+    rank's partials `seq.exchange` gathers and `combine_partials` sums in
+    rank order."""
     b, s, _ = x.shape
     hd, h, kvh = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
     partial = p.wo.shape[0] != h * hd
@@ -291,31 +380,46 @@ def attention_local(p, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfi
         if ck.shape[2] != k.shape[2]:
             raise ValueError(f"the cache holds {ck.shape[2]} kv heads; this rank's "
                              f"projection gives {k.shape[2]} (init_cache under the mesh)")
-        s_max = ck.shape[1]
+        s_max = ck.shape[1] if seq is None else seq.whole
+        lo = 0 if seq is None else seq.lo
+        slots = lo + torch.arange(ck.shape[1], device=x.device)
         if cfg.sliding_window and s_max <= cfg.sliding_window:
             # ring buffer: slot(p) = p mod W; after the write, slot j holds
             # absolute position last - ((last - j) mod W) (< 0: never written)
             last = cache_len + s - 1
-            slots = torch.arange(s_max, device=x.device)
             slot_pos = last - torch.remainder(last - slots, s_max)
             if s == 1:
-                slot = cache_len % s_max
-                ck[:, slot:slot + 1] = k.to(ck.dtype)
-                cv[:, slot:slot + 1] = v.to(cv.dtype)
-                out = attention_core(q, kv(ck), kv(cv), cache_len, cfg,
-                                     kv_positions=slot_pos)
+                write_slots(ck, k, cache_len % s_max, lo)
+                write_slots(cv, v, cache_len % s_max, lo)
+                if seq is None:
+                    out = attention_core(q, kv(ck), kv(cv), cache_len, cfg,
+                                         kv_positions=slot_pos)
+                else:
+                    out = seq_attention(q, kv(ck), kv(cv),
+                                        seq_mask(s, cache_len, slot_pos, cfg), seq)
             else:
-                # prefill: place the last W tokens at their ring slots; the
-                # attention runs over the full (windowed) sequence
+                # prefill: place the last W tokens at their ring slots (the
+                # rank's slots of the ring); the attention runs over the full
+                # (windowed) sequence
                 gather_idx = torch.clamp(slot_pos, 0, s - 1)
                 ck.copy_(k[:, gather_idx].to(ck.dtype))
                 cv.copy_(v[:, gather_idx].to(cv.dtype))
                 out = attention_core(q, kv(k), kv(v), 0, cfg)
-        else:
+        elif seq is None:
             ck[:, cache_len:cache_len + s] = k.to(ck.dtype)
             cv[:, cache_len:cache_len + s] = v.to(cv.dtype)
             out = attention_core(q, kv(ck), kv(cv), cache_len, cfg,
                                  written_upto=cache_len + s)
+        else:
+            write_slots(ck, k, cache_len, lo)
+            write_slots(cv, v, cache_len, lo)
+            if s > 1 and cache_len == 0:
+                # prefill: the prompt's own keys (the batch is whole on the
+                # rank), on the whole cache's flash condition
+                out = attention_core(q, kv(k), kv(v), 0, cfg, flash_t=s_max)
+            else:
+                out = seq_attention(q, kv(ck), kv(cv),
+                                    seq_mask(s, cache_len, slots, cfg, cache_len + s), seq)
     out = out.reshape(b, s, (h_hi - h_lo) * hd)
     if partial:
         out = out[..., c0 - h_lo * hd:c0 - h_lo * hd + rows]
@@ -335,7 +439,10 @@ def attention(p: Attention, x: torch.Tensor, positions: torch.Tensor,
     Under a mesh context the weights are the rank's blocks (`sharding.tp`):
     gathered over `data` under fsdp, then `attention_local` on the rank's
     heads with its counted collectives, and the partial reduced over
-    `model` where wo's rows split over it."""
+    `model` where wo's rows split over it.  A cache whose sequence splits
+    over the batch axes (`tp.seq_shard`: the context's batch is whole)
+    takes one counted all-gather of the decode's partials a batch axis of
+    more than one rank (site "attn_seq")."""
     if mesh_ctx.current() is None:
         return attention_local(p, x, positions, cfg, cache=cache, cache_len=cache_len,
                                positions3=positions3)
@@ -350,7 +457,8 @@ def attention(p: Attention, x: torch.Tensor, positions: torch.Tensor,
     out = attention_local(w, x, positions, cfg, tp.rank(tp.MODEL), tp.size(tp.MODEL),
                           cache=cache, cache_len=cache_len, positions3=positions3,
                           share=lambda t: tp.replicated_input(t, "attn_in"),
-                          gather=lambda t: tp.gather_model(t, -1, "attn_heads"))
+                          gather=lambda t: tp.gather_model(t, -1, "attn_heads"),
+                          seq=None if cache is None else tp.seq_shard(cache["k"]))
     return tp.reduce_model(out, "attn_out") if tp.over_model(w.specs["wo"]) else out
 
 

@@ -89,7 +89,7 @@ def _weight_heads(w: torch.Tensor, n_heads: int, hd: int, rank: int, n_model: in
 
 def mla_local(p, x: torch.Tensor, q_lat, kv_lat: torch.Tensor, positions: torch.Tensor,
               cfg: ModelConfig, rank: int = 0, n_model: int = 1, cache: dict | None = None,
-              cache_len: int = 0, share=None, gather=None) -> torch.Tensor:
+              cache_len: int = 0, share=None, gather=None, seq=None) -> torch.Tensor:
     """One rank's MLA from the whole latents (`mla_latents`' outputs, whole:
     gathered over `model` by the wrapper), with no collective of its own
     but `gather`.  `p` holds the rank's blocks: wq_b / wk_b / wv_b (and wq)
@@ -104,7 +104,15 @@ def mla_local(p, x: torch.Tensor, q_lat, kv_lat: torch.Tensor, positions: torch.
     replicated tensor meets work of the rank's own: the input of a column
     block, and, where the rank computes a subset of the heads, a whole
     projection's output and the rope key.  With rank 0 of 1 and whole
-    weights this is the unsharded MLA."""
+    weights this is the unsharded MLA.
+
+    `seq` (`tp.SeqShard`): the cache holds the rank's latent slots [seq.lo,
+    seq.lo + T) of seq.whole, the batch whole on every rank: a token's
+    latent is written by the rank that owns its slot; a prefill attends
+    over the prompt's own latents (on the whole cache's flash condition);
+    both decode paths take the softmax partials over the rank's slots
+    (the materialized one expands K / V from those slots only), gathered
+    by `seq.exchange` and summed in rank order (`layers.combine_partials`)."""
     b, s, _ = x.shape
     h = cfg.n_heads
     nope, rope_d, vdim = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
@@ -138,13 +146,24 @@ def mla_local(p, x: torch.Tensor, q_lat, kv_lat: torch.Tensor, positions: torch.
 
     if cache is not None:
         ckv_all, krope_all = cache["ckv"], cache["krope"]
-        ckv_all[:, cache_len:cache_len + s] = ckv.to(ckv_all.dtype)
-        krope_all[:, cache_len:cache_len + s] = krope.to(krope_all.dtype)
+        if seq is None:
+            ckv_all[:, cache_len:cache_len + s] = ckv.to(ckv_all.dtype)
+            krope_all[:, cache_len:cache_len + s] = krope.to(krope_all.dtype)
+        else:
+            L.write_slots(ckv_all, ckv, cache_len, seq.lo)
+            L.write_slots(krope_all, krope, cache_len, seq.lo)
     else:
         ckv_all, krope_all = ckv, krope
-    t = ckv_all.shape[1]
     nh = h_hi - h_lo
     decode = cache is not None and s == 1
+    # over a sequence-sharded cache: a prefill reads the prompt's own
+    # latents, any other step the rank's slots (partials)
+    seq_prefill = seq is not None and s > 1 and cache_len == 0
+    if seq_prefill:
+        ckv_all, krope_all = ckv.to(ckv_all.dtype), krope.to(krope_all.dtype)
+    t = ckv_all.shape[1]
+    slot_pos = (None if seq is None or seq_prefill
+                else seq.lo + torch.arange(t, device=x.device))
 
     if cfg.mla_absorbed_decode and decode:
         # attention against the latent cache: O(T kv_rank H) a token
@@ -156,9 +175,15 @@ def mla_local(p, x: torch.Tensor, q_lat, kv_lat: torch.Tensor, positions: torch.
         logits = (torch.einsum("bshr,btr->bhst", q_abs, ckv_all.float())
                   + torch.einsum("bshp,btp->bhst", q_rope.float(), krope_all.float())
                   ) / (nope + rope_d) ** 0.5
-        written = torch.arange(t, device=x.device)[None, None, None, :] < cache_len + s
-        w = torch.softmax(logits.masked_fill(~written, float("-inf")), dim=-1)
-        ctx_lat = torch.einsum("bhst,btr->bshr", w, ckv_all.float())         # (B, 1, nh, kr)
+        if slot_pos is None:
+            written = torch.arange(t, device=x.device)[None, None, None, :] < cache_len + s
+            w = torch.softmax(logits.masked_fill(~written, float("-inf")), dim=-1)
+            ctx_lat = torch.einsum("bhst,btr->bshr", w, ckv_all.float())     # (B, 1, nh, kr)
+        else:
+            mask = L.seq_mask(s, cache_len, slot_pos, cfg, cache_len + s)
+            part = L.softmax_partials(
+                logits + mask, lambda p: torch.einsum("bhst,btr->bhsr", p, ckv_all.float()))
+            ctx_lat = L.combine_partials(seq.exchange(part)).transpose(1, 2)
         out = torch.einsum("bshr,rhv->bshv", ctx_lat, wv_b).reshape(b, s, nh * vdim)
         out = out[..., c0 - h_lo * vdim:c0 - h_lo * vdim + rows]
         return out.to(x.dtype) @ p.wo
@@ -174,9 +199,15 @@ def mla_local(p, x: torch.Tensor, q_lat, kv_lat: torch.Tensor, positions: torch.
     k_full = torch.cat([k_nope, krope_b], dim=-1)
     q_full = torch.cat([q_nope, q_rope], dim=-1).to(k_full.dtype)
     del k_nope, krope_b
-    written = None if cache is None else cache_len + s
-    out = L.attention_core(q_full, k_full, v, 0 if cache is None else cache_len, cfg,
-                           written_upto=written)
+    if slot_pos is not None:
+        out = L.seq_attention(q_full, k_full, v,
+                              L.seq_mask(s, cache_len, slot_pos, cfg, cache_len + s), seq)
+    elif seq_prefill:
+        out = L.attention_core(q_full, k_full, v, 0, cfg, flash_t=seq.whole)
+    else:
+        written = None if cache is None else cache_len + s
+        out = L.attention_core(q_full, k_full, v, 0 if cache is None else cache_len, cfg,
+                               written_upto=written)
     out = out.reshape(b, s, nh * vdim)[..., c0 - h_lo * vdim:c0 - h_lo * vdim + rows]
     return out.to(x.dtype) @ p.wo
 
@@ -193,7 +224,10 @@ def mla_attention(p: MLA, x: torch.Tensor, positions: torch.Tensor, cfg: ModelCo
     each needs an RMS norm over its whole width and the kv block may
     straddle the latent / rope-key boundary; then `mla_local` on the rank's
     heads, its partial reduced over `model` ("mla_out") where wo's rows
-    split.  The cache holds the whole latent and rope key on every rank.
+    split.  The cache holds the whole latent and rope key on every rank, or,
+    where the context's batch is whole, the rank's slots of them
+    (`tp.seq_shard`; one counted all-gather of a decode's partials a batch
+    axis of more than one rank, site "attn_seq").
 
     Gradients: a replicated tensor is marked by `replicated_input` (site
     "mla_in") where work of the rank's own reads it (x before a column
@@ -222,5 +256,6 @@ def mla_attention(p: MLA, x: torch.Tensor, positions: torch.Tensor, cfg: ModelCo
     gather = ((lambda t: tp.gather_model(t, -1, "mla_heads")) if partial
               else (lambda t: tp.gather_model_replicated(t, -1, "mla_heads")))
     out = mla_local(w, x, q_a, kv_a, positions, cfg, tp.rank(tp.MODEL), tp.size(tp.MODEL),
-                    cache=cache, cache_len=cache_len, share=share, gather=gather)
+                    cache=cache, cache_len=cache_len, share=share, gather=gather,
+                    seq=None if cache is None else tp.seq_shard(cache["ckv"]))
     return tp.reduce_model(out, "mla_out") if partial else out

@@ -159,42 +159,50 @@ def _init_layer_cache(cfg: ModelConfig, kind: tuple, batch: int, s_max: int, dty
     mixer_kind, _ = kind
     if mixer_kind == "attn":
         t = min(s_max, cfg.sliding_window) if cfg.sliding_window else s_max
-        shape = (batch, t, _kv_heads_of_rank(cfg), cfg.head_dim)
+        shape = (batch, t, cfg.n_kv_heads, cfg.head_dim)
         return {"k": torch.zeros(shape, dtype=dtype, device=device),
                 "v": torch.zeros(shape, dtype=dtype, device=device)}
     if mixer_kind == "mla":
         return MLA.init_mla_cache(cfg, batch, s_max, dtype, device)
-    return SSM.init_mamba_cache(cfg, batch, dtype, device,
-                                channels=_of_rank(cfg.d_inner + 2 * cfg.d_state),
-                                heads=_of_rank(cfg.ssm_heads))
-
-
-def _of_rank(n_whole: int) -> int:
-    """A rank's share of a cache dim that `specs.cache_pspecs` splits over
-    the mesh's `model` axis where it divides (all of it otherwise, and
-    with no mesh)."""
-    n = tp.size(tp.MODEL)
-    return n_whole // n if n_whole % n == 0 else n_whole
-
-
-def _kv_heads_of_rank(cfg: ModelConfig) -> int:
-    """The kv heads a rank's attention cache holds: KV / n_model where the
-    heads divide the mesh's `model` axis (`specs.cache_pspecs`), else all
-    KV (the rank gathers whole heads); KV with no mesh."""
-    return _of_rank(cfg.n_kv_heads)
+    return SSM.init_mamba_cache(cfg, batch, dtype, device)
 
 
 def init_cache(cfg: ModelConfig, batch: int, s_max: int, device=None) -> list:
     """Zeroed cache, one dict a layer by its mixer: attention {"k", "v"}
-    (batch, T, KV, D), T = min(s_max, sliding_window) under a window
-    (under a mesh context: batch the rank's, KV its kv heads);
-    MLA {"ckv", "krope"} (batch, s_max, ·), whole on every rank; mamba
-    {"conv" (batch, K-1, CH), "ssm" (batch, H, P, N) float32}, under a
-    mesh context the rank's block of CH and of H where they split."""
+    (batch, T, KV, D), T = min(s_max, sliding_window) under a window;
+    MLA {"ckv", "krope"} (batch, s_max, ·); mamba {"conv" (batch, K-1,
+    CH), "ssm" (batch, H, P, N) float32}.
+
+    Under a mesh context a rank's block of the whole cache
+    (`specs.cache_pspec`), each leaf carrying its spec as `pspec`:
+    `batch` is the rank's; the batch splits over the batch axes, or,
+    where the context's batch is whole (`ctx.batch_whole`), the sequence
+    of k / v (the window's ring too) and of ckv / krope splits over them,
+    where it divides; KV, CH and H split over `model` where they
+    divide."""
     device = resolve_device(device)
     dt = L.dtype_of(cfg)
-    return [_init_layer_cache(cfg, layer_kind(cfg, i), batch, s_max, dt, device)
-            for i in range(cfg.n_layers)]
+    ctx = mesh_ctx.current()
+    if ctx is None:
+        return [_init_layer_cache(cfg, layer_kind(cfg, i), batch, s_max, dt, device)
+                for i in range(cfg.n_layers)]
+    from repro_torch.launch.mesh import mesh_shape_dict
+    from repro_torch.sharding import specs
+
+    mesh_shape = mesh_shape_dict(ctx.mesh)
+    whole_batch = batch if ctx.batch_whole else batch * tp.size(ctx.batch_axes)
+    out = []
+    for i in range(cfg.n_layers):
+        layer = {}
+        for name, leaf in _init_layer_cache(cfg, layer_kind(cfg, i), whole_batch, s_max,
+                                            dt, "meta").items():
+            spec = specs.cache_pspec(name, tuple(leaf.shape), mesh_shape, ctx.batch_axes,
+                                     ctx.batch_whole)
+            layer[name] = torch.zeros(specs.local_shape(leaf.shape, spec, mesh_shape),
+                                      dtype=leaf.dtype, device=device)
+            layer[name].pspec = spec
+        out.append(layer)
+    return out
 
 
 def embed_lookup(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:

@@ -25,15 +25,19 @@ The load-balance loss is Switch's (fraction dot mean probability).
 with no mesh context open, the single-stage dispatch, or the per-block
 one when cfg.moe_dp > 1 divides the tokens; under `sharding.ctx`'s mesh
 context, the mesh form.  There a rank holds its data shard of the tokens
-(replicated over `model`) and its block of the layer
+(replicated over `model`), or the whole batch where the context says so
+(`ctx.batch_whole`: then routed as the unmeshed layer routes it, with no
+exchange over the batch axes and the aux not averaged over copies), and
+its block of the layer
 (`convert.moe_block` / `lm_params_block`; under cfg.fsdp its `data` slice
 of d in router, wi, wg and wo, gathered before use).  Where E divides the
 `model` axis a rank holds E / n_model experts (expert parallelism); else
 every expert and its block of the expert FFN dim, (None, fsdp, "model") /
 (None, "model", fsdp) by the specs (the reference's TP inside experts).
 `moe_local` is one rank's share of the shard_map branch with no
-collective; `moe_ffn` wraps the rank's share with the counted collectives
-of `core/distributed.py`:
+collective, and `moe_share` the rank's share of every other call; `moe_ffn`
+wraps the rank's share with the counted collectives of
+`core/distributed.py`:
   - the shard_map branch (expert parallel, moe_dp > 1 divides the GLOBAL
     token count): capacity and positions per (data shard, local expert),
     the aux the per-shard Switch loss averaged over the batch axes (one
@@ -44,7 +48,8 @@ of `core/distributed.py`:
     two-stage form) else one (the single-stage form), capacity and
     positions counted a block (the (t_local, k) expert ids gathered over
     the batch axes of more than one rank, one all-gather each, in their
-    row-major order); the aux the formula over all tokens (the shards'
+    row-major order), the rank's expert buffer only its own slots' rows
+    (`moe_share`); the aux the formula over all tokens (the shards'
     first-choice fractions and mean probabilities all-reduced, as the
     aux above);
   - both: the (t_local, d) partials all-reduced over `model` in the
@@ -231,6 +236,55 @@ def moe_local(x_local, router, wi, wg, wo, my_model_rank: int, n_model: int,
     return out, _aux_loss(logits, eidx, e)
 
 
+def moe_share(x_local, gate, eidx, ids, me: int, wi, wg, wo, e_rank: int, cfg: ModelConfig,
+              share=None):
+    """One rank's share of the dispatch over the global token order (the
+    mesh form's every call but the shard_map branch), with no collective.
+    ids (n_batch, tl, k): the expert ids of every batch rank's tl tokens
+    in rank order (the global token order), the rank's own at `me` (its
+    tokens x_local (tl, d), gates and ids eidx (tl, k)); wi / wg / wo the
+    rank's experts e_rank * E_rank .. (expert parallel) or all E with the
+    rank's block of each FFN (e_rank 0).  The tokens run in moe_dp blocks
+    where moe_dp > 1 divides them, else one; capacity and positions are
+    counted a block, so the same slots drop as in the unmeshed layer.
+
+    The rank's kept slots to expert e in a block are one run of positions:
+    after the block's earlier tokens' slots to e (counted from `ids`),
+    in its own tokens' order.  Its buffer holds those runs only: cap rows
+    for a block whose every token is the rank's (the unmeshed layer's
+    buffer), min(its tokens there, cap) for part of one (a token's k
+    experts are distinct, so it adds at most one slot to e).  Returns the
+    partial (tl, d), zero where no slot of a token is the rank's.  `share`
+    (the wrapper's `replicated_input`) marks the tokens and gates the
+    rank's experts read."""
+    n_batch, tl, k = ids.shape
+    e, e_loc = cfg.n_experts, wi.shape[0]
+    t = n_batch * tl
+    blocks = cfg.moe_dp if cfg.moe_dp > 1 and t % cfg.moe_dp == 0 else 1
+    bs = t // blocks
+    cap = capacity(bs, cfg)
+    safe, mine = _local_experts(eidx, e_rank, e_loc)
+    flat = ids.reshape(t * k)
+    first = me * tl
+    rows = torch.zeros_like(safe)
+    keep = torch.zeros_like(mine)
+    base = 0
+    for blk in range(first // bs, (first + tl - 1) // bs + 1):
+        a, z = max(blk * bs, first), min((blk + 1) * bs, first + tl)
+        earlier = flat[blk * bs * k:a * k]
+        off = torch.zeros(e, dtype=torch.int64, device=ids.device).scatter_add_(
+            0, earlier, torch.ones_like(earlier))[e_rank * e_loc:(e_rank + 1) * e_loc]
+        sl = slice(a - first, z - first)
+        local = slot_positions(safe[sl].reshape(-1), e_loc,
+                               mine[sl].reshape(-1)).reshape(z - a, k)
+        keep[sl] = mine[sl] & (off[safe[sl]] + local < cap)
+        rows[sl] = base + local
+        base += cap if z - a == bs else min(z - a, cap)
+    if share is not None:
+        x_local, gate = share(x_local), share(gate)
+    return _expert_sum(x_local, safe, rows, keep, gate, wi, wg, wo, base)
+
+
 def _batch_exchange_axes(mesh, batch_axes) -> list:
     """The axes of `batch_axes` the batch's reductions run over, one counted
     call each: those with more than one rank (both of ("pod", "data")
@@ -251,7 +305,9 @@ def _moe_expert_parallel(p: MoE, xf: torch.Tensor, cfg: ModelConfig, ctx):
     n_model = _axis_size(mesh, "model")
     my = _axis_rank(mesh, "model")
     b_axes = _batch_exchange_axes(mesh, ctx.batch_axes)
-    n_batch = _axis_size(mesh, ctx.batch_axes)
+    # a whole batch (every rank holds all of it) is routed as the unmeshed
+    # layer routes it: no exchange over the batch axes
+    n_batch = 1 if ctx.batch_whole else _axis_size(mesh, ctx.batch_axes)
 
     def over_batch(t, site):
         for a in b_axes:
@@ -272,30 +328,22 @@ def _moe_expert_parallel(p: MoE, xf: torch.Tensor, cfg: ModelConfig, ctx):
     def share(t):
         return replicated_input(t, mesh, "model", "moe_in")
 
-    k, tl = cfg.experts_per_token, xf.shape[0]
+    tl = xf.shape[0]
     t = tl * n_batch
     blocks = cfg.moe_dp if cfg.moe_dp > 1 and t % cfg.moe_dp == 0 else 1
-    if expert_parallel and blocks > 1:
+    if expert_parallel and blocks > 1 and not ctx.batch_whole:
         out, aux = moe_local(xf, w.router, w.wi, w.wg, w.wo, my, n_model, cfg, share)
         aux = over_batch(aux.reshape(1), "moe_aux")[0] / n_batch
     else:
         logits, gate, eidx = route(w.router, xf, cfg)
         ids = (all_gather_axes(eidx, mesh, ctx.batch_axes, "moe_ids") if n_batch > 1
                else eidx[None])                               # (n_batch, tl, k)
-        cap = capacity(t // blocks, cfg)
-        pos = slot_positions(ids.reshape(blocks, -1), e).reshape(n_batch, tl, k)
         me = _axis_rank(mesh, ctx.batch_axes) if n_batch > 1 else 0
-        pos = pos[me]
-        safe, mine = _local_experts(eidx, e_rank, w.wi.shape[0])
-        keep = mine & (pos < cap)
-        # a block's slots fill rows [block cap, (block + 1) cap) of each
-        # expert's buffer, so the blocks' positions never meet
-        block = (me * tl + torch.arange(tl, device=xf.device)) // (t // blocks)
-        out = _expert_sum(share(xf), safe, block[:, None] * cap + pos, keep, share(gate),
-                          w.wi, w.wg, w.wo, blocks * cap)
+        out = moe_share(xf, gate, eidx, ids, me, w.wi, w.wg, w.wo, e_rank, cfg, share)
         f = nn.functional.one_hot(eidx[:, 0], e).float().mean(0)
-        fp = over_batch(torch.stack([f, torch.softmax(logits, dim=-1).mean(0)]),
-                        "moe_aux") / n_batch
+        fp = torch.stack([f, torch.softmax(logits, dim=-1).mean(0)])
+        if not ctx.batch_whole:
+            fp = over_batch(fp, "moe_aux") / n_batch
         aux = e * torch.sum(fp[0] * fp[1])
     out = reduce_partials(out, mesh, "model", "moe_combine")
     if cfg.n_shared_experts:

@@ -111,15 +111,12 @@ def init_mamba(generator: torch.Generator, cfg: ModelConfig, device) -> Mamba:
     return Mamba(cfg, generator, device)
 
 
-def init_mamba_cache(cfg: ModelConfig, batch: int, dtype, device, channels: int | None = None,
-                     heads: int | None = None) -> dict:
-    """conv (batch, K-1, channels) and ssm (batch, heads, P, N) float32;
-    all CH = d_inner + 2 N channels and all heads by default (a rank of a
-    mesh holds its blocks: `models.model.init_cache`)."""
-    conv_ch = cfg.d_inner + 2 * cfg.d_state if channels is None else channels
-    nh = cfg.ssm_heads if heads is None else heads
-    return {"conv": torch.zeros((batch, cfg.d_conv - 1, conv_ch), dtype=dtype, device=device),
-            "ssm": torch.zeros((batch, nh, cfg.ssm_head_dim, cfg.d_state),
+def init_mamba_cache(cfg: ModelConfig, batch: int, dtype, device) -> dict:
+    """conv (batch, K-1, CH) and ssm (batch, H, P, N) float32, CH = d_inner
+    + 2 N (a rank of a mesh holds its blocks: `models.model.init_cache`)."""
+    return {"conv": torch.zeros((batch, cfg.d_conv - 1, cfg.d_inner + 2 * cfg.d_state),
+                                dtype=dtype, device=device),
+            "ssm": torch.zeros((batch, cfg.ssm_heads, cfg.ssm_head_dim, cfg.d_state),
                                dtype=torch.float32, device=device)}
 
 

@@ -129,10 +129,22 @@ def opt_pspecs(name: str, pspecs: dict, groups: dict) -> dict:
     return {"v": {k: factored(g) for k, g in groups.items()}, "count": ()}
 
 
+def batch_whole(global_batch: int, mesh_shape: dict, batch_ax) -> bool:
+    """Whether a batch of `global_batch` stays whole on every rank: `check`
+    drops the batch axes `batch_ax` (a name or a tuple) from its dim where
+    they do not divide it (long-context decode's global batch 1), and the
+    KV / latent caches then shard their sequence over those axes instead
+    (`cache_pspec`).  The one divisibility rule of the batch: the mesh
+    context decides it from here (`sharding.ctx.mesh_context`'s
+    `global_batch`), and so do `batch_pspecs` and `cache_pspecs`."""
+    return check((batch_ax,), (global_batch,), mesh_shape)[0] is None
+
+
 def batch_pspecs(cfg: ModelConfig, batch_specs: dict, multi_pod: bool,
                  mesh_shape: dict | None = None) -> dict:
     """The batch dim of every input over ("pod", "data") (positions3's
-    second dim); an axis that does not divide (global_batch 1) drops."""
+    second dim); an axis that does not divide (global_batch 1) drops, as
+    `batch_whole` says."""
     batch_ax = ("pod", "data") if multi_pod else ("data",)
     mesh_shape = mesh_shape or {}
     out = {}
@@ -145,31 +157,42 @@ def batch_pspecs(cfg: ModelConfig, batch_specs: dict, multi_pod: bool,
     return out
 
 
+def cache_pspec(name: str, shape, mesh_shape: dict, batch_ax, whole_batch: bool) -> tuple:
+    """The spec of one leaf of `models.init_cache`'s per-layer dicts, by its
+    name, over the whole `shape`: the batch over `batch_ax`, or, where the
+    batch stays whole (`whole_batch`, `batch_whole`'s verdict), the
+    sequence dim of the KV / latent caches over it; the kv-head / feature
+    dim over `model` where it divides.  An axis that does not divide its
+    dim drops (`check`): a sequence that does not divide the batch axes
+    stays whole on every rank."""
+    if name in ("k", "v"):            # (B, S, KV, D)
+        axes = ((None, batch_ax, "model", None) if whole_batch
+                else (batch_ax, None, "model", None))
+    elif name in ("ckv", "krope"):    # (B, S, R)
+        axes = (None, batch_ax, None) if whole_batch else (batch_ax, None, None)
+    elif name == "conv":              # (B, K-1, CH)
+        axes = (batch_ax, None, "model")
+    elif name == "ssm":               # (B, H, P, N)
+        axes = (batch_ax, "model", None, None)
+    else:
+        axes = (None,) * len(shape)
+    return check(axes, shape, mesh_shape)
+
+
 def cache_pspecs(cfg: ModelConfig, cache: list, mesh_shape: dict, multi_pod: bool) -> list:
-    """Specs of `models.init_cache`'s per-layer dicts: the batch over
-    ("pod", "data") (or, when the batch does not divide, as at long-context
-    decode's global batch 1, the sequence dim of the KV / latent caches),
-    the kv-head / feature dim over `model` where it divides."""
+    """Specs of `models.init_cache`'s per-layer dicts built whole (the global
+    batch): `cache_pspec` of every leaf, the batch whole where
+    `batch_whole` says so."""
     batch_ax = ("pod", "data") if multi_pod else ("data",)
-    bsz = axis_size(mesh_shape, batch_ax)
-
-    def spec(name: str, shape) -> tuple:
-        seq_shard = shape[0] % bsz != 0 if shape else False
-        if name in ("k", "v"):            # (B, S, KV, D)
-            axes = ((None, batch_ax, "model", None) if seq_shard
-                    else (batch_ax, None, "model", None))
-        elif name in ("ckv", "krope"):    # (B, S, R)
-            axes = (None, batch_ax, None) if seq_shard else (batch_ax, None, None)
-        elif name == "conv":              # (B, K-1, CH)
-            axes = (batch_ax, None, "model")
-        elif name == "ssm":               # (B, H, P, N)
-            axes = (batch_ax, "model", None, None)
-        else:
-            axes = (None,) * len(shape)
-        return check(axes, shape, mesh_shape)
-
-    return [{name: spec(name, tuple(leaf.shape)) for name, leaf in layer.items()}
+    return [{name: cache_pspec(name, tuple(leaf.shape), mesh_shape, batch_ax,
+                               batch_whole(leaf.shape[0], mesh_shape, batch_ax))
+             for name, leaf in layer.items()}
             for layer in cache]
+
+
+def local_shape(shape, spec: tuple, mesh_shape: dict) -> tuple:
+    """A rank's block of a whole `shape` laid out by `spec`."""
+    return tuple(dim // axis_size(mesh_shape, ax) for dim, ax in zip(shape, spec))
 
 
 def _is_leaf(x) -> bool:

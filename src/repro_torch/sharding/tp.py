@@ -37,13 +37,21 @@ loss over `model`), "loss" (the loss's sums over the batch axes),
 the logits are), "attn_bias" (a split bias of a whole matrix,
 `gather_model_replicated`), "grad_sync" (gradients of
 parameters not sharded over a batch axis), "grad_norm" and "adafactor";
-the MoE's own (models/moe.py).  A backward's collective is counted at its
+the MoE's own (models/moe.py), "attn_seq" (the partial softmax rows of
+an attention or MLA decode over a sequence-sharded cache, gathered over
+the batch axes: `seq_shard`).  A backward's collective is counted at its
 forward's site + ".grad".
+
+A cache leaf that `models.init_cache` built under the mesh context carries
+its spec as `pspec` too; `seq_shard` reads from it whether its sequence
+splits over the batch axes (`specs.cache_pspec`, where the context's batch
+is whole).
 """
 
 from __future__ import annotations
 
 from types import SimpleNamespace
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -179,3 +187,31 @@ def reduce_batch(x: torch.Tensor, site: str) -> torch.Tensor:
     for a in ctx.batch_axes:
         x = reduce_partials(x, ctx.mesh, a, site)
     return x
+
+
+class SeqShard(NamedTuple):
+    """A rank's block of a cache leaf whose sequence splits over the batch
+    axes: its slots are [lo, lo + its length) of the `whole` cache's, and
+    `exchange(t)` returns every rank's `t` stacked (n, ...) in rank order
+    (row-major over the axes)."""
+    lo: int
+    whole: int
+    exchange: Callable
+
+
+def seq_shard(leaf: torch.Tensor, dim: int = 1) -> SeqShard | None:
+    """The rank's block of `leaf`'s sequence dim `dim` where its spec (the
+    `pspec` `models.init_cache` recorded) splits it over mesh axes, its
+    exchange the counted all-gather over them (site "attn_seq", one call an
+    axis of more than one rank, innermost first); None with no mesh
+    context, no spec or a whole sequence."""
+    ctx = mesh_ctx.current()
+    spec = getattr(leaf, "pspec", None)
+    axes = () if ctx is None or spec is None else axes_of(spec[dim])
+    if not axes:
+        return None
+    from repro_torch.core.distributed import _axis_rank, _axis_size, all_gather_axes
+
+    mesh, t = ctx.mesh, leaf.shape[dim]
+    return SeqShard(_axis_rank(mesh, axes) * t, _axis_size(mesh, axes) * t,
+                    lambda x: all_gather_axes(x, mesh, axes, "attn_seq"))

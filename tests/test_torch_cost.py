@@ -249,6 +249,10 @@ COLL_CASES = [("qwen train", "qwen1.5-0.5b", "train_4k", {}),
 FLASH_CASE = ("qwen2-72b flash", "qwen2-72b", "prefill_32k",
               {"flash_threshold": 32, "flash_chunk": 16})
 COLL_MESHES = [(1, 2), (2, 2)]
+# ROADMAP C15: a SMOKE MoE prefill on world-less meshes of one and of two
+# batch ranks
+MOE_CASE = ("mixtral prefill", "mixtral-8x22b", "prefill_32k", {})
+MOE_MESHES = [(1, 1), (2, 1)]
 
 
 @pytest.fixture(scope="module")
@@ -264,6 +268,8 @@ def cells(tmp_path_factory):
     jobs = {(shape, fake): (shape, fake, COLL_CASES)
             for shape in COLL_MESHES for fake in (False, True)}
     jobs[((1, 4), True)] = ((1, 4), True, [FLASH_CASE])
+    for shape in MOE_MESHES:
+        jobs[(shape, True)] = (shape, True, [MOE_CASE])
     with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
         futs = {key: pool.submit(run_world, cost_rank, shape, tmp, cases, fake=fake)
                 for key, (shape, fake, cases) in jobs.items()}
@@ -633,6 +639,27 @@ def test_masked_formulas_equal_the_old_ones(live):
 # --------------------------------------------------------------------------
 # faults the production cells found
 # --------------------------------------------------------------------------
+
+def test_moe_expert_term_follows_the_rank_tokens(cells):
+    """ROADMAP C15: SMOKE mixtral's prefill (2 x 64 tokens, 4 experts, top-2,
+    dropless: cap(t) = 2 t) on a world-less (1, 1) mesh and on (2, 1).  On
+    one batch rank the expert buffers are the unmeshed layer's, cap(128) =
+    256 rows an expert; on two a rank's 64 tokens are part of the one
+    block and take min(64, 256) = 64 rows (every rank ran 256 before).
+    Every other dot halves with the rank's tokens, so the counts differ by
+    exactly the expert term 2 x 3 matmuls x E x rows x d x f a MoE layer."""
+    cfg, shape = SMOKE_ARCHS[MOE_CASE[1]], SMOKE_SHAPES[MOE_CASE[2]]
+    t = shape.global_batch * shape.seq_len
+    layers = sum(layer_kind(cfg, i)[1] == "moe" for i in range(cfg.n_layers))
+
+    def expert(rows):
+        return layers * 3 * 2.0 * cfg.n_experts * rows * cfg.d_model * cfg.moe_d_ff
+
+    one, two = (cells["worlds"][(m, True)][0][MOE_CASE[0]]["flops"] for m in MOE_MESHES)
+    assert cfg.capacity_factor <= 0 and layers > 0
+    assert two == (one - expert(t * cfg.experts_per_token)) / 2 + expert(t // 2)
+    assert two < one / 2
+
 
 def test_flash_on_a_strided_kv_slice(cells):
     """ROADMAP C11: a rank whose query heads read some of the cache's (whole)

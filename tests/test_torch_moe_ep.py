@@ -412,3 +412,118 @@ def test_forward_with_the_batch_over_two_axes_matches_unmeshed_reference(pod_wor
         got = np.concatenate([pod_world[r * 2][name]["logits"] for r in range(4)])
         np.testing.assert_allclose(got, np.asarray(want.logits), rtol=FWD_TOL, atol=FWD_TOL,
                                    err_msg=name)
+
+
+# --------------------------------------------------------------------------
+# ROADMAP C15: a rank's expert buffer holds its own slots' rows only
+# --------------------------------------------------------------------------
+
+ROW_MESHES = [(2, 2), (2, 1), (4, 1), (2, 2, 2)]
+# 6 experts: expert parallel at model 2 (3 a rank), all on a rank at model 1;
+# 3 experts: TP inside experts at model 2 (C7's layout), whole at model 1
+ROW_EXPERTS = (6, 3)
+_ROW_REF: dict = {}
+
+
+def _row_cfg(n_e, cf, dp) -> ModelConfig:
+    return _port_cfg(dataclasses.replace(J_SMOKE[ARCHS[0]], dtype="float32",
+                                         n_experts=n_e, capacity_factor=cf, moe_dp=dp))
+
+
+def _row_setup():
+    """Each row case's reference: the layer's leaves and the reference's
+    unmeshed moe_ffn (single-stage at moe_dp 0, two-stage at 2) on the
+    module's (4, 8, d) x, in this process."""
+    if not _ROW_REF:
+        from repro.models import moe as JM
+
+        x = np.random.default_rng(41).normal(size=(B, S, J_SMOKE[ARCHS[0]].d_model))
+        x = x.astype(np.float32)
+        for n_e in ROW_EXPERTS:
+            base = dataclasses.replace(J_SMOKE[ARCHS[0]], dtype="float32", n_experts=n_e)
+            p = JM.init_moe(jax.random.PRNGKey(40 + n_e), base)
+            leaves = {k: np.asarray(p[k], np.float32) for k in ("router", "wi", "wg", "wo")}
+            for cf in CFS:
+                for dp in (0, MOE_DP):
+                    c = dataclasses.replace(base, capacity_factor=cf, moe_dp=dp)
+                    out, _ = JM.moe_ffn(p, jax.numpy.asarray(x), c)
+                    _ROW_REF[(n_e, cf, dp)] = (leaves, np.asarray(out))
+        _ROW_REF["x"] = x
+    return _ROW_REF
+
+
+def _row_cases(shape):
+    """The cases `moe_share` takes on `shape`: moe_dp 0 always, moe_dp 2 where
+    the experts do not divide `model` (with expert parallelism moe_dp 2 is
+    the shard_map branch)."""
+    ref = _row_setup()
+    m = shape[-1]
+    return [(f"e{n_e}|{cf}|{dp}", _row_cfg(n_e, cf, dp), ref[(n_e, cf, dp)][0], ref["x"])
+            for n_e in ROW_EXPERTS for cf in CFS for dp in (0, MOE_DP)
+            if dp == 0 or n_e % m]
+
+
+@pytest.fixture(scope="module")
+def row_worlds(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("moe_rows")
+
+    def world(shape):
+        return [r["moe_rows"] for r in
+                run_world(jobs_rank, shape, tmp, [("moe_rows", _row_cases(shape))])]
+
+    with concurrent.futures.ThreadPoolExecutor(len(ROW_MESHES)) as pool:
+        return dict(zip(ROW_MESHES, pool.map(world, ROW_MESHES)))
+
+
+def rows_by_hand(t: int, n_batch: int, moe_dp: int, cap) -> int:
+    """A rank's buffer rows an expert: the rank's tl = t / n_batch tokens
+    against the block of bs = t / blocks tokens (blocks = moe_dp where it
+    divides t, else 1): one whole block -> its cap(bs) rows, part of one
+    -> min(tl, cap(bs)) (a token adds at most one slot to an expert), k
+    whole blocks -> k cap(bs).  Before C15's fix every rank ran blocks x
+    cap(bs)."""
+    tl = t // n_batch
+    bs = t // (moe_dp if moe_dp > 1 and t % moe_dp == 0 else 1)
+    if tl < bs:
+        return min(tl, cap(bs))
+    return tl // bs * cap(bs)
+
+
+@pytest.mark.parametrize("shape", ROW_MESHES)
+def test_rank_buffers_hold_their_own_rows(row_worlds, shape):
+    """C15: on every rank one expert buffer of (E_rank, rows, d), rows by
+    `rows_by_hand` (E_rank = E / model with expert parallelism, E under TP
+    inside experts), the same slots kept as the reference: the ranks'
+    outputs within 1e-5 of the reference's unmeshed moe_ffn."""
+    ref = _row_setup()
+    n_batch, m = int(np.prod(shape[:-1])), shape[-1]
+    b = B // n_batch
+    t = B * S
+    for name, cfg, _, _ in _row_cases(shape):
+        n_e = cfg.n_experts
+        e_rank = n_e // m if n_e % m == 0 else n_e
+        rows = rows_by_hand(t, n_batch, cfg.moe_dp, lambda n: TMOE.capacity(n, cfg))
+        want = ref[(n_e, cfg.capacity_factor, cfg.moe_dp)][1]
+        for r in row_worlds[shape]:
+            got = r[name]
+            assert got["buffers"] == [[e_rank, rows, cfg.d_model]], (name, got["buffers"])
+            np.testing.assert_allclose(got["out"], want[got["me"] * b:(got["me"] + 1) * b],
+                                       rtol=OUT_TOL, atol=OUT_TOL, err_msg=name)
+
+
+def test_rows_by_hand_against_the_old_global_buffer():
+    """The hand formula at the production cells (mixtral-8x22b train_4k, a
+    rank's 65536 tokens a microbatch on one pod, 32768 across pods, capacity
+    factor 1.25, 8 experts, top-2): the opt variant's one block a rank
+    keeps cap(65536) = 20480 / cap(32768) = 10240 rows of the 327680 every
+    rank ran before; the baseline's one global block min(tl, cap(t))."""
+    cfg = dataclasses.replace(_row_cfg(8, 1.25, 0), experts_per_token=2)
+
+    def cap(n):
+        return TMOE.capacity(n, cfg)
+
+    assert rows_by_hand(16 * 65536, 16, 16, cap) == 20480
+    assert rows_by_hand(32 * 32768, 32, 32, cap) == 10240
+    assert 16 * cap(65536) == cap(16 * 65536) == 327680
+    assert rows_by_hand(16 * 65536, 16, 0, cap) == 65536
+    assert rows_by_hand(32 * 32768, 32, 0, cap) == 32768

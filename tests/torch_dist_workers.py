@@ -130,7 +130,8 @@ def jobs_rank(mesh, rank, jobs) -> dict:
     fns = {"retrieval": retrieval_rank, "budgets": budgets_rank, "replay": replay_rank,
            "slab": slab_rank, "serving": serving_rank, "churn": churn_rank,
            "moe_ep": moe_ep_rank, "moe_forward": moe_forward_rank, "tp_serve": tp_serve_rank,
-           "tp_train": tp_train_rank, "two_axis": two_axis_rank}
+           "tp_train": tp_train_rank, "two_axis": two_axis_rank,
+           "seq_cache": seq_cache_rank, "moe_rows": moe_rows_rank}
     return {name: fns[name](mesh, rank, data) for name, data in jobs}
 
 def _np(t):
@@ -473,10 +474,15 @@ def _batch_axes(mesh) -> tuple:
 
 def _data_shard(x: np.ndarray, mesh) -> np.ndarray:
     """This rank's shard of a whole batch over the batch axes (rows r B / n
-    ..., r the row-major coordinate)."""
+    ..., r the row-major coordinate); the whole batch where the axes do
+    not divide it (`specs.batch_whole`, as `batch_pspecs` lays it out)."""
     from repro_torch.core import distributed as D
+    from repro_torch.launch.mesh import mesh_shape_dict
+    from repro_torch.sharding.specs import batch_whole
 
     axes = _batch_axes(mesh)
+    if batch_whole(x.shape[0], mesh_shape_dict(mesh), axes):
+        return x
     n, r = D._axis_size(mesh, axes), D._axis_rank(mesh, axes)
     b = x.shape[0] // n
     return x[r * b:(r + 1) * b]
@@ -528,6 +534,119 @@ def moe_forward_rank(mesh, rank, cases: list) -> dict:
         with mesh_context(mesh, _batch_axes(mesh)):
             res = forward(model, cfg, tokens=torch.from_numpy(_data_shard(tokens, mesh)))
         out[name] = {"logits": _whole_vocab(res.logits, cfg, mesh), "aux": float(res.aux_loss)}
+    return out
+
+
+def _probe_calls(module, name: str, sink: list, what):
+    """Wrap `module.name` so each call appends what(args) to `sink`."""
+    fn = getattr(module, name)
+
+    def wrapped(*a, **k):
+        sink.append(what(a, k))
+        return fn(*a, **k)
+
+    setattr(module, name, wrapped)
+
+
+def seq_cache_rank(mesh, rank, cases: list) -> dict:
+    """Serving a global batch that does not divide the batch axes (every
+    rank holds the whole batch, its slice of the KV / latent sequence):
+    [(name, cfg, reference numpy tree, tokens (B, S), decode steps,
+    s_max, through ServeEngine too?), ...] -> {name: {"prefill": the prefill's logits over the whole
+    vocab, "steps": each decode step's, "tokens": the greedy tokens
+    (prefill's, then each step's), "generate": `generate`'s, "cache":
+    {layer: {leaf: (shape, pspec)}}, "prefill_sites" / "step_sites": the collectives by site of
+    the prefill and of one decode step, "flash": the flash calls of the
+    prefill, "whole": the context's batch_whole, "engine": {"whole" /
+    "divides": a batch-1 ServeEngine's tokens and first cache layer's
+    shapes at global batch 1 / n_batch}}.  Steps 0 gives the prefill
+    alone."""
+    import torch
+
+    from repro_torch import convert
+    from repro_torch.core import distributed as D
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_cache
+    from repro_torch.models.model import vocab_lo
+    from repro_torch.serve.engine import (ServeEngine, argmax_tokens, generate,
+                                          make_decode_step, make_prefill)
+    from repro_torch.sharding import ctx as mesh_ctx
+    from repro_torch.sharding.ctx import mesh_context
+
+    flash: list = []
+    _probe_calls(ops, "flash_attention", flash, lambda a, k: tuple(a[1].shape))
+    out = {}
+    for name, cfg, params, tokens, steps, s_max, engine in cases:
+        model = convert.lm_params_block(params, cfg, mesh, device="cpu")
+        toks = torch.from_numpy(tokens)
+        rec = {"steps": []}
+        with mesh_context(mesh, _batch_axes(mesh), global_batch=tokens.shape[0]):
+            rec["whole"] = mesh_ctx.current().batch_whole
+            cache = init_cache(cfg, tokens.shape[0], s_max, device="cpu")
+            rec["cache"] = {i: {n: (list(t.shape), t.pspec) for n, t in layer.items()}
+                            for i, layer in enumerate(cache)}
+            D.reset_collectives()
+            flash.clear()
+            logits, cache = make_prefill(cfg, s_max)(model, {"tokens": toks}, cache)
+            rec["prefill_sites"] = _sites(D.COLLECTIVE_SITES)
+            rec["flash"] = list(flash)
+            rec["prefill"] = _whole_vocab(logits, cfg, mesh)
+            last = argmax_tokens(logits[:, -1], vocab_lo=vocab_lo(model, cfg))
+            last = last[:, None].to(torch.int32)
+            got = [_np(last)]
+            decode = make_decode_step(cfg)
+            for i in range(steps):
+                D.reset_collectives()
+                last, step_logits, cache = decode(model, cache, last, tokens.shape[1] + i)
+                if i == 0:
+                    rec["step_sites"] = _sites(D.COLLECTIVE_SITES)
+                rec["steps"].append(_whole_vocab(step_logits, cfg, mesh))
+                got.append(_np(last))
+            rec["tokens"] = np.concatenate(got, axis=1)
+            rec["generate"] = _np(generate(model, cfg, toks, steps + 1, s_max=s_max))
+        if engine:
+            rec["engine"] = {}
+            n_batch = D._axis_size(mesh, _batch_axes(mesh))
+            # ServeEngine at batch 1: the whole batch (global 1), and a rank's
+            # slot of a batch that divides (global n_batch, every rank the
+            # same prompt): its one-row prefill keeps the batch cache's layout
+            for label, global_batch in (("whole", 1), ("divides", n_batch)):
+                with mesh_context(mesh, _batch_axes(mesh), global_batch=global_batch):
+                    eng = ServeEngine(model, cfg, 1, s_max)
+                    eng.submit(0, toks[0], steps)
+                    while eng.step():
+                        pass
+                    rec["engine"][label] = {
+                        "tokens": eng.done[0],
+                        "slots": {n: list(t.shape) for n, t in eng.cache[0].items()}}
+        out[name] = rec
+    return out
+
+
+def moe_rows_rank(mesh, rank, cases: list) -> dict:
+    """The MoE under the mesh, recording the expert buffers the rank
+    multiplies: [(name, cfg, leaves, x the whole (B, S, d) batch), ...] ->
+    {name: {"out": this rank's data shard of the output, "buffers": the
+    (E_rank, rows, d) shape of every expert buffer, "me": its batch
+    coordinate}}."""
+    import torch
+
+    from repro_torch import convert
+    from repro_torch.core import distributed as D
+    from repro_torch.models import moe as M
+    from repro_torch.sharding.ctx import mesh_context
+
+    buffers: list = []
+    _probe_calls(M, "expert_ffn", buffers, lambda a, k: list(a[3].shape))
+    axes = _batch_axes(mesh)
+    out = {}
+    for name, cfg, leaves, x in cases:
+        layer = convert.moe_block(moe_from_numpy(leaves, cfg), cfg, mesh)
+        buffers.clear()
+        with mesh_context(mesh, axes):
+            y, _ = M.moe_ffn(layer, torch.from_numpy(_data_shard(x, mesh)), cfg)
+        out[name] = {"out": _np(y), "buffers": list(buffers),
+                     "me": D._axis_rank(mesh, axes)}
     return out
 
 
