@@ -48,7 +48,23 @@ Phases, each of which raises on failure (the script then exits non-zero):
              the precompute, none inside any replay; occupancy <= h; NAG
              finite) and SIM-LRU again with an online oracle (one `l2_topk`
              launch a batch of 8, NAG within 1e-3 of the precomputed run);
-6. churn   — the mutable catalog (benchmarks/churn_bench.py --full's
+5b. figures — the paper's figure grids and its regret check
+             (`repro_torch.experiments`' fig1-fig8, `repro_torch.regret`):
+             (a) every cell of each grid over its own traces at the reduced
+             sweep lists, n 2000 and 512 requests, on the card, each grid's
+             summary lines printed, no NaN NAG, no baseline above h; fig7's
+             sift_like cells (plain baselines, augmented twins, AÇAI with
+             one injected state and uniform set) card against the CPU port
+             at the card's c_f, NAG to 1e-3; (b) fig1's sift_like cell set
+             (AÇAI, the 27 tuned SIM / CLS / RND-LRU cells, LRU, QCACHE) at
+             the slice's 1M x 128, h 400, k 10 over the policies phase's
+             oracle (kmax 128): no `l2_topk` launch inside any replay,
+             `improvement_vs_2nd` printed, launches by shape counted with
+             the main path's; (c) Theorem IV.1's psi-regret a step at T
+             500 / 1500 / 4000 (n 4000, h 100, k 10) and whether it decays.
+             `--only figures` runs the build and this phase alone (its own
+             c_f and oracle) and prints no result;
+6. churn  — the mutable catalog (benchmarks/churn_bench.py --full's
              configuration): a rolling_catalog trace of 1M x 128 (half live,
              churn 0.1: 205 insert + expire events over 2048 requests), AÇAI
              through `build_policy` and `replay_with_churn` on the card, exact
@@ -263,7 +279,7 @@ and the tp phase's (1, 4) shares'.  The
 churn path's kernel rows (masked `l2_topk` over the slab, AÇAI's exact
 scan over it, the add-time assignment, the masked IVF probe and IVF-PQ
 shortlist on appended lists) count the churn phase's launches; the other
-rows the slice's, policies' and LM slice's.
+rows the slice's, policies', figures' and LM slice's.
 
 The last lines are the kernels JSON (one row a main-path shape of every
 kernel, with that shape's launches on the main path; the per-query pq_adc's
@@ -1157,7 +1173,8 @@ def policies_phase(torch, ops, catalog_np, reqs_np, dev):
     """The policy registry, the baselines and the experiments harness on the
     card: BENCH_experiments.json's grid, the sift_like AÇAI row card
     against CPU, then the six policies at 1M x 128 (launches counted by
-    shape into MAIN_SHAPES)."""
+    shape into MAIN_SHAPES).  Returns the 1M catalog's c_f and oracle, which
+    the figures phase reuses."""
     import numpy as np
 
     from repro_torch import convert
@@ -1279,8 +1296,141 @@ def policies_phase(torch, ops, catalog_np, reqs_np, dev):
         raise AssertionError("policies 1M: online and precomputed SIM-LRU NAG differ")
     MAIN_SHAPES.update(ops.SHAPE_LAUNCHES)
     log(f"policies: phase {time.perf_counter() - t_phase} s")
-    del oracle, pol
+    return c_f, oracle
+
+
+# the figures phase: the eight figure grids over their own traces at the
+# reduced sweep lists, at n 2000 and 512 requests; fig7's sift_like rows
+# card against CPU (baselines and AÇAI, one injected state and uniform set)
+FIG_SMALL = {"n": 2000, "t": 512}
+FIG_CARD_CPU_TOL = 1e-3
+# launches by (kernel, shape) of fig1's full-width cell set (the main path)
+FIGURES_SHAPES: Counter = Counter()
+
+
+def _fig_inject(torch):
+    """prepare= of run_grid: an AÇAI cell starts from the host DepRound of
+    its seed-0 state and takes uniforms from a seeded CPU generator, the
+    same numbers on either device."""
+    from repro_torch import convert
+    from repro_torch.core import policy
+
+    def prepare(pol, spec):
+        if spec.name != "acai":
+            return {}
+        n = pol.cache.catalog.shape[0]
+        st = policy.init_state(n, pol.cfg, seed=0, device="cpu")
+        pol.cache.state = convert.cache_state_from_numpy(st.y.numpy(), st.x.numpy(), 0,
+                                                         device=pol.cache.device)
+        return {"uniforms": torch.rand(FIG_SMALL["t"] // pol.batch, n,
+                                       generator=torch.Generator().manual_seed(5))}
+
+    return prepare
+
+
+def _check_rows(what, rows) -> None:
+    """No NaN NAG; a baseline never holds more than h objects."""
+    import numpy as np
+
+    for r in rows:
+        if not np.isfinite(r["nag_full"]):
+            raise AssertionError(f"{what} {r['trace']['name']}/{r['label']}: NAG "
+                                 f"{r['nag_full']}")
+        if r["policy"]["policy"] != "acai" and r["occupancy_max"] > r["h"]:
+            raise AssertionError(f"{what} {r['trace']['name']}/{r['label']}: occupancy "
+                                 f"{r['occupancy_max']} > h {r['h']}")
+
+
+def figures_phase(torch, ops, dev, catalog_np, reqs_np, c_f=None, oracle=None) -> None:
+    """The paper's figure grids and its regret check on the card: (a) fig1-
+    fig8 at FIG_SMALL (summary lines printed; fig7's sift_like rows card
+    against CPU), (b) fig1's sift_like cell set at 1M x 128 over the
+    policies phase's oracle (launches by shape into MAIN_SHAPES), (c) the
+    regret check at the reference's reduced sizes."""
+    import numpy as np
+
+    from repro_torch import experiments as X
+    from repro_torch import regret as R
+    from repro_torch.core import baselines as B
+    from repro_torch.core.costs import calibrate_fetch_cost
+    from repro_torch.core.trace import TraceSpec
+
+    t_phase = time.perf_counter()
+    inject = _fig_inject(torch)
+    card_rows = {}
+    for name in X.FIGURES:
+        t0 = time.perf_counter()
+        rows = X.run_grid(X.GRIDS[name], sizes=FIG_SMALL, device=dev,
+                          prepare=inject if name == "fig7" else None)
+        _check_rows(f"figures {name}", rows)
+        card_rows[name] = rows
+        log(f"figures {name}: {len(rows)} rows on the card at n {FIG_SMALL['n']}, t "
+            f"{FIG_SMALL['t']} in {time.perf_counter() - t0} s")
+    # fig7's sift_like cells through the CPU port at the card's c_f (the
+    # AÇAI spec carries it unrounded)
+    sift = [r for r in card_rows["fig7"] if r["trace"]["name"] == "sift_like"]
+    c_f7 = next(r["policy"]["c_f"] for r in sift if r["policy"]["policy"] == "acai")
+    t0 = time.perf_counter()
+    cpu = X.run_grid(X.GRIDS["fig7"], trace_filter="sift_like", sizes=FIG_SMALL,
+                     device="cpu", calibrate=lambda cat, kth: c_f7, prepare=inject)
+    if [r["label"] for r in cpu] != [r["label"] for r in sift]:
+        raise AssertionError("figures fig7: the CPU rows' cells differ from the card's")
+    worst = {"baseline": (0.0, ""), "acai": (0.0, "")}
+    for g, c in zip(sift, cpu):
+        kind = "acai" if g["policy"]["policy"] == "acai" else "baseline"
+        diff = abs(g["nag_full"] - c["nag_full"])
+        worst[kind] = max(worst[kind], (diff, g["label"]))
+        if diff > FIG_CARD_CPU_TOL:
+            raise AssertionError(f"figures fig7 {g['label']}: NAG card {g['nag_full']} "
+                                 f"cpu {c['nag_full']}")
+    log(f"figures fig7 sift_like card against CPU ({len(cpu)} cells, CPU {time.perf_counter() - t0} "
+        f"s): max |NAG diff| baselines {worst['baseline'][0]} ({worst['baseline'][1]}), "
+        f"acai {worst['acai'][0]} (<= {FIG_CARD_CPU_TOL})")
+
+    # (b) fig1's sift_like cell set at full width over one oracle
+    ops.reset_launches()
+    if oracle is None:
+        c_f = calibrate_fetch_cost(catalog_np, kth=50, sample=256, device=dev)
+        oracle = B.ServerOracle(catalog_np, reqs_np, kmax=ORACLE_KMAX, device=dev)
+    tspec = TraceSpec("sift_like", {"n": N_FULL, "d": D_FULL, "t": T_FULL})
+    specs = X.GRIDS["fig1"].policy_specs(c_f, H_FULL, K_FULL, False)
+    kmax = max(int(sp.params.get("k_prime") or 0) for sp in specs)
+    if kmax > oracle.kmax:
+        raise AssertionError(f"figures 1M: k' {kmax} above the oracle's kmax {oracle.kmax}")
+    t0 = time.perf_counter()
+    rows = []
+    for spec in specs:
+        before = ops.LAUNCHES["l2_topk"]
+        r = X.run_cell("fig1", tspec, spec, catalog_np, reqs_np, oracle, c_f, 50, H_FULL, 8,
+                       dev)
+        rows.append(r)
+        log(f"figures 1M fig1/sift_like/{spec.label}: NAG={r['nag_full']} "
+            f"hit_ratio={r['hit_ratio']} us/request={r['us_per_request']} "
+            f"p50_step_us={r['p50_step_us']} occupancy_max={r['occupancy_max']}")
+        if ops.LAUNCHES["l2_topk"] != before:
+            raise AssertionError(f"figures 1M {spec.label}: l2_topk launched "
+                                 f"{ops.LAUNCHES['l2_topk'] - before} times inside the replay")
+    _check_rows("figures 1M fig1", rows)
+    FIGURES_SHAPES.update(ops.SHAPE_LAUNCHES)
+    MAIN_SHAPES.update(ops.SHAPE_LAUNCHES)
+    for label, value in X._improvement_vs_2nd(rows):
+        log(f"figures 1M fig1/sift_like/{label}: {value} ({len(rows)} cells, "
+            f"{time.perf_counter() - t0} s; launches {dict(ops.SHAPE_LAUNCHES)})")
+    del oracle
+
+    # (c) Theorem IV.1 at the reference's reduced sizes
+    t0 = time.perf_counter()
+    rates = R.main(kind="sift", device=dev)
+    ts = sorted(rates)
+    if not all(np.isfinite(v) for v in rates.values()):
+        raise AssertionError(f"figures regret: rates {rates}")
+    decays = all(rates[a] > rates[b] for a, b in zip(ts, ts[1:]))
+    log(f"figures regret (n 4000, h 100, k 10): psi-regret a step "
+        + ", ".join(f"T {t_len}: {rates[t_len]}" for t_len in ts)
+        + f"; {'decays' if decays else 'does not decay'} with T "
+        f"({time.perf_counter() - t0} s)")
     torch.cuda.empty_cache()
+    log(f"figures: phase {time.perf_counter() - t_phase} s")
 
 
 def churn_small_phase(torch, ops, dev) -> None:
@@ -4693,8 +4843,9 @@ def train_profile(torch, ops, card: str) -> None:
 
 def main() -> int:
     only = sys.argv[2] if sys.argv[1:2] == ["--only"] and len(sys.argv) == 3 else None
-    if sys.argv[1:] and only not in ("serving", "sharded", "moe_ep", "tp", "long", "cost"):
-        print("usage: chip_smoke.py [--only serving|sharded|moe_ep|tp|long|cost]",
+    if sys.argv[1:] and only not in ("serving", "sharded", "moe_ep", "tp", "long", "cost",
+                                     "figures"):
+        print("usage: chip_smoke.py [--only serving|sharded|moe_ep|tp|long|cost|figures]",
               file=sys.stderr)
         return 2
     if not (SRC / "repro_torch").is_dir():
@@ -4745,6 +4896,9 @@ def main() -> int:
             long_phase(torch, dev, card)
         elif only == "cost":
             cost_phase(torch, ops, dev, card)
+        elif only == "figures":
+            cat_np, reqs_np, _ = trace.sift_like(n=N_FULL, d=D_FULL, t=T_FULL, seed=0)
+            figures_phase(torch, ops, dev, cat_np, reqs_np)
         else:
             cat_np, reqs_np, _ = trace.sift_like(n=N_FULL, d=D_FULL, t=T_FULL, seed=0)
             sharded_phase(torch, ops, ref, torch.from_numpy(cat_np).to(dev),
@@ -4775,8 +4929,9 @@ def main() -> int:
     kernel_phase(torch, ops, ref, catalog, reqs, ivf_index, pq_index, dev)
     parity_phase(torch, ops, dev)
     slice_phase(torch, ops, cat_np, reqs_np, dev)
-    policies_phase(torch, ops, cat_np, reqs_np, dev)
-    del cat_np, reqs_np
+    c_f, oracle = policies_phase(torch, ops, cat_np, reqs_np, dev)
+    figures_phase(torch, ops, dev, cat_np, reqs_np, c_f, oracle)
+    del cat_np, reqs_np, oracle
     torch.cuda.empty_cache()
     churn_cases = churn_phase(torch, ops, ref, dev)
     serving_phase(torch, ops, dev)
@@ -4815,13 +4970,14 @@ def main() -> int:
         log(f"churn path {name}: {total} launches; by shape: "
             + ", ".join(f"{dims} x {n}" for (k, dims), n in sorted(CHURN_SHAPES.items())
                         if k == name))
-    # the serving phase's shapes: each a row's (none expected new: they
-    # are the retrieval slice's and the churn path's)
-    for counts in (SERVING_SHAPES, SERVING_CHURN_SHAPES):
+    # the serving and figures phases' shapes: each a row's (none expected
+    # new: they are the retrieval slice's, the churn path's and the
+    # policies phase's)
+    for counts in (SERVING_SHAPES, SERVING_CHURN_SHAPES, FIGURES_SHAPES):
         for (name, dims), n in sorted(counts.items()):
             rowed = any(shape_launches(Counter({(name, dims): 1}), *r["key"])
                         for r in rows)
-            log(f"serving path {name} {dims} x {n}: "
+            log(f"serving / figures path {name} {dims} x {n}: "
                 f"{'a row of the kernels line' if rowed else 'NEW to the main path, no row'}")
     for row in rows:
         row["launches"] = shape_launches(CHURN_SHAPES if row.pop("churn") else MAIN_SHAPES,
