@@ -22,13 +22,14 @@ reference drew from its own keys.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import resolve_device, spans
 from repro_torch.core import gain as gain_lib
 from repro_torch.core import oma as oma_lib
 from repro_torch.core import rounding as rounding_lib
@@ -37,6 +38,9 @@ from repro_torch.index.base import (build_index, check_finite_queries, check_rem
                                     compact_rows, grow_rows, live_remap, resolve_spec,
                                     run_device, slab_append)
 from repro_torch.kernels.ref import smallest_k
+
+_SERVE, _SCATTER, _OMA, _ROUND = (spans.span(p) for p in ("serve", "scatter", "oma", "round"))
+_UPLOAD = spans.wait("upload")
 
 
 class StepMetrics(NamedTuple):
@@ -227,14 +231,15 @@ def finish_step_batched(cfg_up: AcaiConfig, state: CacheState, u, batch: int,
     """Rounding + metric assembly + state advance: `fetched` books the
     batch's cache-update traffic on its last request, `occupancy` repeats
     the post-update value."""
-    x_new = _round_state(cfg_up, u, y_new, state.y, state.x, state.t, width=batch)
-    moved = rounding_lib.movement(x_new, state.x)
-    fetched = torch.zeros((batch,), dtype=moved.dtype, device=state.y.device)
-    fetched[-1] = moved
-    metrics = StepMetrics(
-        gain_int=gain_int, gain_frac=gain_frac, cost=cost,
-        served_local=served_local, fetched=fetched,
-        occupancy=torch.sum(x_new).expand(batch).clone())
+    with _ROUND:
+        x_new = _round_state(cfg_up, u, y_new, state.y, state.x, state.t, width=batch)
+        moved = rounding_lib.movement(x_new, state.x)
+        fetched = torch.zeros((batch,), dtype=moved.dtype, device=state.y.device)
+        fetched[-1] = moved
+        metrics = StepMetrics(
+            gain_int=gain_int, gain_frac=gain_frac, cost=cost,
+            served_local=served_local, fetched=fetched,
+            occupancy=torch.sum(x_new).expand(batch).clone())
     return CacheState(y_new, x_new, state.t + batch, state.gen), metrics
 
 
@@ -280,24 +285,27 @@ def apply_candidates_batched(cfg: AcaiConfig, cfg_up: AcaiConfig,
     bool, on a mutable catalog, keeps y = 0 on dead rows after the OMA
     step (the projection's floor would give them mass again)."""
     n = state.y.shape[0]
-    ids_c = torch.clamp_max(ids, n - 1)
-    zero = torch.zeros((), dtype=state.y.dtype, device=state.y.device)
-    x_cand = torch.where(valid, state.x[ids_c], zero)
-    y_cand = torch.where(valid, state.y[ids_c], zero)
+    with _SERVE:
+        ids_c = torch.clamp_max(ids, n - 1)
+        zero = torch.zeros((), dtype=state.y.dtype, device=state.y.device)
+        x_cand = torch.where(valid, state.x[ids_c], zero)
+        y_cand = torch.where(valid, state.y[ids_c], zero)
 
-    served = gain_lib.serve_batch(d, x_cand, cfg.k, cfg.c_f)
-    gain_frac, g_cand = gain_lib.gain_and_subgradient_batch(d, y_cand, cfg.k, cfg.c_f)
+        served = gain_lib.serve_batch(d, x_cand, cfg.k, cfg.c_f)
+        gain_frac, g_cand = gain_lib.gain_and_subgradient_batch(d, y_cand, cfg.k, cfg.c_f)
+        served_local = torch.sum(served.from_cache.to(torch.int32), dim=1)
 
-    # the reference's .at[].add scatter, in a fixed order (scatter_rows_sum)
-    g_full = scatter_rows_sum(n, ids_c, g_cand / batch, valid)
-    y_new = oma_lib.oma_update(state.y, g_full, cfg.h, cfg_up.oma)
-    if alive is not None:
-        y_new = torch.where(alive, y_new, zero)
+    with _SCATTER:
+        # the reference's .at[].add scatter, in a fixed order (scatter_rows_sum)
+        g_full = scatter_rows_sum(n, ids_c, g_cand / batch, valid)
+    with _OMA:
+        y_new = oma_lib.oma_update(state.y, g_full, cfg.h, cfg_up.oma)
+        if alive is not None:
+            y_new = torch.where(alive, y_new, zero)
     if u is None:
         u = draw_uniforms(state)
-    return finish_step_batched(
-        cfg_up, state, u, batch, y_new, served.gain, gain_frac, served.cost,
-        torch.sum(served.from_cache.to(torch.int32), dim=1))
+    return finish_step_batched(cfg_up, state, u, batch, y_new, served.gain, gain_frac,
+                               served.cost, served_local)
 
 
 def make_step_batched(cfg: AcaiConfig, candidate_fn_batched: Callable, batch: int,
@@ -494,6 +502,7 @@ class AcaiCache:
             cfg = dataclasses.replace(cfg, index=resolved)
         self.cfg = cfg
         self.mesh = mesh
+        self.spans = spans.Recorder()   # host time a step by phase, waits
         self._sharded_kwargs = dict(sharded_kwargs or {})
         self.index = None  # the spec-built index (None: exact or escape hatch)
         # mutable-catalog bookkeeping: the cache serves the static step
@@ -684,14 +693,21 @@ class AcaiCache:
         injects the step's N rounding uniforms.  With a remote backend
         attached (`attach_remote`) the batch goes through the resilience
         ladder.  A batch given on the host keeps its host copy for the
-        answer tier's keys."""
-        host = host_rows(rs) if self.answer_cache is not None else None
-        rs = torch.atleast_2d(torch.as_tensor(rs, dtype=torch.float32)).to(
-            self.device).contiguous()
-        check_finite_queries(rs, "AcaiCache.serve_update_batch")
-        if self._res is not None:
-            return self._res.serve_update_batch(rs, u=u, host=host)
-        return self._serve_batch_direct(rs, u=u, host=host)
+        answer tier's keys.  The step's host time by phase and its waits on
+        the card go to `self.spans` (`repro_torch.spans`); a batch that
+        does not already lie on the cache's device is uploaded (the wait
+        `upload`)."""
+        with self.spans.step():
+            host = host_rows(rs) if self.answer_cache is not None else None
+            on_device = isinstance(rs, torch.Tensor) and rs.device == self.device
+            with contextlib.nullcontext() if on_device else _UPLOAD:
+                rs = torch.atleast_2d(torch.as_tensor(rs, dtype=torch.float32)).to(
+                    self.device).contiguous()
+            spans.batch(rs.shape[0])
+            check_finite_queries(rs, "AcaiCache.serve_update_batch")
+            if self._res is not None:
+                return self._res.serve_update_batch(rs, u=u, host=host)
+            return self._serve_batch_direct(rs, u=u, host=host)
 
     def _serve_batch_direct(self, rs: torch.Tensor, u=None, host=None) -> StepMetrics:
         """The fault-oblivious step on a (B, d) batch on the cache's device

@@ -31,6 +31,8 @@ from typing import Any, Callable, Dict, Mapping, Protocol, Tuple, runtime_checka
 import numpy as np
 import torch
 
+from repro_torch import spans
+
 
 @runtime_checkable
 class Index(Protocol):
@@ -68,14 +70,20 @@ def arrays_bytes(*tensors) -> int:
     return int(sum(t.numel() * t.element_size() for t in tensors if t is not None))
 
 
+_CHECK_FINITE = spans.wait("check_finite")
+
+
 def check_finite_queries(rs: torch.Tensor, where: str) -> None:
     """Reject NaN/Inf query vectors with a clear error instead of letting
-    them corrupt top-k and OMA state.  Reads one flag back from the device."""
+    them corrupt top-k and OMA state.  Reads one flag back from the device
+    (the wait `check_finite`)."""
     if not rs.dtype.is_floating_point:
         return
     bad = ~torch.isfinite(rs.reshape(rs.shape[0], -1) if rs.dim() > 1
                           else rs.reshape(1, -1)).all(dim=1)
-    if bool(bad.any()):
+    with _CHECK_FINITE:
+        any_bad = bool(bad.any())
+    if any_bad:
         rows = torch.nonzero(bad).flatten().tolist()
         raise ValueError(
             f"{where}: query vector(s) contain NaN/Inf (rows {rows}) — "

@@ -16,10 +16,15 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import spans
 from repro_torch.core.costs import BIG_COST
 from repro_torch.core.policy import dedup_mask_batched, per_request_view
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import smallest_k
+
+_REMOTE, _LOCAL, _ASSEMBLE = (spans.span(f"candidates.{p}")
+                              for p in ("remote", "local", "assemble"))
+_NONZERO = spans.wait("nonzero")
 
 
 def _local_cap(n: int, c_local: int, h: int | None) -> int:
@@ -61,9 +66,13 @@ def _local_slab(rs, x, catalog, cap: int, c_local: int, alive=None):
     first) and scanned by one (B, cap) `pairwise_l2` launch; with `alive`,
     dead rows are skipped.  A miss becomes id n, BIG_COST.  torch.nonzero
     has a data-dependent size, so it reads the count back to the host (one
-    sync a step, where the reference pads inside the trace)."""
+    sync a step, the wait `nonzero`, where the reference pads inside the
+    trace)."""
     n = catalog.shape[0]
-    cached = torch.nonzero(x > 0.5).flatten()[:cap]
+    held = x > 0.5
+    with _NONZERO:
+        cached = torch.nonzero(held)
+    cached = cached.flatten()[:cap]
     cached = torch.cat([cached, cached.new_full((cap - cached.shape[0],), -1)])
     safe = torch.clamp_min(cached, 0)
     cached_embs = catalog[safe].contiguous()                           # (cap, d)
@@ -100,9 +109,13 @@ def index_candidate_fn_batched(index, catalog: torch.Tensor, c_remote: int,
 
     def fn(rs: torch.Tensor, x: torch.Tensor):
         rs = rs.contiguous()
-        d_remote, ids_remote = index.query(rs, c_remote)       # (B, c_remote)
-        remote = _remote_slab(rs, catalog, d_remote, ids_remote, c_remote, rerank)
-        return _assemble(*remote, *_local_slab(rs, x, catalog, cap, c_local), n)
+        with _REMOTE:
+            d_remote, ids_remote = index.query(rs, c_remote)   # (B, c_remote)
+            remote = _remote_slab(rs, catalog, d_remote, ids_remote, c_remote, rerank)
+        with _LOCAL:
+            local = _local_slab(rs, x, catalog, cap, c_local)
+        with _ASSEMBLE:
+            return _assemble(*remote, *local, n)
 
     return fn
 
@@ -125,11 +138,14 @@ def mutable_index_candidate_fn(index, c_remote: int, c_local: int,
 
     def fn(rs: torch.Tensor, x: torch.Tensor):
         rs = rs.contiguous()
-        d_remote, ids_remote = index.query(rs, c_remote)
-        catalog, alive = index.embeddings, index.valid
-        remote = _remote_slab(rs, catalog, d_remote, ids_remote, c_remote, rerank, alive)
-        cap = _local_cap(index.capacity, c_local, h)
-        return _assemble(*remote, *_local_slab(rs, x, catalog, cap, c_local, alive),
-                         catalog.shape[0])
+        with _REMOTE:
+            d_remote, ids_remote = index.query(rs, c_remote)
+            catalog, alive = index.embeddings, index.valid
+            remote = _remote_slab(rs, catalog, d_remote, ids_remote, c_remote, rerank, alive)
+        with _LOCAL:
+            cap = _local_cap(index.capacity, c_local, h)
+            local = _local_slab(rs, x, catalog, cap, c_local, alive)
+        with _ASSEMBLE:
+            return _assemble(*remote, *local, catalog.shape[0])
 
     return fn

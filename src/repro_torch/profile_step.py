@@ -20,8 +20,13 @@ run, the wall time per step, the device busy time per step (the union of
 kernel intervals on the card's timeline), the idle share (1 - busy /
 wall), the device operations a step (kernels, copies and fills: each one a
 launch the host paid for), the device time by kernel name and the host
-operations taking the most host time of their own.  Needs a CUDA card; it
-does not fall back.
+operations taking the most host time of their own.  For each serving arm
+it then runs `--steps` more steps with no profiler and prints the cache's
+own host time by phase (`repro_torch.spans`: the median ms of each span,
+of the waits and of the step's time outside its phases) and its waits on
+the card a step (the batches lie on the card already, so no `upload`).
+In the profile the spans are host ranges named `acai.<phase>`.  Needs a
+CUDA card; it does not fall back.
 """
 
 from __future__ import annotations
@@ -74,6 +79,24 @@ def _profile(label: str, fn, steps: int) -> None:
             for e in prof.key_averages() if e.self_cpu_time_total > 0]
     for key, us, count in sorted(host, key=lambda r: -r[1])[:12]:
         print(f"   host {us:10.1f} us/step  x{count:<3d} {key[:85]}")
+
+
+def _print_phases(cache, fn, first: int, steps: int) -> None:
+    """Run fn(first), ..., fn(first + steps - 1) with no profiler and print
+    the median host ms of each of the cache's spans and its waits a step
+    over its unprofiled steps, the first one (a warm-up) left out."""
+    from repro_torch import spans
+
+    for i in range(steps):
+        fn(first + i)
+    torch.cuda.synchronize()
+    snap = cache.spans.snapshot()
+    rows = ~snap["profiled"]
+    rows[0] = False
+    med = spans.medians_ms(snap, rows)
+    print(f"   spans, median host ms a step over {int(rows.sum())} unprofiled steps: "
+          + " ".join(f"{k}={v:.4f}" for k, v in med.items() if k != "waits")
+          + f"; waits a step {med['waits']:g}", flush=True)
 
 
 def profile_lm(steps: int, dev: torch.device) -> None:
@@ -165,12 +188,16 @@ def main() -> None:
             kw = {"device": dev} if m is None else {"mesh": m}
             cache = policy.AcaiCache(cat, dataclasses.replace(cfg, index=spec),
                                      state=policy.copy_state(state0), **kw)
-            warm = 4
+            warm, nb = 4, rq.shape[0] // b
+
+            def step(i):
+                j = i % nb
+                cache.serve_update_batch(rq[j * b:(j + 1) * b])
+
             for i in range(warm):
-                cache.serve_update_batch(rq[i * b:(i + 1) * b])
-            _profile(f"{name} B={b}",
-                     lambda i: cache.serve_update_batch(rq[(warm + i) * b:(warm + i + 1) * b]),
-                     args.steps)
+                step(i)
+            _profile(f"{name} B={b}", lambda i: step(warm + i), args.steps)
+            _print_phases(cache, step, warm + args.steps, args.steps)
     if store is not None:
         import shutil
 
