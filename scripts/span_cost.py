@@ -3,7 +3,7 @@
 
     PYTHONPATH=src python3 scripts/span_cost.py [--n 200000] [--repeat 9]
 
-Times `with span("serve"): pass` and `with wait("nonzero"): pass` inside an
+Times `with span("serve"): pass` and `with wait("upload"): pass` inside an
 open step, and an empty step (the copy of its record into the ring
 included), first with no profiler and then under torch.profiler recording
 the CPU's activity (where each also opens its `acai.<phase>` host range),
@@ -41,7 +41,7 @@ def _cpu() -> str:
 
 def measure(n: int, repeat: int) -> dict:
     rec = spans.Recorder(capacity=16)
-    env = {"S": spans.span("serve"), "W": spans.wait("nonzero"), "R": rec}
+    env = {"S": spans.span("serve"), "W": spans.wait("upload"), "R": rec}
     loop = timeit.repeat("pass", globals=env, number=n, repeat=repeat)
     out = {}
     for prof in (False, True):

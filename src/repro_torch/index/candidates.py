@@ -24,7 +24,6 @@ from repro_torch.kernels.ref import smallest_k
 
 _REMOTE, _LOCAL, _ASSEMBLE = (spans.span(f"candidates.{p}")
                               for p in ("remote", "local", "assemble"))
-_NONZERO = spans.wait("nonzero")
 
 
 def _local_cap(n: int, c_local: int, h: int | None) -> int:
@@ -64,16 +63,13 @@ def _local_slab(rs, x, catalog, cap: int, c_local: int, alive=None):
     """The cached rows' candidates (ids (B, c_local) int64, d): the rows x
     holds gathered once for the whole batch (at most `cap`, the lowest ids
     first) and scanned by one (B, cap) `pairwise_l2` launch; with `alive`,
-    dead rows are skipped.  A miss becomes id n, BIG_COST.  torch.nonzero
-    has a data-dependent size, so it reads the count back to the host (one
-    sync a step, the wait `nonzero`, where the reference pads inside the
-    trace)."""
+    dead rows are skipped.  A miss becomes id n, BIG_COST.  The gathered
+    ids are a fixed-width (cap,) vector built on the device, -1 past the
+    held rows, as the reference's `jnp.nonzero(size=cap, fill_value=-1)`:
+    nothing is read back, so the host goes on dispatching while the remote
+    scan runs."""
     n = catalog.shape[0]
-    held = x > 0.5
-    with _NONZERO:
-        cached = torch.nonzero(held)
-    cached = cached.flatten()[:cap]
-    cached = torch.cat([cached, cached.new_full((cap - cached.shape[0],), -1)])
+    cached = torch.nonzero_static(x > 0.5, size=cap, fill_value=-1).flatten()
     safe = torch.clamp_min(cached, 0)
     cached_embs = catalog[safe].contiguous()                           # (cap, d)
     d_loc = ops.pairwise_l2(rs, cached_embs)                          # (B, cap)

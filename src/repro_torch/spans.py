@@ -23,11 +23,11 @@ runs it: `step` (entry to return), the wait `upload` (a batch from the
 host to the cache's device), the wait `check_finite` (the read-back of
 `index.base.check_finite_queries`, at each of its calls), the candidate
 generator's `candidates.remote` (the index query and the remote slab),
-`candidates.local` (the cached rows' slab, holding the wait `nonzero`) and
-`candidates.assemble`, then `serve` (the gathers, Eq. (2), the gain and
-subgradient), `scatter`, `oma` (the OMA step with its projection) and
-`round` (`policy.finish_step_batched`).  Each name is one slot of the
-record, so a span does not nest inside itself.
+`candidates.local` (the cached rows' slab) and `candidates.assemble`, then
+`serve` (the gathers, Eq. (2), the gain and subgradient), `scatter`, `oma`
+(the OMA step with its projection) and `round`
+(`policy.finish_step_batched`).  Each name is one slot of the record, so a
+span does not nest inside itself.
 
 `snapshot()` gives the records of the recorder built last (the last
 `AcaiCache`), oldest first; the module keeps that recorder after its cache
@@ -43,8 +43,8 @@ import numpy as np
 import torch
 
 PHASES = ("step", "upload", "check_finite", "candidates.remote", "candidates.local",
-          "nonzero", "candidates.assemble", "serve", "scatter", "oma", "round")
-WAITS = ("upload", "check_finite", "nonzero")
+          "candidates.assemble", "serve", "scatter", "oma", "round")
+WAITS = ("upload", "check_finite")
 # the phases that are not waits and open directly inside `step`; every wait
 # opens either directly inside `step` or inside one of these
 STEP_PHASES = ("candidates.remote", "candidates.local", "candidates.assemble", "serve",

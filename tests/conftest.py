@@ -44,3 +44,7 @@ def make_instance(rng, n=24, k=4, c_f=0.7, scale=2.0):
     y = rng.random(n).astype(np.float32)
     x = (rng.random(n) < 0.4).astype(np.float32)
     return d, y, x, k, c_f
+
+
+def pytest_configure(config):
+    config.addinivalue_line("markers", "chip: needs a CUDA card; skips without one")
